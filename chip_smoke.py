@@ -6,23 +6,36 @@ NVIDIA GPU.
 
 1. Fails (exit 1, no result) unless ``torch.cuda.is_available()``.
 2. Prints the card's name and power limit, then builds every CUDA kernel
-   of the serving path from ``src/repro_torch/csrc`` (one nvcc per
+   of the serving paths from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) and prints the build time.
 3. Kernel phase: each kernel against its plain PyTorch version on the
    card at the shapes of full-width repro-100m serving, with its error,
    tolerance, device time (CUDA events, L2 flushed before each launch),
    the plain version's time, the least time the card could take (bound)
    and the time of one PyTorch library call computing the same function
-   (a yardstick the port never calls).
-4. Small-input check: the reduced float32 model served through the
-   kernels gives the same greedy tokens as through the plain versions.
-5. End-to-end phase: ``ServeEngine(quantize=True, n_slots=8,
-   max_len=1024, decode_chunk=8)`` on full-width repro-100m (bf16, random
-   weights from a seed) serves 16 requests (prompts 64/200/511 tokens,
-   ``max_new=64``); every kernel's launch count is read over that run.
-   The first wave's logits are held against the plain path, 4 decode
-   chunks are profiled for the device's idle share, and the plain path
-   serves the same requests for greedy-token agreement.
+   (a yardstick the port never calls). The reuse matmul's multiply count
+   is held against ``reuse_mult_count``.
+4. Small-input checks on the reduced float32 model: the dense int8 engine
+   gives the same greedy tokens through the kernels as through the plain
+   versions, and so does a ``paged=True, impl="reuse"`` engine against the
+   dense engine through the plain versions.
+5. End-to-end runs on full-width repro-100m (bf16, random weights from a
+   seed), each with every launch count set to 0 just before it and read
+   just after, and each checking its own kernels:
+   a. dense: ``ServeEngine(quantize=True, n_slots=8, max_len=1024,
+      decode_chunk=8)`` serves 16 requests (prompts 64/200/511 tokens,
+      ``max_new=64``): axllm_matmul, decode_attention, flash_attention;
+   b. reuse + paged: the same engine with ``impl="reuse", paged=True,
+      kv_block_size=16`` serves 16 requests that share a 256-token prefix
+      (tails 64/200/255 tokens): reuse_matmul, paged_decode_attention,
+      and flash_attention on the wave with no prefix hit.
+   Each holds its first wave's logits against the plain path, profiles 4
+   decode chunks for the device's idle share, and serves the same
+   requests through the plain path for greedy-token agreement. Run b also
+   holds the first-token logits of its first prefix-hit wave, as served
+   (prefix KV gathered out of the pool, suffix-only prefill), against a
+   plain dense prefill of the whole prompts, and reads the reuse rate the
+   kernel achieves on each projection.
 6. Prints the ``kernels`` JSON line, then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -45,6 +58,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 N_SLOTS, MAX_LEN, DECODE_CHUNK = 8, 1024, 8
 PROMPT_LENS, N_REQUESTS, MAX_NEW = (64, 200, 511), 16, 64
+SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 
@@ -129,8 +143,7 @@ def kernel_phase(dev, flush):
     from repro_torch.core.quantization import QuantConfig, dequantize, \
         quantize
     from repro_torch.kernels import ref
-    from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda, \
-        kernel_scale
+    from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -158,7 +171,7 @@ def kernel_phase(dev, flush):
         ms = time_ms(lambda: axllm_matmul_cuda(x, qt), flush)
         plain = time_ms(lambda: ref.axllm_matmul_ref(x, qt), flush)
         lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
-        nb = nbytes(x, qt.codes, kernel_scale(qt), got)
+        nb = nbytes(x, qt.codes, qt.kernel_scale, got)
         shape = f"M{m} K{k} N{n} {qc.bits}b-{qc.mode}-{qc.granularity}"
         rows.append(case_row("axllm_matmul", shape, err, tol, ms, plain, lib,
                              nb, 2.0 * m * k * n, "bfloat16"))
@@ -237,11 +250,118 @@ def kernel_phase(dev, flush):
     return rows
 
 
+def reuse_paged_kernel_phase(dev, flush):
+    """The two kernels of the reuse + paged path: reuse_matmul at the 7
+    projections' K x N (decode M = n_slots and a prefill wave of 8 x 512
+    rows) and in every alphabet, paged_decode_attention at one decode
+    step of the 8 slots through shuffled, shared block tables."""
+    import torch
+    from repro_torch.core.quantization import QuantConfig, dequantize, \
+        quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    rows = []
+    int8 = QuantConfig(8)
+    shapes = [(768, 768), (768, 256), (768, 2048), (2048, 768)]
+    cases = [(m, k, n, int8) for m in (N_SLOTS, 4096) for k, n in shapes]
+    cases += [(N_SLOTS, 768, 2048, QuantConfig(4, "affine", pack=True)),
+              (N_SLOTS, 768, 2048, QuantConfig(8, "affine", "per_group")),
+              (N_SLOTS, 768, 2048, QuantConfig(4, "codebook", pack=True))]
+    for m, k, n, qc in cases:
+        x = torch.randn(m, k, generator=g, device=dev).to(bf16)
+        qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
+                      qc)
+        want = ref.reuse_matmul_ref(x, qt)
+        got, mults = reuse_matmul_cuda(x, qt, with_stats=True)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        count = ref.reuse_mult_count(qt, segment(n))
+        rate = 1.0 - int(mults) / (k * n)
+        shape = f"M{m} K{k} N{n} {qc.bits}b-{qc.mode}-{qc.granularity}"
+        print(f"kernel reuse_matmul {shape}: mults {int(mults)} "
+              f"(reuse_mult_count {count}), reuse rate {rate:.4f}",
+              flush=True)
+        check(int(mults) == count, f"reuse_matmul {shape} counted "
+                                   f"{int(mults)} multiplies, not {count}")
+        w_deq = dequantize(qt, bf16)
+        ms = time_ms(lambda: reuse_matmul_cuda(x, qt), flush)
+        plain = time_ms(lambda: ref.reuse_matmul_ref(x, qt), flush)
+        lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
+        nb = nbytes(x, qt.codes, qt.kernel_scale, got)
+        row = case_row("reuse_matmul", shape, err, tol, ms, plain, lib, nb,
+                       2.0 * m * k * n, "bfloat16")
+        rows.append(dict(row, mults=int(mults), reuse_rate=rate))
+
+    # one decode step of the 8 slots: tables shuffled over the pool, rows
+    # sharing prefix blocks, a length-0 row and one past its table
+    b, h, hk, d, bs, mb = N_SLOTS, 12, 4, 64, KV_BLOCK, MAX_LEN // KV_BLOCK
+    nb_pool = 2 * N_SLOTS * mb + 2
+    bt = (1 + torch.randperm(nb_pool - 1, generator=g, device=dev)[:b * mb])
+    bt = bt.reshape(b, mb).to(torch.int32)
+    bt[1:, :SHARED_PREFIX // bs] = bt[0, :SHARED_PREFIX // bs]
+    length = torch.tensor([0, 320, 456, 511, 700, 1000, mb * bs,
+                           mb * bs + 300], dtype=torch.int32, device=dev)
+    valid = torch.clamp(length, 0, mb * bs)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(bf16)
+    for quant in (False, True):
+        if quant:
+            kp = torch.randint(-127, 128, (nb_pool, bs, hk, d), generator=g,
+                               device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, (nb_pool, bs, hk, d), generator=g,
+                               device=dev, dtype=torch.int8)
+            ks = torch.rand(nb_pool, bs, hk, 1, generator=g, device=dev) * .02
+            vs = torch.rand(nb_pool, bs, hk, 1, generator=g, device=dev) * .02
+            per_key = hk * (2 * d + 2 * 4)
+        else:
+            kp = torch.randn(nb_pool, bs, hk, d, generator=g,
+                             device=dev).to(bf16)
+            vp = torch.randn(nb_pool, bs, hk, d, generator=g,
+                             device=dev).to(bf16)
+            ks = vs = None
+            per_key = hk * 2 * d * 2
+        want = ref.paged_decode_attention_ref(q, kp, vp, bt, length, ks, vs)
+        got = paged_decode_attention_cuda(q, kp, vp, bt, length, ks, vs)
+        torch.cuda.synchronize()
+        check(int(torch.count_nonzero(got[0])) == 0,
+              "paged_decode_attention: a length-0 row is not exactly 0")
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+        ms = time_ms(lambda: paged_decode_attention_cuda(
+            q, kp, vp, bt, length, ks, vs), flush)
+        plain = time_ms(lambda: ref.paged_decode_attention_ref(
+            q, kp, vp, bt, length, ks, vs), flush)
+        n_keys = int(valid.sum())
+        # the bytes the function must move: each distinct pool entry the
+        # valid positions read (rows share their prefix blocks), once, and
+        # the table entries the rows need
+        pos = torch.arange(mb * bs, device=dev)
+        entry = bt.long()[:, pos // bs] * bs + pos % bs
+        n_entries = int(torch.unique(
+            entry[pos[None, :] < valid[:, None]]).numel())
+        nbt = int(((valid + bs - 1) // bs).sum()) * 4
+        nb = nbytes(q, length, got) + n_entries * per_key + nbt
+        shape = f"B{b} H{h} Hk{hk} d{d} bs{bs} MB{mb} " \
+                f"{'int8' if quant else 'bf16'}-kv"
+        rows.append(case_row("paged_decode_attention", shape, err, tol, ms,
+                             plain, None, nb, 4.0 * n_keys * h * d,
+                             "bfloat16"))
+    return rows
+
+
 def small_input_check(dev):
     """Reduced float32 repro-100m, int8 weights: greedy tokens through the
-    kernels equal those through the plain versions."""
+    kernels equal those through the plain versions, for the dense engine
+    and for a paged reuse engine with prefix hits (against the dense
+    engine's plain versions)."""
     import numpy as np
     from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine
 
@@ -250,16 +370,69 @@ def small_input_check(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (8, 12, 31, 8, 12, 31)]
-    toks = {impl: ServeEngine(cfg, params, n_slots=2, max_len=64,
-                              quantize=True, impl=impl, device=dev)
-            .generate(prompts, max_new=16) for impl in ("cuda", "ref")}
+    head = rng.integers(0, cfg.vocab_size, size=24).astype(np.int32)
+    prompts += [np.concatenate([head, rng.integers(0, cfg.vocab_size,
+                                                   size=n).astype(np.int32)])
+                for n in (3, 9, 5, 12)]
+
+    def serve(impl, **kw):
+        return ServeEngine(cfg, params, n_slots=2, max_len=64, quantize=True,
+                           impl=impl, device=dev, **kw)
+
+    toks = {impl: serve(impl).generate(prompts, max_new=16)
+            for impl in ("cuda", "ref", "reuse_ref")}
     check(toks["cuda"] == toks["ref"],
           "small-input tokens differ between kernel and plain paths")
+    eng = serve("reuse", paged=True, kv_block_size=8)
+    _build.reset_launches()
+    paged = eng.generate(prompts, max_new=16)
+    launches = dict(_build.LAUNCHES)
+    check(paged == toks["reuse_ref"], "small-input tokens of the paged "
+          "reuse engine differ from the dense plain path")
+    check(eng.stats.prefix_hit_tokens > 0, "no prefix hit in the paged run")
+    for name in ("reuse_matmul", "paged_decode_attention", "flash_attention"):
+        check(launches.get(name, 0) > 0, f"{name} never launched in the "
+                                         "small paged reuse run")
     print("small-input check: reduced fp32 int8 engine tokens identical "
-          "(kernels vs plain versions)", flush=True)
+          "(kernels vs plain versions); paged reuse engine through the "
+          "kernels identical to the dense engine through the plain "
+          f"versions ({eng.stats.prefix_hit_tokens} prefix-hit tokens)",
+          flush=True)
 
 
-def end_to_end(dev, card):
+def record_hit_wave(eng) -> dict:
+    """Wrap a paged engine's prefill so that it records its first wave with
+    a prefix hit: the rows' whole prompts and the first-token logits the
+    paged path gave them."""
+    import numpy as np
+    rec, wave = {}, []
+    group_fn, prefill_fn = eng._prefill_group_paged, eng._paged_prefill
+
+    def group(g, free):
+        wave[:] = [r.prompt for r in g]
+        return group_fn(g, free)
+
+    def prefill(toks, lengths, prefix_len, pbt, sbt):
+        logits = prefill_fn(toks, lengths, prefix_len, pbt, sbt)
+        if pbt is not None and not rec:
+            for i, p in enumerate(wave):   # row i: cached head ++ its tail
+                check(np.array_equal(np.concatenate(
+                    [p[:prefix_len[i]], toks[i, :lengths[i]]]), p),
+                    f"prefix-hit wave row {i} is not its request's prompt")
+            rec.update(prompts=list(wave), logits=logits[:len(wave)].clone(),
+                       hit_tokens=int(prefix_len[:len(wave)].sum()))
+        return logits
+
+    eng._prefill_group_paged, eng._paged_prefill = group, prefill
+    return rec
+
+
+def serve_run(dev, card, label, prompts, kernels, **engine_kw):
+    """One end-to-end run on full-width repro-100m: ``prompts`` through
+    ``ServeEngine(quantize=True, n_slots=8, max_len=1024, decode_chunk=8,
+    **engine_kw)``, with every launch count set to 0 just before and read
+    just after, each of ``kernels`` required to have launched. Returns
+    (metrics, the engine)."""
     import numpy as np
     import torch
     from repro_torch.configs.repro_100m import CONFIG
@@ -269,18 +442,18 @@ def end_to_end(dev, card):
 
     cfg = CONFIG
     params = get_model(cfg).init(seed=0, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size,
-                            size=PROMPT_LENS[i % len(PROMPT_LENS)])
-               .astype(np.int32) for i in range(N_REQUESTS)]
+    impl = engine_kw.pop("impl", "auto")
+    plain_impl = "reuse_ref" if impl == "reuse" else "ref"
+    tag = f"e2e {label} [{card}]"
 
-    def engine(impl="auto"):
+    def engine(impl):
         return ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
                            quantize=True, decode_chunk=DECODE_CHUNK,
-                           impl=impl, device=dev)
+                           impl=impl, device=dev, **engine_kw)
 
-    engine().generate(prompts[:2], max_new=8)       # warm-up (cuBLAS, etc.)
-    eng = engine()
+    engine(impl).generate(prompts[:2], max_new=8)    # warm-up (cuBLAS, etc.)
+    eng = engine(impl)
+    hit_wave = record_hit_wave(eng) if eng.paged else None
     for p in prompts:
         eng.submit(p, max_new=MAX_NEW)
     torch.cuda.synchronize()
@@ -294,70 +467,90 @@ def end_to_end(dev, card):
     peak = torch.cuda.max_memory_allocated()
 
     done = {r.rid: r for r in eng.finished}
-    check(sorted(done) == list(range(N_REQUESTS)),
-          f"only {len(done)} of {N_REQUESTS} requests finished")
+    check(sorted(done) == list(range(len(prompts))),
+          f"{label}: only {len(done)} of {len(prompts)} requests finished")
     for r in done.values():
         check(r.finish_reason == "max_new" and len(r.tokens) == MAX_NEW,
-              f"request {r.rid} stopped {r.finish_reason} after "
+              f"{label}: request {r.rid} stopped {r.finish_reason} after "
               f"{len(r.tokens)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
-              f"request {r.rid} has a token outside the vocab")
-    for name in _build.SIGNATURES:
-        check(launches.get(name, 0) > 0, f"{name} never launched on the "
-                                         "main path")
+              f"{label}: request {r.rid} has a token outside the vocab")
+    for name in kernels:
+        check(launches.get(name, 0) > 0, f"{label}: {name} never launched "
+                                         "on the main path")
     generated = sum(len(r.tokens) for r in done.values())
     st = eng.stats
-    print(f"e2e [{card}]: {generated} tokens in {wall:.3f} s = "
+    print(f"{tag}: {generated} tokens in {wall:.3f} s = "
           f"{generated / wall:.1f} tok/s; decode {st.decode_tokens} tokens "
           f"in {st.steps} steps; prefill {st.prefill_waves} waves, "
-          f"{st.prefill_wall_s:.3f} s; peak memory {peak / 2**30:.3f} GiB",
-          flush=True)
-    print(f"e2e [{card}]: launches {launches}", flush=True)
+          f"{st.prefill_tokens} tokens, {st.prefill_wall_s:.3f} s; "
+          f"prefix-hit tokens {st.prefix_hit_tokens}; peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"{tag}: launches {launches}", flush=True)
 
-    # first wave against the plain path, same card and weights
-    wave = prompts[:N_SLOTS]
-    pl = _pow2_bucket(max(len(p) for p in wave), 8, MAX_LEN)
-    toks = np.zeros((N_SLOTS, pl), np.int32)
-    for i, p in enumerate(wave):
-        toks[i, :len(p)] = p
-    lengths = torch.tensor([len(p) for p in wave], dtype=torch.int32,
-                           device=dev)
-    logits = {}
-    with torch.inference_mode():
-        for impl in ("cuda", "ref"):
-            api = get_model(cfg, impl=impl)
-            logits[impl], _ = api.prefill(
+    def dense_logits(which, wave):
+        """First-token logits of a plain dense prefill of ``wave``."""
+        pl = _pow2_bucket(max(len(p) for p in wave), 8, MAX_LEN)
+        toks = np.zeros((len(wave), pl), np.int32)
+        for i, p in enumerate(wave):
+            toks[i, :len(p)] = p
+        lengths = torch.tensor([len(p) for p in wave], dtype=torch.int32,
+                               device=dev)
+        api = get_model(cfg, impl=which)
+        with torch.inference_mode():
+            return api.prefill(
                 eng.params, {"tokens": torch.from_numpy(toks).to(dev)},
-                api.init_cache(N_SLOTS, pl, dev), lengths=lengths)
-    a, b = logits["cuda"].float(), logits["ref"].float()
-    check(bool(torch.isfinite(a).all()), "non-finite first-wave logits")
-    scale = float(b.abs().max())
-    logit_err = float((a - b).abs().max())
-    argmax_agree = float((a[:, :cfg.vocab_size].argmax(-1)
-                          == b[:, :cfg.vocab_size].argmax(-1)).float().mean())
-    print(f"e2e [{card}]: first-wave logits |kernel - plain| = "
-          f"{logit_err:.4e}, scale {scale:.4f}, tolerance "
-          f"{LOGIT_TOL * max(1.0, scale):.4e}; argmax agreement "
-          f"{argmax_agree:.3f}", flush=True)
-    check(logit_err <= LOGIT_TOL * max(1.0, scale),
-          f"first-wave logits differ by {logit_err}")
+                api.init_cache(len(wave), pl, dev), lengths=lengths)[0]
+
+    def hold(what, a, b):
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite {what}")
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        agree = float((a[:, :cfg.vocab_size].argmax(-1)
+                       == b[:, :cfg.vocab_size].argmax(-1)).float().mean())
+        print(f"{tag}: {what} |kernel - plain| = {err:.4e}, scale "
+              f"{scale:.4f}, tolerance {LOGIT_TOL * max(1.0, scale):.4e}; "
+              f"argmax agreement {agree:.3f}", flush=True)
+        check(err <= LOGIT_TOL * max(1.0, scale),
+              f"{label}: {what} differ by {err}")
+        return err, scale, agree
+
+    # first wave (no prefix hit: the plain ragged prefill) against the
+    # plain path, same card and weights
+    wave = prompts[:N_SLOTS]
+    logit_err, scale, argmax_agree = hold(
+        "first-wave logits", dense_logits(impl, wave),
+        dense_logits(plain_impl, wave))
+    hit = {}
+    if eng.paged:
+        # the served wave with a prefix hit (prefix KV gathered out of the
+        # pool, suffix-only prefill) against a plain dense prefill of the
+        # whole prompts
+        check(bool(hit_wave), f"{label}: no prefill wave had a prefix hit")
+        err, hscale, agree = hold(
+            f"prefix-hit wave ({len(hit_wave['prompts'])} rows, "
+            f"{hit_wave['hit_tokens']} cached tokens) logits",
+            hit_wave["logits"], dense_logits(plain_impl, hit_wave["prompts"]))
+        hit = dict(hit_wave_logit_err=err, hit_wave_logit_scale=hscale,
+                   hit_wave_argmax_agree=agree,
+                   hit_wave_cached_tokens=hit_wave["hit_tokens"])
 
     # where the decode time goes: 4 chunks of 8 full slots, profiled
-    prof_eng = engine()
+    prof_eng = engine(impl)
     for p in prompts[:N_SLOTS]:
         prof_eng.submit(p, max_new=MAX_NEW)
     prof_eng.step()                                  # prefill + 1st chunk
     wall_ms, busy_ms, top = device_busy_ms(
         lambda: [prof_eng.step() for _ in range(4)])
     idle = 1.0 - busy_ms / wall_ms
-    print(f"e2e [{card}]: 4 decode chunks (32 steps, 8 slots): wall "
+    print(f"{tag}: 4 decode chunks (32 steps, 8 slots): wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{idle:.3f}", flush=True)
     for name, ms in top:
-        print(f"e2e [{card}]:   device {ms:8.3f} ms  {name[:90]}",
-              flush=True)
+        print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
 
-    plain = engine("ref")
+    plain = engine(plain_impl)
     for p in prompts:
         plain.submit(p, max_new=MAX_NEW)
     plain.run()
@@ -365,25 +558,92 @@ def end_to_end(dev, card):
     same = sum(done[i].tokens == ptoks[i] for i in done)
     agree = np.mean([np.mean(np.equal(done[i].tokens, ptoks[i]))
                      for i in done])
-    print(f"e2e [{card}]: greedy tokens vs plain path: {same}/{N_REQUESTS} "
+    print(f"{tag}: greedy tokens vs plain path: {same}/{len(prompts)} "
           f"requests identical, {agree:.3f} of positions equal", flush=True)
     return dict(tokens=generated, wall_s=wall, tok_per_s=generated / wall,
                 prefill_wall_s=st.prefill_wall_s, steps=st.steps,
-                prefill_waves=st.prefill_waves, peak_bytes=peak,
+                prefill_waves=st.prefill_waves,
+                prefill_tokens=st.prefill_tokens,
+                prefix_hit_tokens=st.prefix_hit_tokens,
+                blocks_in_use=st.blocks_in_use, peak_bytes=peak,
                 launches=launches, logit_err=logit_err, logit_scale=scale,
-                first_wave_argmax_agree=argmax_agree,
+                first_wave_argmax_agree=argmax_agree, **hit,
                 requests_identical=same, position_agree=float(agree),
                 decode_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                                    idle_share=idle, top=top))
+                                    idle_share=idle, top=top)), eng
 
 
+def end_to_end(dev, card):
+    import numpy as np
+    from repro_torch.configs.repro_100m import CONFIG
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, CONFIG.vocab_size,
+                            size=PROMPT_LENS[i % len(PROMPT_LENS)])
+               .astype(np.int32) for i in range(N_REQUESTS)]
+    return serve_run(dev, card, "dense", prompts, (
+        "axllm_matmul", "decode_attention", "flash_attention"))[0]
+
+
+def end_to_end_reuse_paged(dev, card):
+    """Run b, and the reuse rate the kernel achieves on layer 0's seven
+    projections of the served weights, against the host count and the
+    analytic prediction of ``core.reuse``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.core.reuse import expected_reuse_rate
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.reuse_matmul import segment
+    from repro_torch.models.transformer import layer_slice
+
+    rng = np.random.default_rng(1)
+    vocab = CONFIG.vocab_size
+    head = rng.integers(0, vocab, size=SHARED_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        0, vocab, size=TAIL_LENS[i % len(TAIL_LENS)]).astype(np.int32)])
+        for i in range(N_REQUESTS)]
+    e2e, eng = serve_run(dev, card, "reuse+paged", prompts, (
+        "reuse_matmul", "paged_decode_attention", "flash_attention"),
+        impl="reuse", paged=True, kv_block_size=KV_BLOCK)
+    check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
+          f"reuse+paged: only {e2e['prefix_hit_tokens']} prefix-hit tokens")
+    layer0 = layer_slice(eng.params["layers"], 0)
+    predicted = expected_reuse_rate(256, 128, "gaussian")
+    rates = {}
+    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
+                         ("ffn", ("gate", "up", "down"))):
+        for name in names:
+            qt = layer0[group][name]
+            k, n = qt.shape
+            x = torch.ones((N_SLOTS, k), dtype=torch.bfloat16, device=dev)
+            _, mults = ops.reuse_matmul(x, qt, impl="reuse", with_stats=True)
+            count = ref.reuse_mult_count(qt, segment(n))
+            check(int(mults) == count, f"layer-0 {name}: kernel counted "
+                                       f"{int(mults)}, host {count}")
+            rates[name] = 1.0 - int(mults) / (k * n)
+            print(f"e2e reuse+paged [{card}]: layer 0 {name} K{k} N{n}: "
+                  f"reuse rate {rates[name]:.4f} (kernel count {int(mults)} "
+                  f"= reuse_mult_count; analytic gaussian model "
+                  f"{predicted:.4f})", flush=True)
+    e2e["reuse_rate_layer0"] = rates
+    e2e["reuse_rate_predicted"] = predicted
+    return e2e
+
+
+# kernel -> (the TPU kernel it replaces, the main shape reported, the
+# end-to-end run whose launch count is reported)
 KERNELS = {
     "axllm_matmul": ("src/repro/kernels/axllm_matmul.py:104",
-                     "M8 K768 N2048 8b-affine-per_channel"),
+                     "M8 K768 N2048 8b-affine-per_channel", "dense"),
     "decode_attention": ("src/repro/kernels/decode_attention.py:71",
-                         "B8 S1024 H12 Hk4 d64 bf16-kv"),
+                         "B8 S1024 H12 Hk4 d64 bf16-kv", "dense"),
     "flash_attention": ("src/repro/kernels/flash_attention.py:81",
-                        "B8 Sq512 Sk512 H12 Hk4 d64 causal"),
+                        "B8 Sq512 Sk512 H12 Hk4 d64 causal", "dense"),
+    "reuse_matmul": ("src/repro/kernels/reuse_matmul.py:115",
+                     "M8 K768 N2048 8b-affine-per_channel", "reuse+paged"),
+    "paged_decode_attention": (
+        "src/repro/kernels/paged_decode_attention.py:81",
+        "B8 H12 Hk4 d64 bs16 MB64 bf16-kv", "reuse+paged"),
 }
 
 
@@ -418,27 +678,28 @@ def main() -> int:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rows = kernel_phase(dev, flush)
+    rows = kernel_phase(dev, flush) + reuse_paged_kernel_phase(dev, flush)
     small_input_check(dev)
-    e2e = end_to_end(dev, card)
+    e2e = {"dense": end_to_end(dev, card),
+           "reuse+paged": end_to_end_reuse_paged(dev, card)}
 
     kernels = []
-    for name, (replaces, main_shape) in KERNELS.items():
+    for name, (replaces, main_shape, run) in KERNELS.items():
         row = next(r for r in rows
                    if r["kernel"] == name and r["shape"] == main_shape)
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=replaces, launches=e2e["launches"][name],
+            replaces=replaces, launches=e2e[run]["launches"][name],
             max_abs_err=row["max_abs_err"], tolerance=row["tolerance"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=main_shape))
+            shape=main_shape, launches_from=run))
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, e2e=e2e), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the run used one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": card, "count": 1}}), flush=True)
     return 0
 
 

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.core.quantization import QTensor
 
-_QTENSOR_FIELDS = frozenset(f.name for f in dataclasses.fields(QTensor))
+_QTENSOR_FIELDS = frozenset(f.name for f in dataclasses.fields(QTensor)
+                            ) - {"kernel_scale"}    # derived, not stored
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:

@@ -60,6 +60,9 @@ class QTensor:
     codebook: always None; the table is a function of (mode, bits), see
               :func:`resolve_codebook`.
     shape:    logical (unpacked) shape.
+    kernel_scale: f32 [*, G, out] (G = in//g per_group, else 1) with the
+              affine 1/qmax folded in: the form the CUDA kernels take.
+              Derived from ``scale`` once, when the QTensor is made.
     """
 
     codes: torch.Tensor
@@ -71,15 +74,34 @@ class QTensor:
     group_size: int
     packed: bool
     shape: tuple
+    kernel_scale: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.kernel_scale is None:
+            self.kernel_scale = _fold_scale(self)
 
     def index(self, i: int) -> "QTensor":
         """The QTensor of entry ``i`` of the leading (stacked-layer) dim."""
         return dataclasses.replace(self, codes=self.codes[i],
-                                   scale=self.scale[i], shape=self.shape[1:])
+                                   scale=self.scale[i], shape=self.shape[1:],
+                                   kernel_scale=self.kernel_scale[i])
 
     def to(self, device) -> "QTensor":
         return dataclasses.replace(self, codes=self.codes.to(device),
-                                   scale=self.scale.to(device))
+                                   scale=self.scale.to(device),
+                                   kernel_scale=self.kernel_scale.to(device))
+
+
+def _fold_scale(qt: QTensor) -> torch.Tensor:
+    """``qt.scale`` as [*, G, out] f32 with the affine 1/qmax folded in."""
+    *lead, _, n = qt.shape
+    if qt.granularity == "per_group":
+        s = qt.scale.reshape(*lead, -1, n)
+    else:   # [*, 1, out], or [*, 1, 1] per tensor
+        s = qt.scale.expand(*lead, 1, n)
+    if qt.mode == "affine":
+        s = s / ((1 << (qt.bits - 1)) - 1)
+    return s.to(torch.float32).contiguous()
 
 
 # ---------------------------------------------------------------------------

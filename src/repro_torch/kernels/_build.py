@@ -39,6 +39,12 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P]),
+    "reuse_matmul": ("reuse_matmul_launch",
+                     [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _P]),
+    "paged_decode_attention": ("paged_decode_attention_launch",
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -17,24 +17,13 @@ from repro_torch.core.quantization import QTensor, resolve_codebook
 from repro_torch.kernels import _build, ref
 
 
-def kernel_scale(qt: QTensor) -> torch.Tensor:
-    """Scale in the form the kernel consumes: [1, N] or [K/g, N] f32, with
-    the 1/qmax of affine dequantization folded in."""
-    n = qt.shape[-1]
-    if qt.granularity == "per_group":
-        s = qt.scale.reshape(-1, n)
-    elif qt.scale.numel() == n:
-        s = qt.scale.reshape(1, n)
-    else:
-        s = qt.scale.reshape(1, 1).expand(1, n)
-    if qt.mode == "affine":
-        s = s / ((1 << (qt.bits - 1)) - 1)
-    return s.to(torch.float32).contiguous()
-
-
-def _check(x2: torch.Tensor, qt: QTensor) -> None:
+def check_operands(x2: torch.Tensor, qt: QTensor,
+                   kernel: str = "axllm_matmul") -> None:
+    """Checks shared by the two quantized-matmul kernels (this one and
+    ``reuse_matmul``): x2 [M, K] f32/bf16 and one [K, N] QTensor, all
+    contiguous on x2's device."""
     if len(qt.shape) != 2:
-        raise ValueError(f"axllm_matmul takes one [K, N] weight, got logical "
+        raise ValueError(f"{kernel} takes one [K, N] weight, got logical "
                          f"shape {qt.shape}")
     k, n = qt.shape
     if x2.ndim != 2 or x2.shape[1] != k:
@@ -47,11 +36,10 @@ def _check(x2: torch.Tensor, qt: QTensor) -> None:
                          f"{(qt.codes.dtype, tuple(qt.codes.shape))}")
     if qt.packed and n % 2:
         raise ValueError("packed int4 codes need an even N")
-    for name, t in (("x", x2), ("codes", qt.codes)):
+    for name, t in (("x", x2), ("codes", qt.codes),
+                    ("kernel_scale", qt.kernel_scale)):
         if t.device != x2.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x2.device}")
-    if qt.scale.device != x2.device:
-        raise ValueError(f"scale must be on {x2.device}")
 
 
 def axllm_matmul_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -62,13 +50,13 @@ def axllm_matmul_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """
     if x2.device.type == "cpu":
         return ref.axllm_matmul_ref(x2, qt)
-    _check(x2, qt)
+    check_operands(x2, qt)
     k, n = qt.shape
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
     if m == 0:
         return y
-    scale = kernel_scale(qt)
+    scale = qt.kernel_scale
     cb = resolve_codebook(qt)
     _build.launch(
         "axllm_matmul", x2.data_ptr(), int(x2.dtype == torch.bfloat16),

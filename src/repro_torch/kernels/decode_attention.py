@@ -20,16 +20,19 @@ HEAD_DIMS = (32, 64, 128)
 MAX_REP = 8          # query heads per KV head the kernel holds in registers
 
 
-def _check(q, k_cache, v_cache, length, k_scale, v_scale) -> None:
-    if q.ndim != 3 or k_cache.ndim != 4:
-        raise ValueError(f"q must be [B, H, d] and caches [B, S, Hk, d], got "
-                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
+def check_operands(q, k, v, length, k_scale, v_scale, names, extra=()):
+    """Checks shared by the dense and the paged decode kernels: q [B, H, d]
+    f32/bf16; ``k``/``v`` (named ``names``) [X, Y, Hk, d] in q's type, or
+    int8 with f32 scales [X, Y, Hk, 1]; length int32 [B]; these and the
+    ``extra`` (name, tensor) pairs contiguous on q's device."""
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(f"q must be [B, H, d] and {names[0]} [., ., Hk, d], "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
     b, h, d = q.shape
-    _, s, hk, _ = k_cache.shape
-    if k_cache.shape != (b, s, hk, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
-                         f"{tuple(v_cache.shape)} do not match q "
-                         f"{tuple(q.shape)}")
+    hk = k.shape[2]
+    if k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(f"{names[0]}/{names[1]} shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if d not in HEAD_DIMS or h % hk or h // hk > MAX_REP:
         raise ValueError(f"unsupported head layout H={h}, Hk={hk}, d={d}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -38,14 +41,16 @@ def _check(q, k_cache, v_cache, length, k_scale, v_scale) -> None:
     if quantized != (v_scale is not None):
         raise ValueError("give both k_scale and v_scale or neither")
     kv_dtype = torch.int8 if quantized else q.dtype
-    if k_cache.dtype != kv_dtype or v_cache.dtype != kv_dtype:
-        raise TypeError(f"caches must be {kv_dtype}, got {k_cache.dtype}")
-    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-               ("length", length)]
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{names[0]}/{names[1]} must be {kv_dtype}, got "
+                        f"{k.dtype}")
+    tensors = [("q", q), (names[0], k), (names[1], v), ("length", length),
+               *extra]
     if quantized:
         for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if sc.shape != (b, s, hk, 1) or sc.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32 [B, S, Hk, 1]")
+            if sc.shape != (*k.shape[:3], 1) or sc.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 "
+                                 f"{[*k.shape[:3], 1]}")
             tensors.append((name, sc))
     if length.shape != (b,) or length.dtype != torch.int32:
         raise ValueError("length must be int32 [B]")
@@ -67,7 +72,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, length,
                                         k_scale=k_scale, v_scale=v_scale)
-    _check(q, k_cache, v_cache, length, k_scale, v_scale)
+    check_operands(q, k_cache, v_cache, length, k_scale, v_scale,
+                   ("k_cache", "v_cache"))
+    if k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"caches have {k_cache.shape[0]} rows, q has "
+                         f"{q.shape[0]}")
     b, h, d = q.shape
     _, s, hk, _ = k_cache.shape
     out = torch.empty_like(q)

@@ -1,19 +1,30 @@
 """Public kernel entry points: a hand-written CUDA kernel on the card, the
 plain PyTorch version elsewhere.
 
-Every op takes ``impl`` in {"auto", "cuda", "ref"}:
-  auto -> the CUDA kernel for a CUDA tensor, the plain version for a CPU one
-  cuda -> the CUDA kernel; raises for a tensor that is not on the card
-  ref  -> the plain version (``kernels/ref.py``) on any device
+Every op takes ``impl`` in {"auto", "cuda", "ref", "reuse", "reuse_ref"}:
+  auto      -> the CUDA kernel for a CUDA tensor, the plain version for a
+               CPU one
+  cuda      -> the CUDA kernel; raises for a tensor that is not on the card
+  ref       -> the plain version (``kernels/ref.py``) on any device
+  reuse     -> the quantized matmul runs the reuse (LUT) kernel, the
+               Result Cache on device (its plain version on the CPU)
+  reuse_ref -> the reuse kernel's plain version on any device
+Attention ops treat "reuse" as "auto" and "reuse_ref" as "ref": the reuse
+mode changes how quantized weights are multiplied, not how attention
+dispatches. The JAX package's "reuse_interpret" and "pallas_interpret"
+run a Pallas body in Python; the port has no interpret mode and raises
+``ValueError`` for them.
 
-The JAX package's reuse impls, paged decode (``block_tables=``), prefix
-attention and the KV quantization kernel are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item. There is no block-size
-table here: each CUDA kernel picks its own tiles and masks its own ragged
-edges.
+``prefix_attention`` runs its plain version on every device: the JAX
+package has no Pallas kernel for it to port. The KV quantization kernel
+is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item. There is no block-size table here: each CUDA kernel picks its own
+tiles and masks its own ragged edges.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,18 +33,24 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_decode_attention import \
+    paged_decode_attention_cuda
+from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
 
-IMPLS = ("auto", "cuda", "ref")
-REUSE_IMPLS = ("reuse", "reuse_interpret", "reuse_ref")
+IMPLS = ("auto", "cuda", "ref", "reuse", "reuse_ref")
+REUSE_IMPLS = ("reuse", "reuse_ref")
+
+
+def _base_impl(impl: str) -> str:
+    """What non-matmul ops see: "reuse" -> "auto", "reuse_ref" -> "ref"."""
+    return {"reuse": "auto", "reuse_ref": "ref"}.get(impl, impl)
 
 
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
-    if impl in REUSE_IMPLS:
-        raise NotImplementedError(
-            f"impl={impl!r}: the reuse (LUT) matmul is not ported yet "
-            "(ROADMAP queue 1 item 6, queue 2 item 4)")
     if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r} (the "
+                         "port has no interpret mode)")
+    impl = _base_impl(impl)
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs tensors on the card, got one on "
                          f"{x.device}")
@@ -47,7 +64,10 @@ def _use_kernel(impl: str, x: torch.Tensor) -> bool:
 def axllm_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
                  out_dtype=None) -> torch.Tensor:
     """y = x @ deq(qt). x: [..., K]; qt: [K, N]. Returns [..., N] in
-    ``out_dtype`` (default x's), accumulated in f32."""
+    ``out_dtype`` (default x's), accumulated in f32. ``impl`` in
+    ``REUSE_IMPLS`` routes through :func:`reuse_matmul`."""
+    if impl in REUSE_IMPLS:
+        return reuse_matmul(x, qt, impl=impl, out_dtype=out_dtype)[0]
     out_dtype = out_dtype or x.dtype
     kdim, n = qt.shape[-2], qt.shape[-1]
     lead = x.shape[:-1]
@@ -57,6 +77,36 @@ def axllm_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
     else:
         y = _ref.axllm_matmul_ref(x2, qt)
     return y.reshape(*lead, n).to(out_dtype)
+
+
+def reuse_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
+                 out_dtype=None, with_stats: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[object]]:
+    """Reuse (LUT) matmul: ``(y, mults)`` = x @ deq(qt), gathering cached
+    alphabet products instead of multiplying every code (paper §III.b).
+
+    x: [..., K]; qt: [K, N]; ``y`` is [..., N]. ``mults`` is the multiply
+    count per activation row: the distinct alphabet cells per (k-row,
+    segment) summed, what a Result Cache executes for one input row
+    against the baseline's K*N. The segment is
+    ``kernels.reuse_matmul.segment(N)`` (256 at every full-width N). It is
+    an int32 scalar tensor counted by the kernel on the card and a host
+    int on the plain path; ``with_stats=False`` (the serving default)
+    returns None and the kernel skips the count.
+
+    impl: "auto"/"reuse"/"cuda" -> the kernel for a CUDA tensor;
+    "ref"/"reuse_ref" -> the plain versions.
+    """
+    out_dtype = out_dtype or x.dtype
+    kdim, n = qt.shape[-2], qt.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, kdim)
+    if _use_kernel(impl, x):
+        y, mults = reuse_matmul_cuda(x2.contiguous(), qt, with_stats)
+    else:
+        y = _ref.reuse_matmul_ref(x2, qt)
+        mults = _ref.reuse_mult_count(qt, segment(n)) if with_stats else None
+    return y.reshape(*lead, n).to(out_dtype), mults
 
 
 # ---------------------------------------------------------------------------
@@ -80,11 +130,21 @@ def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
                      impl: str = "auto") -> torch.Tensor:
     """q: [B, H, d]; caches [B, S, Hk, d] (int8 if scales given); length
     [B] int32, clamped to S by the kernel (and masked by the plain
-    version)."""
+    version).
+
+    With ``block_tables`` ([B, MB] int32) the caches are a shared paged
+    pool [NB, bs, Hk, d] instead: each row's logical sequence is the
+    concatenation of its table's blocks, read through the table by the
+    paged kernel, and the length is clamped to MB * bs.
+    """
     if block_tables is not None:
-        raise NotImplementedError(
-            "paged decode attention (block_tables=) is not ported yet "
-            "(ROADMAP queue 1 item 7, queue 2 item 5)")
+        if _use_kernel(impl, q):
+            return paged_decode_attention_cuda(
+                q.contiguous(), k_cache, v_cache, block_tables, length,
+                k_scale=k_scale, v_scale=v_scale)
+        return _ref.paged_decode_attention_ref(
+            q, k_cache, v_cache, block_tables, length, k_scale=k_scale,
+            v_scale=v_scale)
     if _use_kernel(impl, q):
         return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                      length, k_scale=k_scale, v_scale=v_scale)
@@ -92,10 +152,23 @@ def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
                                      k_scale=k_scale, v_scale=v_scale)
 
 
-def prefix_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "prefix attention (suffix-only prefill against a cached prefix) is "
-        "not ported yet (ROADMAP queue 1 item 7)")
+def prefix_attention(q, k_prefix, v_prefix, prefix_len, k_suffix, v_suffix,
+                     *, impl: str = "auto") -> torch.Tensor:
+    """Suffix-prefill attention against a cached (right-padded) prefix.
+
+    q/k_suffix/v_suffix: [B, S, H|Hk, d]; k/v_prefix: [B, P, Hk, d] with
+    per-row valid lengths ``prefix_len`` [B]. The plain version runs on
+    every device: the JAX package has no Pallas kernel for it, so there is
+    none to port, and ``impl="cuda"`` raises instead of running it.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "cuda":
+        raise NotImplementedError(
+            "prefix_attention has no CUDA kernel: the JAX package has no "
+            "Pallas kernel for it to port; use impl='auto'")
+    return _ref.prefix_attention_ref(q, k_prefix, v_prefix, prefix_len,
+                                     k_suffix, v_suffix)
 
 
 def quantize_channels(*args, **kwargs):

@@ -4,7 +4,8 @@ Each is the correctness reference of one hand-written CUDA kernel in this
 package and the path that a CPU tensor takes. They follow the JAX
 package's ``kernels/ref.py`` operation for operation. They run on any
 device, so ``chip_smoke.py`` also holds each kernel against them on the
-card.
+card. ``prefix_attention_ref`` has no kernel: the JAX package has none
+to port, and every device runs it.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantization import QTensor, dequantize
+from repro_torch.core.quantization import QTensor, decode_codes, dequantize
 
 NEG_INF = -1e30
 
@@ -27,6 +28,62 @@ def axllm_matmul_ref(x: torch.Tensor, qt: QTensor,
     """y = x @ deq(W) with f32 accumulation. x: [M, K]; qt: [K, N]."""
     w = dequantize(qt, torch.float32)
     return torch.matmul(x.to(torch.float32), w).to(out_dtype)
+
+
+def reuse_matmul_ref(x: torch.Tensor, qt: QTensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """y = x @ deq(W) with the reuse (LUT) association.
+
+    Each product is ``x[m, k] * levels[cell]`` (the table entry; the sign
+    is applied on read for folded affine alphabets), partial sums run
+    within each scale group, and the group scale multiplies the group
+    sum, not each product as in :func:`axllm_matmul_ref`. In the dyadic
+    integer regime both associations are exact and bitwise equal;
+    elsewhere they differ by normal rounding. x: [M, K]; qt: [K, N].
+    """
+    from repro_torch.core.reuse import rc_alphabet
+    levels, fold = rc_alphabet(qt.bits, qt.mode)
+    levels = torch.from_numpy(levels).to(x.device)
+    c = decode_codes(qt).to(torch.int64)
+    if fold:
+        vals = levels[c.abs()]
+        vals = torch.where(c < 0, -vals, vals)
+    else:
+        vals = levels[c + (levels.shape[0] >> 1)]
+    kdim, n = qt.shape[-2], qt.shape[-1]
+    m = x.shape[0]
+    scale = _reuse_scale(qt)                          # [G, N]
+    g_rows = scale.shape[0]
+    xg = x.to(torch.float32).reshape(m, g_rows, kdim // g_rows)
+    vg = vals.reshape(g_rows, kdim // g_rows, n)
+    part = torch.einsum("mgk,gkn->gmn", xg, vg)
+    return torch.sum(part * scale[:, None, :], dim=0).to(out_dtype)
+
+
+def _reuse_scale(qt: QTensor) -> torch.Tensor:
+    """[G, N] f32 group scales with the affine 1/qmax folded in (G = 1 for
+    per-channel and per-tensor): the factor applied after each group
+    sum, and the scale every quantized-matmul kernel consumes."""
+    n = qt.shape[-1]
+    if qt.granularity == "per_group":
+        s = qt.scale.reshape(-1, n)
+    elif qt.scale.numel() == n:
+        s = qt.scale.reshape(1, n)
+    else:
+        s = qt.scale.reshape(1, 1).expand(1, n)
+    if qt.mode == "affine":
+        s = s / ((1 << (qt.bits - 1)) - 1)
+    return s.to(torch.float32)
+
+
+def reuse_mult_count(qt: QTensor, segment: int) -> int:
+    """Multiplies per activation row the reuse path executes: distinct
+    alphabet cells per (k-row, ``segment``-wide column block), summed,
+    under the kernel's own alphabet fold. Host side: reads the codes.
+    Multiply by M for the total of an [M, K] @ [K, N] call."""
+    from repro_torch.core.reuse import rc_alphabet, segment_unique_counts
+    _, fold = rc_alphabet(qt.bits, qt.mode)
+    return int(segment_unique_counts(qt, segment, fold_sign=fold).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +153,69 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     keep = (length > 0)[:, None, None]
     return torch.where(keep, out[:, 0], torch.zeros((), dtype=out.dtype,
                                                      device=out.device))
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               length: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """One-token attention through a block-paged pool: gather each row's
+    logical KV sequence through its block table, then the dense decode
+    version (which keeps the exact 0 for length 0).
+
+    q: [B, H, d]; pools: [NB, bs, Hk, d] (int8 codes if *_scale given,
+    scales [NB, bs, Hk, 1]); block_tables: [B, MB] int32; length: [B].
+    Table entries past a row's length may point anywhere (trash block 0
+    by convention): the length mask keeps them out.
+    """
+    b, mb = block_tables.shape
+    bs = k_pool.shape[1]
+    idx = block_tables.long()
+
+    def gather(pool):
+        return pool[idx].reshape(b, mb * bs, *pool.shape[2:])
+
+    return decode_attention_ref(
+        q, gather(k_pool), gather(v_pool), length,
+        k_scale=None if k_scale is None else gather(k_scale),
+        v_scale=None if v_scale is None else gather(v_scale))
+
+
+def prefix_attention_ref(q: torch.Tensor, k_prefix: torch.Tensor,
+                         v_prefix: torch.Tensor, prefix_len: torch.Tensor,
+                         k_suffix: torch.Tensor, v_suffix: torch.Tensor
+                         ) -> torch.Tensor:
+    """Suffix-only prefill attention against a cached prefix: query i of
+    row b sits at position ``prefix_len[b] + i`` and attends every valid
+    prefix key (j < prefix_len[b]) plus the causal suffix keys (j <= i),
+    in one joint f32 softmax over [prefix ++ suffix].
+
+    q: [B, S, H, d]; k/v_prefix: [B, P, Hk, d] (right-padded);
+    prefix_len: [B]; k/v_suffix: [B, S, Hk, d]. Returns [B, S, H, d].
+    """
+    b, s, h, d = q.shape
+    p = k_prefix.shape[1]
+    n_rep = h // k_prefix.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qf = q.to(torch.float32)
+    lp = torch.einsum("bqhd,bkhd->bhqk", qf,
+                      _repeat_kv(k_prefix, n_rep).to(torch.float32)) * scale
+    ls = torch.einsum("bqhd,bkhd->bhqk", qf,
+                      _repeat_kv(k_suffix, n_rep).to(torch.float32)) * scale
+    dev = q.device
+    pmask = torch.arange(p, device=dev)[None, :] < prefix_len[:, None]
+    lp = torch.where(pmask[:, None, None, :], lp, NEG_INF)
+    smask = torch.arange(s, device=dev)[:, None] >= \
+        torch.arange(s, device=dev)[None, :]
+    ls = torch.where(smask[None, None], ls, NEG_INF)
+    probs = torch.softmax(torch.cat([lp, ls], dim=-1), dim=-1)
+    vcat = torch.cat([_repeat_kv(v_prefix, n_rep),
+                      _repeat_kv(v_suffix, n_rep)], dim=1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vcat.to(torch.float32))
+    return out.to(q.dtype)
 
 
 def chunked_attention_ref(q, k, v, causal: bool = True,

@@ -1,0 +1,103 @@
+"""Reuse (LUT) matmul, the paper's Result Cache on device: wrapper of the
+CUDA kernel ``csrc/reuse_matmul.cu``.
+
+Replaces the TPU kernel ``reuse_matmul_pallas``
+(``src/repro/kernels/reuse_matmul.py:115``). Its plain version is
+:func:`repro_torch.kernels.ref.reuse_matmul_ref` for ``y`` and
+:func:`repro_torch.kernels.ref.reuse_mult_count` for the multiply count.
+The kernel builds a product table of every activation with the code
+alphabet (``core.reuse.rc_alphabet``) in shared memory and gathers from it
+once per code; the source says what bounds it and what its design does
+about that.
+
+The count depends on the column segment it is taken over. The segment is
+fixed here by the JAX rule for the reuse branch of ``pick_blocks``: the
+largest power of two <= 256 that divides N (256 at every full-width
+repro-100m projection), so the kernel's count equals the JAX kernel's.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantization import QTensor
+from repro_torch.core.reuse import rc_alphabet
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.axllm_matmul import check_operands
+
+BN = 256                 # output columns per block (csrc: kBN)
+BM = 8                   # rows of x per block (csrc: kBM)
+TABLE_PAIRS = 2048       # K rows per chunk x levels (csrc: kTablePairs)
+TARGET_BLOCKS = 264      # two blocks per SM of an H100: K is split to fill
+
+
+def segment(n: int) -> int:
+    """Counting segment for N columns: the largest power of two <= 256
+    dividing N, else N (``ops.pick_blocks``'s reuse rule in the JAX
+    package)."""
+    for b in (256, 128, 64, 32, 16, 8):
+        if b <= n and n % b == 0:
+            return b
+    return n
+
+
+def k_splits(m: int, k: int, n: int, n_levels: int) -> int:
+    """Blocks along K: enough to fill the card when M and N give few (one
+    for M = 0, where only the count runs and there is no workspace)."""
+    if m == 0:
+        return 1
+    bk = 32 if n_levels * 32 <= TABLE_PAIRS else (
+        16 if n_levels * 16 <= TABLE_PAIRS else 8)
+    chunks = math.ceil(k / bk)
+    blocks = math.ceil(n / BN) * max(1, math.ceil(m / BM))
+    splits = max(1, min(chunks, math.ceil(TARGET_BLOCKS / blocks)))
+    return math.ceil(chunks / math.ceil(chunks / splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _alphabet_on(bits: int, mode: str, device: str):
+    # one constant alphabet per (bits, mode, device), copied to the card
+    # once: the decode loop reads it for every projection
+    levels, fold = rc_alphabet(bits, mode)
+    return torch.from_numpy(levels).to(device), fold
+
+
+def reuse_matmul_cuda(x2: torch.Tensor, qt: QTensor, with_stats: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y[M, N] f32, mults) = reuse matmul of x2[M, K] and a 2-D QTensor.
+
+    ``mults`` is the multiply count per activation row (an int32 scalar
+    tensor on the card, counted by the kernel) when ``with_stats``, else
+    None. A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernel or raises.
+    """
+    if x2.device.type == "cpu":
+        y = ref.reuse_matmul_ref(x2, qt)
+        return y, (ref.reuse_mult_count(qt, segment(qt.shape[1]))
+                   if with_stats else None)
+    check_operands(x2, qt, "reuse_matmul")
+    if qt.shape[1] % 8:
+        raise ValueError(f"the kernel counts over power-of-two segments: N "
+                         f"must be a multiple of 8, got {qt.shape[1]}")
+    k, n = qt.shape
+    m = x2.shape[0]
+    levels, fold = _alphabet_on(qt.bits, qt.mode, str(x2.device))
+    scale = qt.kernel_scale
+    splits = k_splits(m, k, n, levels.numel())
+    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+          if splits > 1 else None)
+    mults = (torch.zeros((), dtype=torch.int32, device=x2.device)
+             if with_stats else None)
+    _build.launch(
+        "reuse_matmul", x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+        qt.codes.data_ptr(), scale.data_ptr(), levels.data_ptr(),
+        y.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if mults is None else mults.data_ptr(), m, k, n, int(qt.packed),
+        levels.numel(), int(fold), scale.shape[0], segment(n), splits,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    return y, mults

@@ -5,6 +5,11 @@ KV cache layout: {"k"/"v": [L, B, S_max, Hk, hd]} (+ "k_scale"/"v_scale"
 "pos": [B] int32 write cursor. A layer reads and writes its slice
 ``cache[name][i]``, a view. Unlike the JAX package, which returns a new
 cache (and donates the old one), the port updates the cache in place.
+
+The block-paged variant (:func:`init_paged_cache`) keeps KV in a pool
+shared by every slot, {"k"/"v": [L, NB, bs, Hk, hd]} (+ scales), with
+per-slot "block_tables" [B, MB]; decode reads and writes it through the
+tables (:func:`attention_decode_paged`).
 """
 
 from __future__ import annotations
@@ -88,6 +93,42 @@ def cache_spec(cfg):
     return spec
 
 
+def init_paged_cache(cfg, batch: int, n_blocks: int, block_size: int,
+                     max_blocks: int, dtype=torch.bfloat16, device="cuda"):
+    """Block-paged KV cache: one pool shared by every slot, plus per-slot
+    block tables (position p of a slot lives in block ``table[p // bs]``
+    at offset ``p % bs``). Block 0 is the trash block: table entries past
+    a row's allocation point there and out-of-range writes go there;
+    nothing reads it. Ownership (free list, refcounts, prefix index) is
+    host state in :class:`repro_torch.serve.paged_cache.PagedKVCache`."""
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    nl = cfg.n_layers
+    kv_dtype = torch.int8 if cfg.quant_kv else dtype
+    shape = (nl, n_blocks, block_size, hk)
+    cache = {
+        "k": torch.zeros((*shape, hd), dtype=kv_dtype, device=device),
+        "v": torch.zeros((*shape, hd), dtype=kv_dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "block_tables": torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                    device=device),
+    }
+    if cfg.quant_kv:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((*shape, 1), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def paged_cache_spec(cfg):
+    """Paged variant of :func:`cache_spec`: pool leaves name their block
+    axis (1), ``pos`` and ``block_tables`` their slot axis (0)."""
+    spec = {"k": 1, "v": 1, "pos": 0, "block_tables": 0}
+    if cfg.quant_kv:
+        spec["k_scale"] = 1
+        spec["v_scale"] = 1
+    return spec
+
+
 def _quantize_kv(x):
     """Per-(position, head) int8 quantization of new KV entries."""
     s = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
@@ -115,15 +156,34 @@ def _kv_entries(cfg, k, v):
     return {"k": k, "v": v}
 
 
-def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto"):
+def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
+                      prefix=None, prefix_len=None):
     """Full-sequence attention that also writes positions [0, S) of this
-    layer's cache slice ({"k": [B, S_max, Hk, hd], ...}) in place."""
+    layer's cache slice ({"k": [B, S_max, Hk, hd], ...}) in place.
+
+    ``prefix``/``prefix_len``: suffix-only prefill against a cached prompt
+    head. ``prefix`` is this layer's gathered prefix KV {"k"/"v": [B, P,
+    Hk, hd]} (int8 codes + "k_scale"/"v_scale" [B, P, Hk, 1] when
+    cfg.quant_kv), right-padded to per-row lengths ``prefix_len`` [B].
+    Rows are position-offset by their prefix length, queries attend the
+    valid prefix plus the causal suffix, and only the suffix KV is
+    written: the prefix already lives in the shared pool.
+    """
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    if prefix is not None:
+        positions = prefix_len[:, None].to(positions.dtype) + positions
     q, k, v = _project_qkv(p, x, cfg, impl)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, impl=impl)
+    if prefix is None:
+        out = ops.flash_attention(q, k, v, causal=True, impl=impl)
+    else:
+        kp, vp = prefix["k"], prefix["v"]
+        if cfg.quant_kv:      # the pool holds int8 codes + scales
+            kp = kp.to(torch.float32) * prefix["k_scale"]
+            vp = vp.to(torch.float32) * prefix["v_scale"]
+        out = ops.prefix_attention(q, kp, vp, prefix_len, k, v, impl=impl)
     for name, new in _kv_entries(cfg, k, v).items():
         layer_cache[name][:, :s] = new.to(layer_cache[name].dtype)
     return linear(out.reshape(b, s, -1), p["wo"], impl=impl)
@@ -158,4 +218,38 @@ def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto"):
         q[:, 0], layer_cache["k"], layer_cache["v"], length,
         k_scale=layer_cache.get("k_scale"),
         v_scale=layer_cache.get("v_scale"), impl=impl)
+    return linear(out.reshape(b, 1, -1), p["wo"], impl=impl)
+
+
+def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
+                           impl: str = "auto"):
+    """One-token decode through a block-paged pool. x: [B, 1, d]; pos: [B]
+    current positions; layer_pool: this layer's pool slice {"k"/"v": [NB,
+    bs, Hk, hd], ...}; block_tables: [B, MB] int32.
+
+    The new KV entry is written in place at ``(table[pos // bs], pos %
+    bs)``; the scheduler guarantees that block is uniquely owned. A row
+    whose position ran past its table (a stopped slot riding through a
+    decode chunk) writes to trash block 0, offset 0. Free and stopped
+    slots all write there, so the write sees repeated indices; nobody
+    reads the trash block, so any winner is fine.
+    """
+    b = x.shape[0]
+    bs = layer_pool["k"].shape[1]
+    mb = block_tables.shape[1]
+    q, k, v = _project_qkv(p, x, cfg, impl)             # [B, 1, ...]
+    q = L.rope(q, pos[:, None], cfg.rope_theta)
+    k = L.rope(k, pos[:, None], cfg.rope_theta)
+    blk = pos // bs
+    in_range = blk < mb
+    rows = torch.arange(b, device=x.device)
+    bid = torch.where(in_range, block_tables[rows, torch.clamp(blk, 0, mb - 1)],
+                      0).long()
+    off = torch.where(in_range, pos % bs, 0).long()
+    for name, new in _kv_entries(cfg, k, v).items():
+        layer_pool[name][bid, off] = new[:, 0].to(layer_pool[name].dtype)
+    out = ops.decode_attention(
+        q[:, 0], layer_pool["k"], layer_pool["v"], (pos + 1).to(torch.int32),
+        k_scale=layer_pool.get("k_scale"), v_scale=layer_pool.get("v_scale"),
+        block_tables=block_tables, impl=impl)
     return linear(out.reshape(b, 1, -1), p["wo"], impl=impl)

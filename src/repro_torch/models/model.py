@@ -10,7 +10,11 @@
 ``cache_spec`` gives the batch axis of every cache leaf (the serve
 engine's slot-insertion contract); ``ragged_prefill`` says that
 ``prefill`` takes right-padded mixed-length prompts with ``lengths``.
-Only the dense family is ported so far.
+``init_paged_cache(batch, n_blocks, block_size, max_blocks, device)`` and
+``paged_cache_spec`` (block axis for pool leaves, slot axis for ``pos``
+and ``block_tables``) back the engine's paged mode, and ``prefill``
+takes ``prefix=`` for suffix-only prefill against cached blocks. Only the
+dense family is ported so far.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ class ModelAPI:
     decode: Callable[..., Any]
     cache_spec: Any
     ragged_prefill: bool
+    init_paged_cache: Callable[..., Any]
+    paged_cache_spec: Any
 
 
 def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
@@ -46,9 +52,14 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
         forward=lambda p, b: mod.forward(p, b["tokens"], cfg, impl=impl),
         init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
             cfg, batch, max_len, device),
-        prefill=lambda p, b, c, lengths=None: mod.prefill(
-            p, b["tokens"], cfg, c, impl=impl, lengths=lengths),
+        prefill=lambda p, b, c, lengths=None, prefix=None: mod.prefill(
+            p, b["tokens"], cfg, c, impl=impl, lengths=lengths,
+            prefix=prefix),
         decode=lambda p, t, c: mod.decode_step(p, t, cfg, c, impl=impl),
         cache_spec=mod.cache_spec(cfg),
         ragged_prefill=True,
+        init_paged_cache=lambda batch, n_blocks, block_size, max_blocks,
+        device="cuda": mod.init_paged_cache(cfg, batch, n_blocks, block_size,
+                                            max_blocks, device),
+        paged_cache_spec=mod.paged_cache_spec(cfg),
     )

@@ -74,11 +74,26 @@ def cache_spec(cfg):
     return A.cache_spec(cfg)
 
 
+def init_paged_cache(cfg, batch: int, n_blocks: int, block_size: int,
+                     max_blocks: int, device="cuda"):
+    return A.init_paged_cache(cfg, batch, n_blocks, block_size, max_blocks,
+                              param_dtype(cfg), device)
+
+
+def paged_cache_spec(cfg):
+    return A.paged_cache_spec(cfg)
+
+
+# per-slot leaves, not stacked over layers
+_SLOT_LEAVES = ("pos", "block_tables")
+
+
 def _layer_cache(cache, i: int):
-    return {k: v[i] for k, v in cache.items() if k != "pos"}
+    return {k: v[i] for k, v in cache.items() if k not in _SLOT_LEAVES}
 
 
-def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None):
+def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
+            prefix=None):
     """tokens: [B, S] -> (last-position logits [B, V], cache).
 
     Writes positions [0, S) of every row of ``cache`` in place. With
@@ -86,14 +101,30 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None):
     each row's last real position and the cursor is set to ``lengths``;
     causal masking keeps real tokens from seeing the pads, and pad KV lies
     past the cursor, where decode never reads it before overwriting it.
+
+    ``prefix`` (needs ``lengths``) makes this a suffix-only prefill
+    against a cached prompt head: {"k"/"v": [L, B, P, Hk, hd]} (+
+    "k_scale"/"v_scale" when cfg.quant_kv) and "len": [B]. ``tokens`` and
+    ``lengths`` then describe only the uncached tail, every row is
+    position-offset by its prefix length, the cache receives the suffix
+    KV only, and the cursor lands at ``prefix_len + lengths``.
     """
     b, s = tokens.shape
+    prefix_len = None
+    if prefix is not None:
+        if lengths is None:
+            raise ValueError("prefix-reuse prefill needs per-row lengths")
+        prefix_len = prefix["len"].to(device=tokens.device,
+                                      dtype=torch.int32)
     x = L.embed_fwd(params["embed"], tokens).to(param_dtype(cfg))
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
+        pf = None if prefix is None else {
+            k: v[i] for k, v in prefix.items() if k != "len"}
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
         x = x + A.attention_prefill(lp["attn"], h, cfg, _layer_cache(cache, i),
-                                    impl=impl)
+                                    impl=impl, prefix=pf,
+                                    prefix_len=prefix_len)
         h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
     if lengths is None:
@@ -104,7 +135,7 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None):
         x = x[torch.arange(b, device=x.device), pos.long() - 1][:, None]
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
     logits = L.head_fwd(params["embed"], x, cfg, impl=impl)[:, 0]
-    cache["pos"] = pos
+    cache["pos"] = pos if prefix_len is None else pos + prefix_len
     return logits, cache
 
 
@@ -112,15 +143,24 @@ def decode_step(params, token, cfg, cache, impl: str = "auto"):
     """token: [B] int -> (logits [B, V], cache advanced by one in place).
 
     Every row writes its KV at its cursor and advances it, stopped and free
-    slots included; a cursor past the cache end writes nothing.
+    slots included; a cursor past the cache end writes nothing. A cache
+    that carries "block_tables" (:func:`init_paged_cache`) routes every
+    layer through the block-paged path: KV lands at ``(table[pos // bs],
+    pos % bs)`` in the shared pool and attention reads through the table.
     """
     pos = cache["pos"]
+    block_tables = cache.get("block_tables")
     x = L.embed_fwd(params["embed"], token[:, None]).to(param_dtype(cfg))
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
-        x = x + A.attention_decode(lp["attn"], h, cfg, _layer_cache(cache, i),
-                                   pos, impl=impl)
+        if block_tables is not None:
+            x = x + A.attention_decode_paged(
+                lp["attn"], h, cfg, _layer_cache(cache, i), pos,
+                block_tables, impl=impl)
+        else:
+            x = x + A.attention_decode(lp["attn"], h, cfg,
+                                       _layer_cache(cache, i), pos, impl=impl)
         h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)

@@ -21,15 +21,37 @@ scheduler keeps ``n_slots`` request slots full:
   ``truncated``). Finished slots free at the chunk boundary.
 - **Long prompts.** ``long_prompt="truncate"`` keeps the last
   ``max_len - 1`` prompt tokens; ``"reject"`` raises at ``submit()``.
+- **Reuse (LUT) matmul (``impl="reuse"``).** With ``quantize=True`` every
+  projection runs the reuse kernel, the paper's Result Cache on device:
+  a product table per activation, then gathers in place of multiplies.
+- **Paged KV + prefix reuse (``paged=True``).** The dense per-slot cache
+  becomes a block pool ``[L, num_blocks, kv_block_size]`` with per-slot
+  block tables (``serve.paged_cache.PagedKVCache`` owns the free list,
+  refcounts and radix prefix index). At admission each prompt's longest
+  cached full-block prefix is taken by reference and prefill runs only
+  on the uncached suffix, against the prefix gathered out of the pool
+  (``ops.prefix_attention``); a wave with no hit takes the plain ragged
+  prefill. A request the pool cannot hold is deferred, holding no blocks.
+  Before each decode chunk the engine plans every slot's write window,
+  then commits it (fresh blocks, one batched copy-on-write copy) and
+  hands the device the cursors and block tables; decode reads KV through
+  the tables in the paged kernel. Finished requests publish their full
+  blocks (keyed by ``prompt ++ tokens[:-1]``, the sequence fed) and
+  release their slot; LRU index-only blocks are evicted when the pool
+  runs dry.
 
-Paged KV, multi-LoRA, fused projections, tensor parallelism,
-speculation, chunked prefill, streaming and deadlines are not ported yet:
-asking for them raises ``NotImplementedError`` naming the ROADMAP item.
+Multi-LoRA, fused projections, tensor parallelism, speculation, chunked
+prefill, streaming, deadlines and preemption are not ported yet: asking
+for them raises ``NotImplementedError`` naming the ROADMAP item. Where
+the JAX engine would preempt a slot because the pool cannot cover a
+decode window, the port raises the same way; the default pool never gets
+there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import List, Optional
 
@@ -38,8 +60,10 @@ import torch
 
 from repro_torch.core.axllm_linear import deploy_quantize
 from repro_torch.core.quantization import QuantConfig
+from repro_torch.kernels import ops
 from repro_torch.models.model import ModelAPI, get_model
 from repro_torch.serve.decode import decode_steps, sample_tokens
+from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.scheduler import WaitQueue
 
 
@@ -76,6 +100,11 @@ class EngineStats:
     prefill_tokens: int = 0
     prefill_wall_s: float = 0.0       # host wall time inside prefill waves
     occupancy_sum: float = 0.0        # sum over steps of active / n_slots
+    # paged mode: prompt tokens whose KV came from the prefix index, live
+    # pool blocks, and copy-on-write block copies before decode chunks
+    prefix_hit_tokens: int = 0
+    blocks_in_use: int = 0
+    cow_copies: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -120,10 +149,20 @@ class ServeEngine:
 
     ``quantize=True`` converts weight matrices to ``quant_bits`` AxLLM
     codes (``None`` takes ``cfg.quant_bits``; ``quant_mode`` picks affine
-    or codebook levels). ``decode_chunk`` sets the decode steps per
+    or codebook levels); ``impl="reuse"`` multiplies them through the
+    reuse (LUT) kernel. ``decode_chunk`` sets the decode steps per
     dispatch; ``eos_id`` / ``long_prompt`` / ``max_len`` define the stop
-    conditions (see the module docstring). Serve with ``submit`` +
-    ``step()`` / ``run()``, or the one-shot ``generate(prompts)``.
+    conditions (see the module docstring).
+
+    ``paged=True`` serves from the block-paged pool with prefix reuse:
+    ``kv_block_size`` tokens per block (a power of two), ``num_blocks``
+    pool blocks (default ``2 * n_slots * ceil(max_len / kv_block_size) +
+    2``: a full dense equivalent per slot, the trash block, a
+    copy-on-write spare, and as much again for retained prefixes);
+    ``prefix_cache=False`` keeps the paging but disables the radix index.
+
+    Serve with ``submit`` + ``step()`` / ``run()``, or the one-shot
+    ``generate(prompts)``.
     """
 
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 512,
@@ -133,12 +172,13 @@ class ServeEngine:
                  eos_id: Optional[int] = None, long_prompt: str = "truncate",
                  decode_chunk: Optional[int] = None,
                  fuse_qkv: Optional[bool] = None, adapters=None,
-                 paged: bool = False, mesh=None,
+                 paged: bool = False, kv_block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True, mesh=None,
                  max_queue: Optional[int] = None,
                  speculate: bool = False,
                  prefill_budget: Optional[int] = None, device="cuda"):
         for on, what, item in (
-                (paged, "paged KV serving", "ROADMAP queue 1 item 7"),
                 (adapters is not None, "multi-LoRA serving",
                  "ROADMAP queue 1 item 5"),
                 (fuse_qkv if fuse_qkv is not None else cfg.fuse_qkv,
@@ -157,6 +197,9 @@ class ServeEngine:
                              f"got {long_prompt!r}")
         if max_len < 2:
             raise ValueError("max_len must be >= 2 (prompt + 1 decode step)")
+        if impl not in ops.IMPLS:
+            raise ValueError(f"impl must be one of {ops.IMPLS}, got "
+                             f"{impl!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.api: ModelAPI = get_model(cfg, impl=impl)
@@ -177,7 +220,26 @@ class ServeEngine:
             raise ValueError(f"decode_chunk must be >= 1, got {dc}")
         self.decode_chunk = dc
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = self.api.init_cache(n_slots, max_len, self.device)
+        self.paged = paged
+        self.kv_block_size = kv_block_size
+        self.prefix_cache = prefix_cache
+        if paged:
+            self.max_blocks = math.ceil(max_len / kv_block_size)
+            self.num_blocks = num_blocks if num_blocks is not None \
+                else 2 * n_slots * self.max_blocks + 2
+            self.pager = PagedKVCache(
+                n_slots=n_slots, n_blocks=self.num_blocks,
+                block_size=kv_block_size,
+                max_blocks_per_slot=self.max_blocks,
+                prefix_cache=prefix_cache)
+            self.cache = self.api.init_paged_cache(
+                n_slots, self.num_blocks, kv_block_size, self.max_blocks,
+                self.device)
+            self._pool_leaves = [k for k, ax in
+                                 self.api.paged_cache_spec.items() if ax == 1]
+        else:
+            self.pager = None
+            self.cache = self.api.init_cache(n_slots, max_len, self.device)
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue = WaitQueue()
         self.finished: List[Request] = []
@@ -224,6 +286,14 @@ class ServeEngine:
     def _free_slots(self):
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    # -- KV sequences -----------------------------------------------------------
+    def _kv_seq(self, r: Request) -> np.ndarray:
+        """Tokens whose KV a running slot holds: prompt ++ tokens[:-1] (the
+        last sampled token's KV is written by the next decode step). Keys
+        the prefix-index publish at finish."""
+        return np.concatenate([r.prompt, np.asarray(r.tokens[:-1],
+                                                    np.int32)])
+
     # -- prefill waves ---------------------------------------------------------
     def _admit(self):
         free = self._free_slots()
@@ -232,7 +302,10 @@ class ServeEngine:
         group = self.queue.take(len(free))
         t0 = time.perf_counter()
         try:
-            self._prefill_group(group, free)
+            if self.paged:
+                self._prefill_group_paged(group, free)
+            else:
+                self._prefill_group(group, free)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:
@@ -269,6 +342,117 @@ class ServeEngine:
         if src:
             self._write_wave(wave_cache, src, dst)
         self.stats.prefill_waves += 1
+
+    def _prefill_group_paged(self, group: List[Request], free: List[int]):
+        """Admit one wave through the paged pool: match each sequence's
+        longest cached full-block prefix, allocate blocks for the uncached
+        suffix, prefill only the suffix (rows position-offset by their
+        hit), and publish the sequence's full blocks so later requests
+        reuse them.
+
+        Admission is atomic per request (``pager.admit``): a request the
+        pool cannot hold, even after LRU eviction, goes back to the queue
+        holding zero blocks. A failure in the prefill dispatch releases
+        every admitted request's blocks and requeues the wave."""
+        pgr, bs = self.pager, self.kv_block_size
+        admitted, slots_for, seqs, hits, hit_toks = [], [], [], [], []
+        for r in group:
+            seq = r.prompt
+            hit, ht = pgr.match(seq)
+            slot = free[0]
+            if not pgr.admit(slot, hit, math.ceil((len(seq) - ht) / bs)):
+                self.queue.push_front(r)     # defer: the pool is dry now
+                continue
+            free.pop(0)
+            admitted.append(r)
+            slots_for.append(slot)
+            seqs.append(seq)
+            hits.append(hit)
+            hit_toks.append(ht)
+        if not admitted:
+            return
+        takes = [len(seq) - ht for seq, ht in zip(seqs, hit_toks)]
+        wb = _pow2_bucket(len(admitted), 1, self.n_slots)
+        pl = _pow2_bucket(max(takes), bs, self.max_blocks * bs)
+        npb_max = max(len(h) for h in hits)
+        npb = _pow2_bucket(npb_max, 1, self.max_blocks) if npb_max else 0
+        toks = np.zeros((wb, pl), np.int32)
+        lengths = np.ones((wb,), np.int32)
+        prefix_len = np.zeros((wb,), np.int32)
+        pbt = np.zeros((wb, max(npb, 1)), np.int32)
+        sbt = np.zeros((wb, pl // bs), np.int32)
+        for i, slot in enumerate(slots_for):
+            chunk = seqs[i][hit_toks[i]:]
+            toks[i, :len(chunk)] = chunk
+            lengths[i] = len(chunk)
+            prefix_len[i] = hit_toks[i]
+            nh = len(hits[i])
+            pbt[i, :nh] = hits[i]
+            nsb = math.ceil(len(chunk) / bs)
+            sbt[i, :nsb] = pgr.tables[slot, nh:nh + nsb]
+        try:
+            logits = self._paged_prefill(toks, lengths, prefix_len,
+                                         pbt if npb else None, sbt)
+        except Exception:
+            for r, slot in zip(admitted, slots_for):
+                pgr.release_slot(slot)
+                self.queue.push_front(r)
+            self.stats.blocks_in_use = pgr.blocks_in_use
+            raise
+        first = self._sample(logits)
+        for i, (r, slot) in enumerate(zip(admitted, slots_for)):
+            r.tokens.append(int(first[i]))
+            self.stats.admitted += 1
+            self.stats.prefill_tokens += int(lengths[i])
+            self.stats.prefix_hit_tokens += hit_toks[i]
+            # publish now: later waves reuse this prefill while the slot
+            # is still decoding
+            pgr.insert(seqs[i], pgr.slot_blocks(slot))
+            reason = self._stop_reason(r)
+            if reason is not None:
+                pgr.release_slot(slot)
+                self._finish(r, reason)   # EOS/max_new on the first token
+                free.append(slot)
+                continue
+            self.slots[slot] = r
+        self.stats.prefill_waves += 1
+        self.stats.blocks_in_use = pgr.blocks_in_use
+
+    def _paged_prefill(self, toks, lengths, prefix_len, pbt, sbt):
+        """One paged prefill dispatch: gather the rows' cached prefix KV out
+        of the pool through ``pbt`` (None: no row has a hit, plain ragged
+        prefill), run the suffix-only prefill, and scatter the suffix KV
+        into the rows' fresh blocks ``sbt``. Padded rows and entries point
+        at trash block 0, so the scatter sees repeated indices; nobody
+        reads the trash block, so any winner is fine."""
+        dev, bs = self.device, self.kv_block_size
+        wb, pl = toks.shape
+        wave = self.api.init_cache(wb, pl, dev)
+        kw = {"lengths": torch.from_numpy(lengths).to(dev)}
+        if pbt is not None:
+            idx = torch.from_numpy(pbt).to(dev).long()
+            prefix = {"len": torch.from_numpy(prefix_len).to(dev)}
+            for name in self._pool_leaves:
+                g = self.cache[name][:, idx]      # [L, wb, npb, bs, Hk, x]
+                prefix[name] = g.reshape(g.shape[0], wb, -1, *g.shape[4:])
+            kw["prefix"] = prefix
+        logits, wave = self.api.prefill(
+            self.params, {"tokens": torch.from_numpy(toks).to(dev)}, wave,
+            **kw)
+        sidx = torch.from_numpy(sbt).to(dev).long()
+        for name in self._pool_leaves:
+            pool, w = self.cache[name], wave[name]  # w: [L, wb, pl, Hk, x]
+            pool[:, sidx] = w.reshape(w.shape[0], wb, pl // bs, bs,
+                                      *w.shape[3:]).to(pool.dtype)
+        return logits
+
+    def _copy_blocks(self, pairs):
+        """Copy pool blocks ``src`` onto ``dst`` on every pool leaf: the
+        device half of copy-on-write, one batched copy per chunk."""
+        src = torch.tensor([p[0] for p in pairs], device=self.device)
+        dst = torch.tensor([p[1] for p in pairs], device=self.device)
+        for name in self._pool_leaves:
+            self.cache[name][:, dst] = self.cache[name][:, src]
 
     def _write_wave(self, wave_cache, src, dst):
         """Copy wave rows ``src`` into engine slots ``dst`` on each leaf's
@@ -335,11 +519,36 @@ class ServeEngine:
         while not active and self.queue:
             # a whole wave can finish at prefill (EOS/max_new on the first
             # token); keep admitting so queued work is never stranded
+            before = (len(self.queue), len(self.finished))
             self._admit()
             active = [i for i, s in enumerate(self.slots) if s is not None]
+            if not active and before == (len(self.queue),
+                                         len(self.finished)):
+                # every slot is free yet nothing admits or finishes: the
+                # pool can never hold the queued requests (a sizing bug)
+                raise RuntimeError(
+                    f"admission stalled: {len(self.queue)} queued "
+                    f"request(s) cannot fit an empty engine "
+                    f"(num_blocks={getattr(self, 'num_blocks', None)})")
         if not active:
             return False
         n = self._chunk_len(active, max_n)
+        windows = {}
+        if self.paged:
+            # plan: the block budget of every slot's write window
+            need = 0
+            for i in active:
+                r = self.slots[i]
+                pos0 = len(r.prompt) + len(r.tokens) - 1
+                rem = min(r.max_new - len(r.tokens), self.max_len - pos0)
+                windows[i] = (pos0, max(1, min(n, rem)))
+                a, c = self.pager.plan_decode(i, *windows[i])
+                need += a + c
+            if not self.pager.can_allocate(need) and len(active) > 1:
+                raise NotImplementedError(
+                    "the KV pool cannot cover this decode chunk: the JAX "
+                    "engine would preempt a slot here, and preemption is "
+                    "not ported yet (ROADMAP queue 1 item 8)")
         last = np.zeros((self.n_slots,), np.int32)
         gen = np.zeros((self.n_slots,), np.int32)
         budget = np.zeros((self.n_slots,), np.int32)
@@ -351,6 +560,21 @@ class ServeEngine:
             budget[i] = r.max_new
             stop[i] = False
         dev = self.device
+        if self.paged:
+            # commit: fresh blocks past each table's end and one batched
+            # copy-on-write copy, then the cursors and tables from the host
+            cow = []
+            pos_host = np.zeros((self.n_slots,), np.int32)
+            for i, (pos0, span) in windows.items():
+                pos_host[i] = pos0
+                cow += self.pager.prepare_decode(i, pos0, span)
+            if cow:
+                self._copy_blocks(cow)
+                self.stats.cow_copies += len(cow)
+            self.cache["pos"] = torch.from_numpy(pos_host).to(dev)
+            self.cache["block_tables"] = torch.from_numpy(
+                self.pager.tables.copy()).to(dev)
+            self.stats.blocks_in_use = self.pager.blocks_in_use
         out = decode_steps(
             self.api.decode, self.params, torch.from_numpy(last).to(dev),
             self.cache, self.rng, torch.from_numpy(stop).to(dev),
@@ -372,8 +596,16 @@ class ServeEngine:
                 r.tokens.append(int(toks[t, i]))
             reason = self._stop_reason(r)
             if reason is not None:
+                if self.paged:
+                    # publish the generated tokens' full blocks too, keyed
+                    # by the sequence fed, then drop the slot's references
+                    self.pager.insert(self._kv_seq(r),
+                                      self.pager.slot_blocks(i))
+                    self.pager.release_slot(i)
                 self._finish(r, reason)
                 self.slots[i] = None
+        if self.paged:
+            self.stats.blocks_in_use = self.pager.blocks_in_use
         return True
 
     def run(self, max_steps: int = 10000):
@@ -410,6 +642,8 @@ class ServeEngine:
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
                 self.slots[i] = None
+                if self.paged:
+                    self.pager.release_slot(i)
                 r = s
                 break
         else:

@@ -7,7 +7,9 @@ card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: float32 kernels agree with the plain versions to 1e-5
 relative to the output scale (other summation orders); bfloat16 outputs
-to 1e-2 of the scale (one bfloat16 rounding of the result, 2^-8).
+to 1e-2 of the scale (one bfloat16 rounding of the result, 2^-8). The
+reuse kernel's multiply count is an integer and must equal
+``reuse_mult_count``.
 """
 
 import pytest
@@ -19,6 +21,9 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_decode_attention import \
+    paged_decode_attention_cuda
+from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
 from repro_torch.models.model import get_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -59,6 +64,63 @@ def test_axllm_matmul_kernel(card, m, qcfg, dtype):
     assert _build.LAUNCHES["axllm_matmul"] == before + 1
     # f32 output either way: the sums run in f32 over the same inputs
     assert _rel_err(y, ref.axllm_matmul_ref(x, qt)) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qcfg", [
+    QuantConfig(8), QuantConfig(8, "affine", "per_group", group_size=64),
+    QuantConfig(4, "affine", pack=True), QuantConfig(4, "affine", pack=False),
+    QuantConfig(4, "codebook"), QuantConfig(8, "codebook")],
+    ids=["int8", "int8-group", "int4", "int4-unpacked", "nf4", "cb8"])
+@pytest.mark.parametrize("m,k,n", [(8, 192, 96), (37, 256, 512),
+                                   (300, 768, 256), (0, 64, 64)])
+def test_reuse_matmul_kernel(card, m, k, n, qcfg, dtype):
+    g = torch.Generator(device=card).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=card).to(dtype)
+    qt = quantize(torch.randn(k, n, generator=g, device=card), qcfg)
+    before = _build.LAUNCHES["reuse_matmul"]
+    y, mults = reuse_matmul_cuda(x, qt, with_stats=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["reuse_matmul"] == before + 1
+    assert int(mults) == ref.reuse_mult_count(qt, segment(n))
+    assert y.shape == (m, n)
+    if m:
+        assert _rel_err(y, ref.reuse_matmul_ref(x, qt)) < 1e-5
+    y2, none = reuse_matmul_cuda(x, qt)        # serving: no count
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8kv"])
+def test_paged_decode_attention_kernel(card, quant, dtype):
+    g = torch.Generator(device=card).manual_seed(2)
+    b, h, hk, d, bs, mb = 4, 12, 4, 64, 16, 8
+    nb = b * mb + 2
+    q = torch.randn(b, h, d, generator=g, device=card).to(dtype)
+    bt = (1 + torch.randperm(nb - 1, generator=g, device=card)[:b * mb])
+    bt = bt.reshape(b, mb).to(torch.int32)
+    bt[1, :2] = bt[0, :2]                       # a shared prefix
+    bt[0, 3:] = 0                               # trash past the length
+    length = torch.tensor([3 * bs - 5, 0, mb * bs, mb * bs + 40],
+                          dtype=torch.int32, device=card)
+    if quant:
+        kp = torch.randint(-127, 128, (nb, bs, hk, d), generator=g,
+                           device=card, dtype=torch.int8)
+        vp = torch.randint(-127, 128, (nb, bs, hk, d), generator=g,
+                           device=card, dtype=torch.int8)
+        ks = torch.rand(nb, bs, hk, 1, generator=g, device=card) * 0.02
+        vs = torch.rand(nb, bs, hk, 1, generator=g, device=card) * 0.02
+    else:
+        kp = torch.randn(nb, bs, hk, d, generator=g, device=card).to(dtype)
+        vp = torch.randn(nb, bs, hk, d, generator=g, device=card).to(dtype)
+        ks = vs = None
+    out = paged_decode_attention_cuda(q, kp, vp, bt, length, ks, vs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert torch.count_nonzero(out[1]) == 0
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, length, ks, vs)
+    assert _rel_err(out, want) < _tol(dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -114,19 +176,43 @@ def test_wrappers_reject_what_kernels_do_not_take(card):
     q4 = torch.randn(1, 32, 4, 64, device=card)
     with pytest.raises(TypeError):
         flash_attention_cuda(q4, q4.to(torch.bfloat16), q4)
+    q = torch.randn(2, 8, 64, device=card)
+    pool = torch.randn(5, 16, 2, 64, device=card)
+    one = torch.ones(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                     # int64 tables
+        paged_decode_attention_cuda(q, pool, pool,
+                                    torch.ones(2, 3, dtype=torch.int64,
+                                               device=card), one)
+    with pytest.raises(ValueError):                     # scale shape
+        paged_decode_attention_cuda(
+            q, pool.to(torch.int8), pool.to(torch.int8),
+            torch.ones(2, 3, dtype=torch.int32, device=card), one,
+            torch.ones(5, 16, 2, 2, device=card),
+            torch.ones(5, 16, 2, 2, device=card))
 
 
-def test_engine_kernel_path_matches_plain_path(card):
+@pytest.mark.parametrize("mode", ["dense", "paged-reuse"])
+def test_engine_kernel_path_matches_plain_path(card, mode):
     cfg = CONFIG.reduced(dtype="float32", remat=False)
     params = get_model(cfg).init(seed=0, device=card)
-    prompts = [torch.arange(1, n + 1).numpy() for n in (8, 12, 31, 5)]
+    head = list(range(1, 17))
+    prompts = [torch.arange(1, n + 1).numpy() for n in (8, 12, 31, 5)] + \
+        [head + [40 + i, 50 + i] for i in range(4)]
+    kw, impls, kernels = {}, ("cuda", "ref"), (
+        "axllm_matmul", "decode_attention", "flash_attention")
+    if mode == "paged-reuse":
+        kw = dict(paged=True, kv_block_size=8)
+        impls, kernels = ("reuse", "reuse_ref"), (
+            "reuse_matmul", "paged_decode_attention", "flash_attention")
     runs = {}
-    for impl in ("cuda", "ref"):
+    for impl in impls:
         eng = ServeEngine(cfg, params, n_slots=2, max_len=64, quantize=True,
-                          decode_chunk=8, impl=impl, device=card)
+                          decode_chunk=8, impl=impl, device=card, **kw)
         _build.reset_launches()
         runs[impl] = (eng.generate(prompts, max_new=16),
                       dict(_build.LAUNCHES))
-    assert runs["cuda"][0] == runs["ref"][0]
-    assert all(runs["cuda"][1][k] > 0 for k in _build.SIGNATURES)
-    assert runs["ref"][1] == {}
+    kernel_run, plain_run = (runs[i] for i in impls)
+    assert kernel_run[0] == plain_run[0]
+    assert sorted(kernel_run[1]) == sorted(kernels)
+    assert all(kernel_run[1][k] > 0 for k in kernels)
+    assert plain_run[1] == {}

@@ -118,7 +118,7 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 def test_unported_options_raise(weights):
     _, _, tcfg, tparams = weights
-    for kw in (dict(paged=True), dict(adapters=object()),
+    for kw in (dict(adapters=object()),
                dict(fuse_qkv=True), dict(mesh=object()),
                dict(speculate=True), dict(prefill_budget=64),
                dict(max_queue=4)):

@@ -1,4 +1,4 @@
-"""Port parity: the plain versions of the three ported kernels
+"""Port parity: the plain versions of the three slice-1 kernels
 (``repro_torch.kernels.ref``, reached through ``ops`` and through each
 CUDA wrapper's CPU path) against the JAX package's oracles and against
 its Pallas kernels run in interpret mode, on the same numpy inputs.
@@ -20,7 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import quantization as TQ
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda, kernel_scale
+from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -87,7 +87,7 @@ def test_kernel_scale_folds_qmax_like_jax():
     w = rng.standard_normal((256, 64)).astype(np.float32)
     for gran in ("per_channel", "per_tensor", "per_group"):
         qj, qt = _qpair(w, 8, "affine", gran, group_size=64)
-        np.testing.assert_array_equal(kernel_scale(qt).numpy(),
+        np.testing.assert_array_equal(qt.kernel_scale.numpy(),
                                       np.asarray(jops._kernel_scale(qj)))
 
 
@@ -234,20 +234,24 @@ def test_cuda_impl_on_cpu_tensor_raises():
                              impl="cuda")
 
 
-@pytest.mark.parametrize("impl", ops.REUSE_IMPLS)
+@pytest.mark.parametrize("impl", ["reuse", "reuse_interpret", "reuse_ref"])
 def test_reuse_impls_not_ported(impl):
-    qt = TQ.quantize(torch.ones(64, 32), TQ.QuantConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.axllm_matmul(torch.zeros(2, 64), qt, impl=impl)
+    """The reuse impls are ported now (tests/test_torch_reuse.py); the
+    JAX package's interpret impl has no counterpart and is refused."""
+    x = torch.randn(2, 64)
+    qt = TQ.quantize(torch.randn(64, 32), TQ.QuantConfig())
+    if impl == "reuse_interpret":
+        with pytest.raises(ValueError, match="interpret"):
+            ops.axllm_matmul(x, qt, impl=impl)
+        return
+    torch.testing.assert_close(ops.axllm_matmul(x, qt, impl=impl),
+                               ref.reuse_matmul_ref(x, qt))
 
 
 def test_unported_ops_raise_not_implemented():
-    q = torch.zeros(1, 2, 32)
-    kc = torch.zeros(4, 16, 2, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32),
-                             block_tables=torch.zeros(1, 4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.prefix_attention()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.quantize_channels(torch.zeros(8, 8))
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        ops.prefix_attention(q, q, q, torch.ones(1, dtype=torch.int32), q, q,
+                             impl="cuda")

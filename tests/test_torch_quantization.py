@@ -94,3 +94,26 @@ def test_quant_config_rejects_unknown_values():
         TQ.QuantConfig(mode="lut")
     with pytest.raises(ValueError):
         TQ.QuantConfig(granularity="per_row")
+
+
+@pytest.mark.parametrize("gran", GRANS)
+@pytest.mark.parametrize("mode", ["affine", "codebook"])
+def test_kernel_scale_made_once_and_sliced_per_layer(gran, mode):
+    """A stacked QTensor folds its scale once; each layer's view is a slice
+    of it (no recomputation per forward) and equals the JAX kernels'
+    folded scale of that layer quantized alone."""
+    from repro.kernels import ops as jops
+    w = _weights(7, (3, 64, 48))
+    cfg = TQ.QuantConfig(8, mode, gran, group_size=16)
+    qt = TQ.quantize(torch.from_numpy(w), cfg)
+    g = 64 // 16 if gran == "per_group" else 1
+    assert qt.kernel_scale.shape == (3, g, 48)
+    assert qt.kernel_scale.dtype == torch.float32
+    for i in range(3):
+        layer = qt.index(i)
+        assert layer.kernel_scale.data_ptr() == qt.kernel_scale[i].data_ptr()
+        assert layer.kernel_scale.is_contiguous()
+        qj = JQ.quantize(jnp.asarray(w[i]), JQ.QuantConfig(
+            bits=8, mode=mode, granularity=gran, group_size=16))
+        np.testing.assert_array_equal(layer.kernel_scale.numpy(),
+                                      np.asarray(jops._kernel_scale(qj)))
