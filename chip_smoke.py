@@ -9,12 +9,17 @@ NVIDIA GPU.
    of the serving paths from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) and prints the build time.
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card at the shapes of full-width repro-100m serving, with its error,
-   tolerance, device time (CUDA events, L2 flushed before each launch),
-   the plain version's time, the least time the card could take (bound)
-   and the time of one PyTorch library call computing the same function
-   (a yardstick the port never calls). The reuse matmul's multiply count
-   is held against ``reuse_mult_count``.
+   card at the shapes of full-width repro-100m serving (the quantized
+   matmuls also at the fused widths N1280 = wqkv and N4096 = gate_up),
+   with its error, tolerance, device time (CUDA events, L2 flushed before
+   each launch), the plain version's time, the least time the card could
+   take (bound) and the time of one PyTorch library call computing the
+   same function (a yardstick the port never calls). The reuse matmul's
+   multiply count is held against ``reuse_mult_count``. The quantization
+   kernel's codes and scales must equal its plain version's, at five
+   shapes, bf16 and f32, 8 and 4 bits, and then in a deploy pass through
+   ``ops.quantize_channels`` over every projection leaf of full-width
+   repro-100m (84 matrices, one launch per stacked leaf), its path.
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -29,13 +34,21 @@ NVIDIA GPU.
       kv_block_size=16`` serves 16 requests that share a 256-token prefix
       (tails 64/200/255 tokens): reuse_matmul, paged_decode_attention,
       and flash_attention on the wave with no prefix hit.
+   c. LoRA on the reuse pipeline: the run-a engine with ``impl="reuse",
+      fuse_qkv=True`` and an adapter registry of four rank-16 adapters
+      (``LoRAConfig()``, A and B from numpy seeds, carried in by
+      ``bridge.registry_from_numpy``) serves run a's prompts, the
+      requests cycling base/a0/a1/a2/a3: reuse_matmul, decode_attention,
+      flash_attention.
    Each holds its first wave's logits against the plain path, profiles 4
    decode chunks for the device's idle share, and serves the same
    requests through the plain path for greedy-token agreement. Run b also
    holds the first-token logits of its first prefix-hit wave, as served
    (prefix KV gathered out of the pool, suffix-only prefill), against a
-   plain dense prefill of the whole prompts, and reads the reuse rate the
-   kernel achieves on each projection.
+   plain dense prefill of the whole prompts; runs b and c read the reuse
+   rate the kernel achieves on each projection of layer 0. Run c also
+   requires each adapter row's first-wave logits to differ from the same
+   prompt's base logits by more than the tolerance.
 6. Prints the ``kernels`` JSON line, then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -59,6 +72,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 N_SLOTS, MAX_LEN, DECODE_CHUNK = 8, 1024, 8
 PROMPT_LENS, N_REQUESTS, MAX_NEW = (64, 200, 511), 16, 64
 SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
+ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
+LORA_B_STD = 0.01       # run c: B ~ N(0, 0.01^2), A ~ N(0, 1/r)
+FUSED = ((768, 1280), (768, 4096))    # K x N of wqkv and gate_up
 LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 
@@ -158,6 +174,8 @@ def kernel_phase(dev, flush):
                 (8, 768, 2048, QuantConfig(4, "affine", pack=True)),
                 (8, 768, 2048, QuantConfig(8, "affine", "per_group")),
                 (8, 768, 2048, QuantConfig(4, "codebook", pack=True))]
+    mm_cases += [(m, k, n, QuantConfig(8)) for m in (N_SLOTS, 4096)
+                 for k, n in FUSED]
     for m, k, n, qc in mm_cases:
         x = torch.randn(m, k, generator=g, device=dev).to(bf16)
         qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
@@ -268,7 +286,8 @@ def reuse_paged_kernel_phase(dev, flush):
     rows = []
     int8 = QuantConfig(8)
     shapes = [(768, 768), (768, 256), (768, 2048), (2048, 768)]
-    cases = [(m, k, n, int8) for m in (N_SLOTS, 4096) for k, n in shapes]
+    cases = [(m, k, n, int8) for m in (N_SLOTS, 4096)
+             for k, n in shapes + list(FUSED)]
     cases += [(N_SLOTS, 768, 2048, QuantConfig(4, "affine", pack=True)),
               (N_SLOTS, 768, 2048, QuantConfig(8, "affine", "per_group")),
               (N_SLOTS, 768, 2048, QuantConfig(4, "codebook", pack=True))]
@@ -354,6 +373,77 @@ def reuse_paged_kernel_phase(dev, flush):
     return rows
 
 
+def quantize_kernel_phase(dev, flush):
+    """The quantization kernel against its plain version: codes and scales
+    equal at every shape, type and width, with times at 8 bits; then the
+    deploy pass through ``ops.quantize_channels`` (the kernel's path)
+    over every projection leaf of full-width repro-100m, with the launch
+    count set to 0 just before it and read just after. Returns (rows, the
+    pass's metrics)."""
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.quantize import quantize_cuda
+    from repro_torch.models.model import get_model
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+
+    def held(w, codes, scale, bits, what):
+        want_codes, want_scale = ref.quantize_ref(w, bits)
+        n_codes = int((codes != want_codes).sum())
+        n_scales = int((scale != want_scale).sum())
+        check(n_codes == 0 and n_scales == 0,
+              f"quantize {what}: {n_codes} codes and {n_scales} scales "
+              "differ from the plain version")
+        return float((codes.int() - want_codes.int()).abs().max())
+
+    for k, n in ((768, 768), (768, 256), (768, 2048), (2048, 768),
+                 (8192, 2048)):
+        for dtype in (torch.bfloat16, torch.float32):
+            w = (torch.randn(k, n, generator=g, device=dev)
+                 * k ** -0.5).to(dtype)
+            for bits in (8, 4):
+                codes, scale = quantize_cuda(w, bits)
+                torch.cuda.synchronize()
+                shape = f"K{k} N{n} {str(dtype)[6:]} {bits}b"
+                err = held(w, codes, scale, bits, shape)
+                ms = time_ms(lambda: quantize_cuda(w, bits), flush)
+                plain = time_ms(lambda: ref.quantize_ref(w, bits), flush)
+                rows.append(case_row("quantize", shape, err, 0.0, ms, plain,
+                                     None, nbytes(w, codes, scale),
+                                     5.0 * k * n, "float32"))
+
+    params = get_model(CONFIG).init(seed=0, device=dev)
+    layers = params["layers"]
+    leaves = [layers[grp][name] for grp, names in (
+        ("attn", ("wq", "wk", "wv", "wo")), ("ffn", ("gate", "up", "down")))
+        for name in names]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = [ops.quantize_channels(w) for w in leaves]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches == {"quantize": len(leaves)},
+          f"deploy pass launched {launches}, not {len(leaves)} quantize")
+    for w, (codes, scale) in zip(leaves, out):
+        held(w, codes, scale, 8, f"deploy {tuple(w.shape)}")
+    n_mat = sum(w.shape[0] for w in leaves)
+    nb = sum(nbytes(w, c, sc) for w, (c, sc) in zip(leaves, out))
+    n_w = sum(w.numel() for w in leaves)
+    bound_ms, bound_by = bound(nb, 5.0 * n_w, "float32")
+    ms = time_ms(lambda: [quantize_cuda(w) for w in leaves], flush, iters=10)
+    plain = time_ms(lambda: [ref.quantize_ref(w) for w in leaves], flush,
+                    iters=10)
+    print(f"quantize deploy pass: {n_mat} matrices ({n_w} weights, "
+          f"{nb / 1e6:.1f} MB) in {launches['quantize']} launches, codes and "
+          f"scales equal to the plain version; {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    deploy = dict(matrices=n_mat, weights=n_w, bytes=nb, launches=launches,
+                  ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+    return rows, deploy
+
+
 def small_input_check(dev):
     """Reduced float32 repro-100m, int8 weights: greedy tokens through the
     kernels equal those through the plain versions, for the dense engine
@@ -412,8 +502,8 @@ def record_hit_wave(eng) -> dict:
         wave[:] = [r.prompt for r in g]
         return group_fn(g, free)
 
-    def prefill(toks, lengths, prefix_len, pbt, sbt):
-        logits = prefill_fn(toks, lengths, prefix_len, pbt, sbt)
+    def prefill(toks, lengths, prefix_len, pbt, sbt, aidx):
+        logits = prefill_fn(toks, lengths, prefix_len, pbt, sbt, aidx)
         if pbt is not None and not rec:
             for i, p in enumerate(wave):   # row i: cached head ++ its tail
                 check(np.array_equal(np.concatenate(
@@ -427,10 +517,12 @@ def record_hit_wave(eng) -> dict:
     return rec
 
 
-def serve_run(dev, card, label, prompts, kernels, **engine_kw):
+def serve_run(dev, card, label, prompts, kernels, names=None,
+              registry=None, **engine_kw):
     """One end-to-end run on full-width repro-100m: ``prompts`` through
     ``ServeEngine(quantize=True, n_slots=8, max_len=1024, decode_chunk=8,
-    **engine_kw)``, with every launch count set to 0 just before and read
+    adapters=registry, **engine_kw)``, request i with adapter
+    ``names[i]``, with every launch count set to 0 just before and read
     just after, each of ``kernels`` required to have launched. Returns
     (metrics, the engine)."""
     import numpy as np
@@ -445,17 +537,20 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
     impl = engine_kw.pop("impl", "auto")
     plain_impl = "reuse_ref" if impl == "reuse" else "ref"
     tag = f"e2e {label} [{card}]"
+    names = names or [None] * len(prompts)
 
     def engine(impl):
         return ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
                            quantize=True, decode_chunk=DECODE_CHUNK,
-                           impl=impl, device=dev, **engine_kw)
+                           impl=impl, adapters=registry, device=dev,
+                           **engine_kw)
 
-    engine(impl).generate(prompts[:2], max_new=8)    # warm-up (cuBLAS, etc.)
+    engine(impl).generate(prompts[:2], max_new=8,     # warm-up (cuBLAS, etc.)
+                          adapters=names[:2])
     eng = engine(impl)
     hit_wave = record_hit_wave(eng) if eng.paged else None
-    for p in prompts:
-        eng.submit(p, max_new=MAX_NEW)
+    for p, name in zip(prompts, names):
+        eng.submit(p, max_new=MAX_NEW, adapter=name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -484,23 +579,34 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
           f"{generated / wall:.1f} tok/s; decode {st.decode_tokens} tokens "
           f"in {st.steps} steps; prefill {st.prefill_waves} waves, "
           f"{st.prefill_tokens} tokens, {st.prefill_wall_s:.3f} s; "
-          f"prefix-hit tokens {st.prefix_hit_tokens}; peak memory "
+          f"prefix-hit tokens {st.prefix_hit_tokens}; LoRA requests "
+          f"{st.lora_requests}; peak memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag}: launches {launches}", flush=True)
 
-    def dense_logits(which, wave):
-        """First-token logits of a plain dense prefill of ``wave``."""
+    def dense_logits(which, wave, wave_names=None):
+        """First-token logits of a plain dense prefill of ``wave``, row i
+        with adapter ``wave_names[i]`` (all base when None)."""
         pl = _pow2_bucket(max(len(p) for p in wave), 8, MAX_LEN)
         toks = np.zeros((len(wave), pl), np.int32)
         for i, p in enumerate(wave):
             toks[i, :len(p)] = p
         lengths = torch.tensor([len(p) for p in wave], dtype=torch.int32,
                                device=dev)
+        lora = {}
+        if registry is not None:
+            rows = [-1 if n is None else registry.index_of(n)
+                    for n in wave_names or [None] * len(wave)]
+            lora = dict(adapters=registry.stacked,
+                        adapter_idx=torch.tensor(rows, dtype=torch.int32,
+                                                 device=dev),
+                        lora_scaling=registry.scaling)
         api = get_model(cfg, impl=which)
         with torch.inference_mode():
             return api.prefill(
                 eng.params, {"tokens": torch.from_numpy(toks).to(dev)},
-                api.init_cache(len(wave), pl, dev), lengths=lengths)[0]
+                api.init_cache(len(wave), pl, dev), lengths=lengths,
+                **lora)[0]
 
     def hold(what, a, b):
         a, b = a.float(), b.float()
@@ -518,11 +624,28 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
 
     # first wave (no prefix hit: the plain ragged prefill) against the
     # plain path, same card and weights
-    wave = prompts[:N_SLOTS]
+    wave, wave_names = prompts[:N_SLOTS], names[:N_SLOTS]
+    served = dense_logits(impl, wave, wave_names)
     logit_err, scale, argmax_agree = hold(
-        "first-wave logits", dense_logits(impl, wave),
-        dense_logits(plain_impl, wave))
+        "first-wave logits", served, dense_logits(plain_impl, wave,
+                                                  wave_names))
     hit = {}
+    if registry is not None:
+        # the delta ran: each adapter row's logits move beyond the
+        # tolerance from the same prompt's base logits
+        base = dense_logits(impl, wave).float()
+        tol = LOGIT_TOL * max(1.0, scale)
+        moved = {}
+        for i, name in enumerate(wave_names):
+            if name is not None:
+                moved[i] = float((served[i].float() - base[i]).abs().max())
+                check(moved[i] > tol, f"{label}: row {i} ({name}) logits "
+                                      f"moved only {moved[i]} from base")
+        print(f"{tag}: adapter rows' first-wave logits move "
+              f"{min(moved.values()):.4f}-{max(moved.values()):.4f} from "
+              f"the same prompts' base logits (tolerance {tol:.4e})",
+              flush=True)
+        hit["adapter_logit_moved"] = moved
     if eng.paged:
         # the served wave with a prefix hit (prefix KV gathered out of the
         # pool, suffix-only prefill) against a plain dense prefill of the
@@ -538,8 +661,8 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
 
     # where the decode time goes: 4 chunks of 8 full slots, profiled
     prof_eng = engine(impl)
-    for p in prompts[:N_SLOTS]:
-        prof_eng.submit(p, max_new=MAX_NEW)
+    for p, name in zip(prompts[:N_SLOTS], names):
+        prof_eng.submit(p, max_new=MAX_NEW, adapter=name)
     prof_eng.step()                                  # prefill + 1st chunk
     wall_ms, busy_ms, top = device_busy_ms(
         lambda: [prof_eng.step() for _ in range(4)])
@@ -551,8 +674,8 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
         print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
 
     plain = engine(plain_impl)
-    for p in prompts:
-        plain.submit(p, max_new=MAX_NEW)
+    for p, name in zip(prompts, names):
+        plain.submit(p, max_new=MAX_NEW, adapter=name)
     plain.run()
     ptoks = {r.rid: r.tokens for r in plain.finished}
     same = sum(done[i].tokens == ptoks[i] for i in done)
@@ -564,6 +687,7 @@ def serve_run(dev, card, label, prompts, kernels, **engine_kw):
                 prefill_wall_s=st.prefill_wall_s, steps=st.steps,
                 prefill_waves=st.prefill_waves,
                 prefill_tokens=st.prefill_tokens,
+                lora_requests=st.lora_requests,
                 prefix_hit_tokens=st.prefix_hit_tokens,
                 blocks_in_use=st.blocks_in_use, peak_bytes=peak,
                 launches=launches, logit_err=logit_err, logit_scale=scale,
@@ -584,17 +708,44 @@ def end_to_end(dev, card):
         "axllm_matmul", "decode_attention", "flash_attention"))[0]
 
 
-def end_to_end_reuse_paged(dev, card):
-    """Run b, and the reuse rate the kernel achieves on layer 0's seven
-    projections of the served weights, against the host count and the
-    analytic prediction of ``core.reuse``."""
-    import numpy as np
+def layer0_reuse_rates(eng, label, card) -> dict:
+    """The reuse rate the kernel counts on each quantized projection of
+    layer 0 of ``eng``'s served weights, each count held against
+    ``reuse_mult_count``, beside the analytic Gaussian model."""
     import torch
-    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.core.quantization import QTensor
     from repro_torch.core.reuse import expected_reuse_rate
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.reuse_matmul import segment
     from repro_torch.models.transformer import layer_slice
+
+    layer0 = layer_slice(eng.params["layers"], 0)
+    predicted = expected_reuse_rate(256, 128, "gaussian")
+    rates = {}
+    for group in ("attn", "ffn"):
+        for name, qt in layer0[group].items():
+            if not isinstance(qt, QTensor):
+                continue
+            k, n = qt.shape
+            x = torch.ones((N_SLOTS, k), dtype=torch.bfloat16,
+                           device=qt.codes.device)
+            _, mults = ops.reuse_matmul(x, qt, impl="reuse", with_stats=True)
+            count = ref.reuse_mult_count(qt, segment(n))
+            check(int(mults) == count, f"{label}: layer-0 {name}: kernel "
+                                       f"counted {int(mults)}, host {count}")
+            rates[name] = 1.0 - int(mults) / (k * n)
+            print(f"e2e {label} [{card}]: layer 0 {name} K{k} N{n}: reuse "
+                  f"rate {rates[name]:.4f} (kernel count {int(mults)} = "
+                  f"reuse_mult_count; analytic gaussian model "
+                  f"{predicted:.4f})", flush=True)
+    return dict(reuse_rate_layer0=rates, reuse_rate_predicted=predicted)
+
+
+def end_to_end_reuse_paged(dev, card):
+    """Run b, and the reuse rate the kernel achieves on layer 0's seven
+    projections of the served weights."""
+    import numpy as np
+    from repro_torch.configs.repro_100m import CONFIG
 
     rng = np.random.default_rng(1)
     vocab = CONFIG.vocab_size
@@ -607,26 +758,47 @@ def end_to_end_reuse_paged(dev, card):
         impl="reuse", paged=True, kv_block_size=KV_BLOCK)
     check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
           f"reuse+paged: only {e2e['prefix_hit_tokens']} prefix-hit tokens")
-    layer0 = layer_slice(eng.params["layers"], 0)
-    predicted = expected_reuse_rate(256, 128, "gaussian")
-    rates = {}
-    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
-                         ("ffn", ("gate", "up", "down"))):
-        for name in names:
-            qt = layer0[group][name]
-            k, n = qt.shape
-            x = torch.ones((N_SLOTS, k), dtype=torch.bfloat16, device=dev)
-            _, mults = ops.reuse_matmul(x, qt, impl="reuse", with_stats=True)
-            count = ref.reuse_mult_count(qt, segment(n))
-            check(int(mults) == count, f"layer-0 {name}: kernel counted "
-                                       f"{int(mults)}, host {count}")
-            rates[name] = 1.0 - int(mults) / (k * n)
-            print(f"e2e reuse+paged [{card}]: layer 0 {name} K{k} N{n}: "
-                  f"reuse rate {rates[name]:.4f} (kernel count {int(mults)} "
-                  f"= reuse_mult_count; analytic gaussian model "
-                  f"{predicted:.4f})", flush=True)
-    e2e["reuse_rate_layer0"] = rates
-    e2e["reuse_rate_predicted"] = predicted
+    e2e.update(layer0_reuse_rates(eng, "reuse+paged", card))
+    return e2e
+
+
+def end_to_end_lora(dev, card):
+    """Run c: run a's prompts on the reuse pipeline with fused projections
+    and four LoRA adapters, the requests cycling base/a0/a1/a2/a3; the
+    counted reuse rate of layer 0's fused wqkv and gate_up."""
+    import numpy as np
+    from repro_torch.bridge import registry_from_numpy
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.core.axllm_linear import LoRAConfig
+    from repro_torch.serve.adapters import target_dims
+
+    lcfg = LoRAConfig()
+    rng = np.random.default_rng(3)
+    nl, r, n_ad = CONFIG.n_layers, lcfg.rank, len(ADAPTERS)
+    stacked = {}
+    for t in lcfg.targets:
+        n_in, n_out = target_dims(CONFIG, t)
+        stacked[t] = {
+            "lora_a": (rng.standard_normal((nl, n_ad, n_in, r))
+                       / np.sqrt(r)).astype(np.float32),
+            "lora_b": (rng.standard_normal((nl, n_ad, r, n_out))
+                       * LORA_B_STD).astype(np.float32)}
+    registry = registry_from_numpy(CONFIG, stacked, list(ADAPTERS), lcfg,
+                                   device=dev)
+    rng = np.random.default_rng(0)           # run a's prompts
+    prompts = [rng.integers(0, CONFIG.vocab_size,
+                            size=PROMPT_LENS[i % len(PROMPT_LENS)])
+               .astype(np.int32) for i in range(N_REQUESTS)]
+    cycle = (None,) + ADAPTERS
+    names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
+    e2e, eng = serve_run(dev, card, "lora+reuse+fused", prompts, (
+        "reuse_matmul", "decode_attention", "flash_attention"), names=names,
+        registry=registry, impl="reuse", fuse_qkv=True)
+    check(e2e["lora_requests"] == sum(n is not None for n in names),
+          f"lora+reuse+fused: {e2e['lora_requests']} LoRA requests admitted")
+    e2e.update(layer0_reuse_rates(eng, "lora+reuse+fused", card))
+    check({"wqkv", "gate_up"} <= set(e2e["reuse_rate_layer0"]),
+          "lora+reuse+fused: layer 0 is not fused")
     return e2e
 
 
@@ -644,6 +816,8 @@ KERNELS = {
     "paged_decode_attention": (
         "src/repro/kernels/paged_decode_attention.py:81",
         "B8 H12 Hk4 d64 bs16 MB64 bf16-kv", "reuse+paged"),
+    "quantize": ("src/repro/kernels/quantize.py:33", "K768 N2048 bfloat16 8b",
+                 "deploy"),
 }
 
 
@@ -679,9 +853,13 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = kernel_phase(dev, flush) + reuse_paged_kernel_phase(dev, flush)
+    q_rows, deploy = quantize_kernel_phase(dev, flush)
+    rows += q_rows
     small_input_check(dev)
     e2e = {"dense": end_to_end(dev, card),
-           "reuse+paged": end_to_end_reuse_paged(dev, card)}
+           "reuse+paged": end_to_end_reuse_paged(dev, card),
+           "lora+reuse+fused": end_to_end_lora(dev, card),
+           "deploy": deploy}
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():

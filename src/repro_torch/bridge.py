@@ -1,9 +1,10 @@
-"""Carry weights across from the JAX package's parameter layout.
+"""Carry weights and LoRA adapters across from the JAX package's layout.
 
 The tree arrives as nested dicts of numpy arrays (the caller converts any
 framework arrays to numpy first); a quantized weight arrives as a dict of
 the :class:`QTensor` fields. Layouts are kept as they are: weights
-``[in, out]``, layers stacked on a leading ``L`` axis.
+``[in, out]``, layers stacked on a leading ``L`` axis. An adapter
+registry arrives as its stacked A/B arrays and its row names.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.axllm_linear import LoRAConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.serve.adapters import AdapterRegistry
 
 _QTENSOR_FIELDS = frozenset(f.name for f in dataclasses.fields(QTensor)
                             ) - {"kernel_scale"}    # derived, not stored
@@ -44,3 +47,24 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def registry_from_numpy(cfg, stacked, names, lora_cfg: LoRAConfig = None,
+                        device="cuda") -> AdapterRegistry:
+    """An adapter registry's stacked A/B as numpy arrays -> the port's
+    :class:`AdapterRegistry` on ``device``, every adapter in the same row.
+
+    stacked: ``{target: {"lora_a": [n_layers, max_loras, n_in, r],
+    "lora_b": [n_layers, max_loras, r, n_out]}}``; names: the name of each
+    of the ``max_loras`` rows, None for a free row (all-zero there).
+    """
+    reg = AdapterRegistry(cfg, lora_cfg, max_loras=len(names),
+                          device=device)
+    for row, name in enumerate(names):
+        if name is None:
+            continue
+        adapter = {t: {k: tensor_from_numpy(v[:, row], "cpu")
+                       for k, v in ab.items()} for t, ab in stacked.items()}
+        reg._validate(name, adapter)
+        reg._write(row, name, adapter)
+    return reg

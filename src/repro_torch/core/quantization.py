@@ -247,6 +247,65 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Concatenation (fused-projection support)
+# ---------------------------------------------------------------------------
+
+def qconcat(qts) -> QTensor:
+    """Concatenate QTensors along the output (N) axis without requantizing.
+
+    The substrate of the fused wqkv / gate_up projections: one ``[K,
+    N1+N2+...]`` matmul replaces several ``[K, Ni]`` matmuls over the same
+    activations. Per-channel scales travel with their columns, so
+    ``dequantize(qconcat(a, b)) == concat(dequantize(a), dequantize(b))``
+    bit for bit.
+
+    Inputs share K (and any leading stacked dims), bits, mode and packing,
+    and per_group inputs one ``group_size``. per_tensor and per_channel
+    inputs mix: a per_tensor scale broadcasts over its columns and the
+    result is per_channel. per_group inputs must all be per_group. The
+    result's ``kernel_scale`` is derived again from its own scale.
+    """
+    qts = list(qts)
+    if len(qts) < 2:
+        raise ValueError("qconcat needs at least two QTensors")
+    q0 = qts[0]
+    for qt in qts[1:]:
+        if not isinstance(qt, QTensor):
+            raise TypeError(f"qconcat expects QTensors, got {type(qt)}")
+        if (qt.bits, qt.mode, qt.packed) != (q0.bits, q0.mode, q0.packed):
+            raise ValueError(
+                f"qconcat mismatch: ({qt.bits},{qt.mode},{qt.packed}) vs "
+                f"({q0.bits},{q0.mode},{q0.packed})")
+        if qt.shape[:-1] != q0.shape[:-1]:
+            raise ValueError(f"qconcat K/leading mismatch: {qt.shape} vs "
+                             f"{q0.shape}")
+    grans = {qt.granularity for qt in qts}
+    if "per_group" in grans:
+        if grans != {"per_group"}:
+            raise ValueError("qconcat cannot mix per_group with other "
+                             "granularities")
+        if len({qt.group_size for qt in qts}) != 1:
+            raise ValueError("qconcat per_group inputs need one group_size")
+        granularity = "per_group"
+        scale = torch.cat([qt.scale for qt in qts], dim=-1)
+    else:
+        # per_tensor folds into per_channel: broadcast each input's scale
+        # over its own columns, then concatenate along the channel dim
+        granularity = "per_channel"
+        lead = q0.shape[:-2]
+        scale = torch.cat([qt.scale.to(torch.float32).expand(
+            *lead, 1, qt.shape[-1]) for qt in qts], dim=-1)
+    if q0.packed and any(qt.shape[-1] % 2 for qt in qts):
+        raise ValueError("packed qconcat inputs need even output dims")
+    codes = torch.cat([qt.codes for qt in qts], dim=-1)
+    out = sum(qt.shape[-1] for qt in qts)
+    return QTensor(codes=codes, scale=scale, codebook=None, bits=q0.bits,
+                   mode=q0.mode, granularity=granularity,
+                   group_size=q0.group_size, packed=q0.packed,
+                   shape=(*q0.shape[:-1], out))
+
+
+# ---------------------------------------------------------------------------
 # Parameter-tree conversion (deploy time)
 # ---------------------------------------------------------------------------
 

@@ -45,6 +45,7 @@ SIGNATURES = {
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _P]),
+    "quantize": ("quantize_launch", [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

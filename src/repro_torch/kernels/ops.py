@@ -16,10 +16,9 @@ run a Pallas body in Python; the port has no interpret mode and raises
 ``ValueError`` for them.
 
 ``prefix_attention`` runs its plain version on every device: the JAX
-package has no Pallas kernel for it to port. The KV quantization kernel
-is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item. There is no block-size table here: each CUDA kernel picks its own
-tiles and masks its own ragged edges.
+package has no Pallas kernel for it to port. There is no block-size
+table here: each CUDA kernel picks its own tiles and masks its own ragged
+edges.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_cuda
+from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
 
 IMPLS = ("auto", "cuda", "ref", "reuse", "reuse_ref")
@@ -109,6 +109,21 @@ def reuse_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
     return y.reshape(*lead, n).to(out_dtype), mults
 
 
+def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
+                b: torch.Tensor, scaling: float, *, impl: str = "auto",
+                out_dtype=None) -> torch.Tensor:
+    """y = x @ deq(qt) + scaling * (x @ A) @ B (paper Fig. 5 combined path).
+
+    The base product goes through :func:`axllm_matmul` (the kernel on the
+    card) with an f32 output; the low-rank delta is a plain f32 product,
+    as in the JAX package, which computes it outside any Pallas kernel."""
+    out_dtype = out_dtype or x.dtype
+    base = axllm_matmul(x, qt, impl=impl, out_dtype=torch.float32)
+    xa = torch.matmul(x.to(torch.float32), a.to(torch.float32))
+    delta = torch.matmul(xa, b.to(torch.float32))
+    return (base + scaling * delta).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -171,7 +186,20 @@ def prefix_attention(q, k_prefix, v_prefix, prefix_len, k_suffix, v_suffix,
                                      k_suffix, v_suffix)
 
 
-def quantize_channels(*args, **kwargs):
-    raise NotImplementedError(
-        "the per-channel quantization kernel is not ported yet "
-        "(ROADMAP queue 2 item 6)")
+# ---------------------------------------------------------------------------
+# Per-channel quantization
+# ---------------------------------------------------------------------------
+
+def quantize_channels(w: torch.Tensor, *, bits: int = 8,
+                      impl: str = "auto"):
+    """Per-channel absmax quantization: (codes int8 [..., K, N], scale f32
+    [..., 1, N]) of w [..., K, N] f32/bf16, reducing over K.
+
+    This entry point is the only caller of the quantization kernel: no
+    serve path calls it. Deploy-time weight quantization goes through
+    ``core.quantization.quantize`` and the serve-time KV quantizer is
+    ``models.attention._quantize_kv``, both plain PyTorch.
+    """
+    if _use_kernel(impl, w):
+        return quantize_cuda(w, bits)
+    return _ref.quantize_ref(w, bits)

@@ -5,7 +5,9 @@ package and the path that a CPU tensor takes. They follow the JAX
 package's ``kernels/ref.py`` operation for operation. They run on any
 device, so ``chip_smoke.py`` also holds each kernel against them on the
 card. ``prefix_attention_ref`` has no kernel: the JAX package has none
-to port, and every device runs it.
+to port, and every device runs it; nor has ``lora_matmul_ref``, whose
+base product is ``axllm_matmul``'s and whose low-rank delta is a plain
+product in both packages.
 """
 
 from __future__ import annotations
@@ -84,6 +86,16 @@ def reuse_mult_count(qt: QTensor, segment: int) -> int:
     from repro_torch.core.reuse import rc_alphabet, segment_unique_counts
     _, fold = rc_alphabet(qt.bits, qt.mode)
     return int(segment_unique_counts(qt, segment, fold_sign=fold).sum())
+
+
+def lora_matmul_ref(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
+                    b: torch.Tensor, scaling: float,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """y = x @ deq(W) + scaling * (x @ A) @ B (paper §III, LoRA support)."""
+    base = axllm_matmul_ref(x, qt, torch.float32)
+    xa = torch.matmul(x.to(torch.float32), a.to(torch.float32))
+    delta = torch.matmul(xa, b.to(torch.float32))
+    return (base + scaling * delta).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +261,27 @@ def chunked_attention_ref(q, k, v, causal: bool = True,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-channel quantization
+# ---------------------------------------------------------------------------
+
+def quantize_ref(w: torch.Tensor, bits: int = 8):
+    """Per-channel absmax quantization of w [..., K, N] over K: returns
+    (codes int8 [..., K, N], scale f32 [..., 1, N]). ``torch.round`` rounds
+    half to even, as ``jnp.round`` does.
+
+    qmax divides as a tensor on w's device: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal instead, one ulp off the
+    IEEE quotient in some columns, and the scale is an IEEE division on
+    every device."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"bits must be in [2, 8] (int8 codes), got {bits}")
+    qmax = (1 << (bits - 1)) - 1
+    wf = w.to(torch.float32)
+    absmax = wf.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-8) / torch.tensor(
+        float(qmax), dtype=torch.float32, device=w.device)
+    codes = torch.clamp(torch.round(wf / scale), -qmax, qmax)
+    return codes.to(torch.int8), scale

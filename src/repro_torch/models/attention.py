@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.axllm_linear import linear
+from repro_torch.core.axllm_linear import (concat_weights, linear,
+                                           lora_delta_batched)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -41,20 +42,58 @@ def init_attention(gen, cfg, dtype=torch.float32, lead=()):
     return p
 
 
-def _project_qkv(p, x, cfg, impl):
-    """Project x [B, S, d] -> q [B, S, H, hd], k and v [B, S, Hk, hd]."""
-    if "wqkv" in p:
-        raise NotImplementedError("fused wqkv projections are not ported "
-                                  "yet (ROADMAP queue 1 item 5)")
+def fuse_attention_params(p):
+    """Replace wq/wk/wv (and their biases) with one fused wqkv ``[d,
+    (H+2Hk)·hd]``: one activation pass per attention block instead of
+    three. A deploy-time rewrite of dense or quantized params, stacked
+    leading dims included; :func:`_project_qkv` dispatches on the keys."""
+    if "wqkv" in p or "wq" not in p:
+        return p
+    p2 = {k: v for k, v in p.items()
+          if k not in ("wq", "wk", "wv", "wq_bias", "wk_bias", "wv_bias")}
+    p2["wqkv"] = concat_weights([p["wq"], p["wk"], p["wv"]])
+    if "wq_bias" in p:
+        p2["wqkv_bias"] = torch.cat(
+            [p["wq_bias"], p["wk_bias"], p["wv_bias"]], dim=-1)
+    return p2
+
+
+def _lora(y, x, adapters, name, adapter_idx, lora_scaling):
+    """y plus the gathered LoRA delta of target ``name``, if it has one.
+    The delta is computed in f32 and cast to y's dtype before the add, as
+    in the JAX package."""
+    if adapters is None or name not in adapters:
+        return y
+    return y + lora_delta_batched(x, adapters[name], adapter_idx,
+                                  lora_scaling).to(y.dtype)
+
+
+def _project_qkv(p, x, cfg, impl, adapters=None, adapter_idx=None,
+                 lora_scaling: float = 1.0):
+    """Project x [B, S, d] -> q [B, S, H, hd], k and v [B, S, Hk, hd],
+    through the fused wqkv (its columns split q | k | v) or wq/wk/wv.
+
+    ``adapters``/``adapter_idx`` add each targeted projection's gathered
+    per-row LoRA delta to its column block; the base matmul is untouched.
+    """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = linear(x, p["wq"], impl=impl)
-    k = linear(x, p["wk"], impl=impl)
-    v = linear(x, p["wv"], impl=impl)
-    if cfg.qkv_bias:
-        q = q + p["wq_bias"].to(q.dtype)
-        k = k + p["wk_bias"].to(k.dtype)
-        v = v + p["wv_bias"].to(v.dtype)
+    if "wqkv" in p:
+        qkv = linear(x, p["wqkv"], impl=impl)
+        if "wqkv_bias" in p:
+            qkv = qkv + p["wqkv_bias"].to(qkv.dtype)
+        q, k, v = torch.split(qkv, [h * hd, hk * hd, hk * hd], dim=-1)
+    else:
+        q = linear(x, p["wq"], impl=impl)
+        k = linear(x, p["wk"], impl=impl)
+        v = linear(x, p["wv"], impl=impl)
+        if cfg.qkv_bias:
+            q = q + p["wq_bias"].to(q.dtype)
+            k = k + p["wk_bias"].to(k.dtype)
+            v = v + p["wv_bias"].to(v.dtype)
+    q = _lora(q, x, adapters, "wq", adapter_idx, lora_scaling)
+    k = _lora(k, x, adapters, "wk", adapter_idx, lora_scaling)
+    v = _lora(v, x, adapters, "wv", adapter_idx, lora_scaling)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hk, hd)
     v = v.reshape(b, s, hk, hd)
@@ -156,10 +195,22 @@ def _kv_entries(cfg, k, v):
     return {"k": k, "v": v}
 
 
+def _wo_project(p, out, impl, adapters, adapter_idx, lora_scaling):
+    """Output projection with the gathered LoRA delta of wo, if any."""
+    return _lora(linear(out, p["wo"], impl=impl), out, adapters, "wo",
+                 adapter_idx, lora_scaling)
+
+
 def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
-                      prefix=None, prefix_len=None):
+                      adapters=None, adapter_idx=None,
+                      lora_scaling: float = 1.0, prefix=None,
+                      prefix_len=None):
     """Full-sequence attention that also writes positions [0, S) of this
     layer's cache slice ({"k": [B, S_max, Hk, hd], ...}) in place.
+
+    ``adapters``: this layer's slice of the stacked adapters, {target:
+    {"lora_a": [max_loras, n_in, r], "lora_b": [max_loras, r, n_out]}};
+    ``adapter_idx``: [B] per-row adapter row (-1 = base only).
 
     ``prefix``/``prefix_len``: suffix-only prefill against a cached prompt
     head. ``prefix`` is this layer's gathered prefix KV {"k"/"v": [B, P,
@@ -173,7 +224,8 @@ def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
     positions = torch.arange(s, device=x.device).expand(b, s)
     if prefix is not None:
         positions = prefix_len[:, None].to(positions.dtype) + positions
-    q, k, v = _project_qkv(p, x, cfg, impl)
+    q, k, v = _project_qkv(p, x, cfg, impl, adapters, adapter_idx,
+                           lora_scaling)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if prefix is None:
@@ -186,7 +238,8 @@ def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
         out = ops.prefix_attention(q, kp, vp, prefix_len, k, v, impl=impl)
     for name, new in _kv_entries(cfg, k, v).items():
         layer_cache[name][:, :s] = new.to(layer_cache[name].dtype)
-    return linear(out.reshape(b, s, -1), p["wo"], impl=impl)
+    return _wo_project(p, out.reshape(b, s, -1), impl, adapters, adapter_idx,
+                       lora_scaling)
 
 
 def _write_at(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
@@ -204,11 +257,15 @@ def _write_at(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
     buf[rows, at] = torch.where(inside, new.to(buf.dtype), buf[rows, at])
 
 
-def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto"):
+def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto",
+                     adapters=None, adapter_idx=None,
+                     lora_scaling: float = 1.0):
     """One-token decode. x: [B, 1, d]; pos: [B] current positions. Writes
-    this token's KV at ``pos`` of the layer's cache slice in place."""
+    this token's KV at ``pos`` of the layer's cache slice in place.
+    ``adapters``/``adapter_idx`` as in :func:`attention_prefill`."""
     b = x.shape[0]
-    q, k, v = _project_qkv(p, x, cfg, impl)             # [B, 1, ...]
+    q, k, v = _project_qkv(p, x, cfg, impl, adapters, adapter_idx,
+                           lora_scaling)                # [B, 1, ...]
     q = L.rope(q, pos[:, None], cfg.rope_theta)
     k = L.rope(k, pos[:, None], cfg.rope_theta)
     for name, new in _kv_entries(cfg, k, v).items():
@@ -218,11 +275,13 @@ def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto"):
         q[:, 0], layer_cache["k"], layer_cache["v"], length,
         k_scale=layer_cache.get("k_scale"),
         v_scale=layer_cache.get("v_scale"), impl=impl)
-    return linear(out.reshape(b, 1, -1), p["wo"], impl=impl)
+    return _wo_project(p, out.reshape(b, 1, -1), impl, adapters, adapter_idx,
+                       lora_scaling)
 
 
 def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
-                           impl: str = "auto"):
+                           impl: str = "auto", adapters=None,
+                           adapter_idx=None, lora_scaling: float = 1.0):
     """One-token decode through a block-paged pool. x: [B, 1, d]; pos: [B]
     current positions; layer_pool: this layer's pool slice {"k"/"v": [NB,
     bs, Hk, hd], ...}; block_tables: [B, MB] int32.
@@ -232,12 +291,14 @@ def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
     whose position ran past its table (a stopped slot riding through a
     decode chunk) writes to trash block 0, offset 0. Free and stopped
     slots all write there, so the write sees repeated indices; nobody
-    reads the trash block, so any winner is fine.
+    reads the trash block, so any winner is fine. ``adapters``/
+    ``adapter_idx`` as in :func:`attention_prefill`.
     """
     b = x.shape[0]
     bs = layer_pool["k"].shape[1]
     mb = block_tables.shape[1]
-    q, k, v = _project_qkv(p, x, cfg, impl)             # [B, 1, ...]
+    q, k, v = _project_qkv(p, x, cfg, impl, adapters, adapter_idx,
+                           lora_scaling)                # [B, 1, ...]
     q = L.rope(q, pos[:, None], cfg.rope_theta)
     k = L.rope(k, pos[:, None], cfg.rope_theta)
     blk = pos // bs
@@ -252,4 +313,5 @@ def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
         q[:, 0], layer_pool["k"], layer_pool["v"], (pos + 1).to(torch.int32),
         k_scale=layer_pool.get("k_scale"), v_scale=layer_pool.get("v_scale"),
         block_tables=block_tables, impl=impl)
-    return linear(out.reshape(b, 1, -1), p["wo"], impl=impl)
+    return _wo_project(p, out.reshape(b, 1, -1), impl, adapters, adapter_idx,
+                       lora_scaling)

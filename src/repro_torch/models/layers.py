@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.axllm_linear import linear
+from repro_torch.core.axllm_linear import concat_weights, linear
 from repro_torch.core.quantization import QTensor, dequantize
 
 
@@ -69,8 +69,22 @@ def init_mlp(gen, cfg, dtype=torch.float32, lead=()):
             "down": init_linear(gen, d_ff, d, dtype, lead)}
 
 
+def fuse_mlp_params(p):
+    """Replace gate/up with one fused gate_up ``[d, 2·d_ff]`` (columns
+    gate | up), the MLP analogue of the fused wqkv. A GELU MLP (no gate)
+    comes back unchanged; :func:`mlp_fwd` dispatches on the keys."""
+    if "gate_up" in p or "gate" not in p:
+        return p
+    p2 = {k: v for k, v in p.items() if k not in ("gate", "up")}
+    p2["gate_up"] = concat_weights([p["gate"], p["up"]])
+    return p2
+
+
 def mlp_fwd(p, x, cfg, impl: str = "auto"):
-    if "gate" in p:
+    if "gate_up" in p:   # fused: one activation pass over [d, 2·d_ff]
+        g, u = torch.chunk(linear(x, p["gate_up"], impl=impl), 2, dim=-1)
+        h = F.silu(g) * u
+    elif "gate" in p:
         h = F.silu(linear(x, p["gate"], impl=impl)) \
             * linear(x, p["up"], impl=impl)
     else:   # jax.nn.gelu defaults to the tanh approximation

@@ -13,8 +13,12 @@ engine's slot-insertion contract); ``ragged_prefill`` says that
 ``init_paged_cache(batch, n_blocks, block_size, max_blocks, device)`` and
 ``paged_cache_spec`` (block axis for pool leaves, slot axis for ``pos``
 and ``block_tables``) back the engine's paged mode, and ``prefill``
-takes ``prefix=`` for suffix-only prefill against cached blocks. Only the
-dense family is ported so far.
+takes ``prefix=`` for suffix-only prefill against cached blocks.
+``fuse_params`` is the deploy-time fused-projection rewrite (wqkv,
+gate_up; apply after quantization), and ``supports_lora`` says that
+``prefill`` and ``decode`` take the multi-LoRA kwargs ``adapters=``,
+``adapter_idx=`` and ``lora_scaling=``. Only the dense family is ported
+so far.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ class ModelAPI:
     ragged_prefill: bool
     init_paged_cache: Callable[..., Any]
     paged_cache_spec: Any
+    fuse_params: Callable[[Any], Any]
+    supports_lora: bool
 
 
 def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
@@ -52,14 +58,21 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
         forward=lambda p, b: mod.forward(p, b["tokens"], cfg, impl=impl),
         init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
             cfg, batch, max_len, device),
-        prefill=lambda p, b, c, lengths=None, prefix=None: mod.prefill(
+        prefill=lambda p, b, c, lengths=None, adapters=None,
+        adapter_idx=None, lora_scaling=1.0, prefix=None: mod.prefill(
             p, b["tokens"], cfg, c, impl=impl, lengths=lengths,
-            prefix=prefix),
-        decode=lambda p, t, c: mod.decode_step(p, t, cfg, c, impl=impl),
+            adapters=adapters, adapter_idx=adapter_idx,
+            lora_scaling=lora_scaling, prefix=prefix),
+        decode=lambda p, t, c, adapters=None, adapter_idx=None,
+        lora_scaling=1.0: mod.decode_step(
+            p, t, cfg, c, impl=impl, adapters=adapters,
+            adapter_idx=adapter_idx, lora_scaling=lora_scaling),
         cache_spec=mod.cache_spec(cfg),
         ragged_prefill=True,
         init_paged_cache=lambda batch, n_blocks, block_size, max_blocks,
         device="cuda": mod.init_paged_cache(cfg, batch, n_blocks, block_size,
                                             max_blocks, device),
         paged_cache_spec=mod.paged_cache_spec(cfg),
+        fuse_params=lambda p: mod.fuse_params(p, cfg),
+        supports_lora=True,
     )

@@ -42,6 +42,17 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def fuse_params(params, cfg):
+    """Deploy-time fused-projection rewrite (``cfg.fuse_qkv`` or the
+    engine's ``fuse_qkv=``): wq/wk/wv -> wqkv and gate/up -> gate_up across
+    the stacked layers. Apply after ``deploy_quantize``, so QTensors
+    concatenate exactly."""
+    layers = dict(params["layers"])
+    layers["attn"] = A.fuse_attention_params(layers["attn"])
+    layers["ffn"] = L.fuse_mlp_params(layers["ffn"])
+    return {**params, "layers": layers}
+
+
 def _ffn_fwd(p, x, cfg, impl):
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
@@ -93,6 +104,7 @@ def _layer_cache(cache, i: int):
 
 
 def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
+            adapters=None, adapter_idx=None, lora_scaling: float = 1.0,
             prefix=None):
     """tokens: [B, S] -> (last-position logits [B, V], cache).
 
@@ -101,6 +113,12 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
     each row's last real position and the cursor is set to ``lengths``;
     causal masking keeps real tokens from seeing the pads, and pad KV lies
     past the cursor, where decode never reads it before overwriting it.
+
+    ``adapters`` ({target: {"lora_a": [n_layers, max_loras, n_in, r],
+    "lora_b": [n_layers, max_loras, r, n_out]}}) and ``adapter_idx`` ([B]
+    int32, -1 = base only) run the multi-LoRA delta pipeline: each layer
+    takes its slice of the stacked adapters, and each attention block adds
+    its rows' gathered deltas.
 
     ``prefix`` (needs ``lengths``) makes this a suffix-only prefill
     against a cached prompt head: {"k"/"v": [L, B, P, Hk, hd]} (+
@@ -121,9 +139,12 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
         lp = layer_slice(params["layers"], i)
         pf = None if prefix is None else {
             k: v[i] for k, v in prefix.items() if k != "len"}
+        ad = None if adapters is None else layer_slice(adapters, i)
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
         x = x + A.attention_prefill(lp["attn"], h, cfg, _layer_cache(cache, i),
-                                    impl=impl, prefix=pf,
+                                    impl=impl, adapters=ad,
+                                    adapter_idx=adapter_idx,
+                                    lora_scaling=lora_scaling, prefix=pf,
                                     prefix_len=prefix_len)
         h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
@@ -139,7 +160,8 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
     return logits, cache
 
 
-def decode_step(params, token, cfg, cache, impl: str = "auto"):
+def decode_step(params, token, cfg, cache, impl: str = "auto",
+                adapters=None, adapter_idx=None, lora_scaling: float = 1.0):
     """token: [B] int -> (logits [B, V], cache advanced by one in place).
 
     Every row writes its KV at its cursor and advances it, stopped and free
@@ -147,20 +169,27 @@ def decode_step(params, token, cfg, cache, impl: str = "auto"):
     that carries "block_tables" (:func:`init_paged_cache`) routes every
     layer through the block-paged path: KV lands at ``(table[pos // bs],
     pos % bs)`` in the shared pool and attention reads through the table.
+    ``adapters``/``adapter_idx``/``lora_scaling`` as in :func:`prefill`:
+    a mixed batch of base rows and rows of different adapters decodes in
+    one step.
     """
     pos = cache["pos"]
     block_tables = cache.get("block_tables")
     x = L.embed_fwd(params["embed"], token[:, None]).to(param_dtype(cfg))
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
+        lora = dict(adapters=None if adapters is None
+                    else layer_slice(adapters, i),
+                    adapter_idx=adapter_idx, lora_scaling=lora_scaling)
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
         if block_tables is not None:
             x = x + A.attention_decode_paged(
                 lp["attn"], h, cfg, _layer_cache(cache, i), pos,
-                block_tables, impl=impl)
+                block_tables, impl=impl, **lora)
         else:
             x = x + A.attention_decode(lp["attn"], h, cfg,
-                                       _layer_cache(cache, i), pos, impl=impl)
+                                       _layer_cache(cache, i), pos, impl=impl,
+                                       **lora)
         h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)

@@ -39,10 +39,23 @@ scheduler keeps ``n_slots`` request slots full:
   blocks (keyed by ``prompt ++ tokens[:-1]``, the sequence fed) and
   release their slot; LRU index-only blocks are evicted when the pool
   runs dry.
+- **Fused projections (``fuse_qkv=True`` or ``cfg.fuse_qkv``).** After
+  quantization ``api.fuse_params`` rewrites wq/wk/wv into one wqkv and
+  gate/up into one gate_up, so a decode step runs 4 quantized matmuls a
+  layer instead of 7.
+- **Multi-LoRA (``adapters=AdapterRegistry``).** Mixed batches of the
+  frozen base model and up to ``max_loras`` registered LoRA fine-tunes
+  run in the same waves and decode chunks: ``submit(..., adapter=name)``
+  pins a registered adapter until the request finishes, and a per-slot
+  adapter-row array (-1 = base) rides with every prefill wave and decode
+  chunk, so each attention projection adds its rows' gathered low-rank
+  delta beside the untouched (quantized, fused included) base matmul.
+  In paged mode LoRA requests neither take nor publish prefixes: an
+  adapter on wk/wv makes their KV adapter-specific.
 
-Multi-LoRA, fused projections, tensor parallelism, speculation, chunked
-prefill, streaming, deadlines and preemption are not ported yet: asking
-for them raises ``NotImplementedError`` naming the ROADMAP item. Where
+Tensor parallelism, speculation, chunked prefill, streaming, deadlines
+and preemption are not ported yet: asking for them raises
+``NotImplementedError`` naming the ROADMAP item. Where
 the JAX engine would preempt a slot because the pool cannot cover a
 decode window, the port raises the same way; the default pool never gets
 there.
@@ -62,6 +75,7 @@ from repro_torch.core.axllm_linear import deploy_quantize
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model import ModelAPI, get_model
+from repro_torch.serve.adapters import AdapterRegistry, target_dims
 from repro_torch.serve.decode import decode_steps, sample_tokens
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.scheduler import WaitQueue
@@ -77,6 +91,7 @@ class Request:
     rid: int
     prompt: np.ndarray            # [S] int32 (after the long-prompt policy)
     max_new: int = 32
+    adapter: Optional[str] = None     # LoRA adapter name (None = base)
     tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
     truncated: bool = False           # generation cut short (cache/steps)
@@ -99,6 +114,7 @@ class EngineStats:
     prefill_waves: int = 0
     prefill_tokens: int = 0
     prefill_wall_s: float = 0.0       # host wall time inside prefill waves
+    lora_requests: int = 0            # admitted requests with an adapter
     occupancy_sum: float = 0.0        # sum over steps of active / n_slots
     # paged mode: prompt tokens whose KV came from the prefix index, live
     # pool blocks, and copy-on-write block copies before decode chunks
@@ -161,6 +177,10 @@ class ServeEngine:
     copy-on-write spare, and as much again for retained prefixes);
     ``prefix_cache=False`` keeps the paging but disables the radix index.
 
+    ``fuse_qkv`` (None takes ``cfg.fuse_qkv``) fuses the projections;
+    ``adapters`` attaches an :class:`AdapterRegistry` on the engine's
+    device for multi-LoRA serving (see the module docstring).
+
     Serve with ``submit`` + ``step()`` / ``run()``, or the one-shot
     ``generate(prompts)``.
     """
@@ -179,10 +199,6 @@ class ServeEngine:
                  speculate: bool = False,
                  prefill_budget: Optional[int] = None, device="cuda"):
         for on, what, item in (
-                (adapters is not None, "multi-LoRA serving",
-                 "ROADMAP queue 1 item 5"),
-                (fuse_qkv if fuse_qkv is not None else cfg.fuse_qkv,
-                 "fused projections", "ROADMAP queue 1 item 5"),
                 (mesh is not None, "tensor-parallel serving",
                  "ROADMAP queue 1 item 12"),
                 (speculate, "speculative decoding", "ROADMAP queue 1 item 9"),
@@ -209,6 +225,8 @@ class ServeEngine:
             params = deploy_quantize(
                 params, QuantConfig(bits=bits, mode=quant_mode,
                                     granularity="per_channel"))
+        if cfg.fuse_qkv if fuse_qkv is None else fuse_qkv:
+            params = self.api.fuse_params(params)
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
@@ -219,6 +237,11 @@ class ServeEngine:
         if dc < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {dc}")
         self.decode_chunk = dc
+        self.registry = adapters
+        if adapters is not None:
+            self._validate_adapters(adapters)
+        # per-slot adapter row into registry.stacked; -1 = base only
+        self.adapter_slots = np.full((n_slots,), -1, np.int32)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self.paged = paged
         self.kv_block_size = kv_block_size
@@ -246,15 +269,53 @@ class ServeEngine:
         self._rid = 0
         self.stats = EngineStats()
 
+    def _validate_adapters(self, reg: AdapterRegistry):
+        """The family must take the LoRA kwargs, and the registry must be
+        built for a config of the same dims, on the engine's device."""
+        if not self.api.supports_lora:
+            raise ValueError(f"family {self.cfg.family!r} has no multi-LoRA "
+                             "serving path")
+        if reg.cfg.n_layers != self.cfg.n_layers:
+            raise ValueError(
+                f"adapter registry built for n_layers={reg.cfg.n_layers} "
+                f"but engine serves n_layers={self.cfg.n_layers}")
+        for t in reg.targets:
+            if target_dims(reg.cfg, t) != target_dims(self.cfg, t):
+                raise ValueError(
+                    f"adapter registry target {t!r} dims "
+                    f"{target_dims(reg.cfg, t)} != model dims "
+                    f"{target_dims(self.cfg, t)}")
+        if reg.device != self.device:
+            raise ValueError(f"adapter registry lives on {reg.device}, the "
+                             f"engine on {self.device}")
+
+    def _lora_kw(self, aidx: np.ndarray) -> dict:
+        """The multi-LoRA kwargs of a prefill or decode call for per-row
+        adapter rows ``aidx`` (none without a registry)."""
+        if self.registry is None:
+            return {}
+        return dict(adapters=self.registry.stacked,
+                    adapter_idx=torch.from_numpy(aidx).to(self.device),
+                    lora_scaling=self.registry.scaling)
+
+    def _adapter_row(self, r: Request) -> int:
+        return -1 if r.adapter is None else \
+            self.registry.index_of(r.adapter)
+
     # -- request management ---------------------------------------------------
     def submit(self, prompt, max_new: int = 32, adapter=None,
                priority: int = 0, deadline_s: Optional[float] = None,
                on_token=None, ttft_deadline_s: Optional[float] = None,
                itl_deadline_s: Optional[float] = None) -> int:
-        """Queue a prompt ([S] ints) for generation; returns a request id."""
+        """Queue a prompt ([S] ints) for generation; returns a request id.
+
+        ``adapter`` names a registered LoRA adapter to serve the request
+        with (the engine needs ``adapters=``; an unknown name raises
+        KeyError here). It stays pinned until the request finishes."""
+        if adapter is not None and self.registry is None:
+            raise ValueError("submit(adapter=...) needs an engine built with "
+                             "adapters=AdapterRegistry")
         for on, what, item in (
-                (adapter is not None, "submit(adapter=)",
-                 "ROADMAP queue 1 item 5"),
                 (priority != 0, "priority scheduling and preemption",
                  "ROADMAP queue 1 item 8"),
                 (on_token is not None, "streaming (on_token=)",
@@ -276,7 +337,9 @@ class ServeEngine:
                     f"resubmit shorter or use long_prompt='truncate'")
             prompt = prompt[-cap:]        # keep the most recent context
             prompt_truncated = True
-        req = Request(self._rid, prompt, max_new,
+        if adapter is not None:
+            self.registry.acquire(adapter)    # KeyError on an unknown name
+        req = Request(self._rid, prompt, max_new, adapter=adapter,
                       prompt_truncated=prompt_truncated,
                       t_submit=time.monotonic())
         self._rid += 1
@@ -318,18 +381,22 @@ class ServeEngine:
         pl = _pow2_bucket(max(lens), min(8, self.max_len), self.max_len)
         toks = np.zeros((wb, pl), np.int32)
         lengths = np.ones((wb,), np.int32)
+        aidx = np.full((wb,), -1, np.int32)
         for i, r in enumerate(group):
             toks[i, :lens[i]] = r.prompt
             lengths[i] = lens[i]
+            aidx[i] = self._adapter_row(r)
         wave_cache = self.api.init_cache(wb, pl, self.device)
         logits, wave_cache = self.api.prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            wave_cache, lengths=torch.from_numpy(lengths).to(self.device))
+            wave_cache, lengths=torch.from_numpy(lengths).to(self.device),
+            **self._lora_kw(aidx))
         first = self._sample(logits)
         src, dst = [], []
         for i, r in enumerate(group):
             r.tokens.append(int(first[i]))
             self.stats.admitted += 1
+            self.stats.lora_requests += r.adapter is not None
             self.stats.prefill_tokens += int(lengths[i])
             reason = self._stop_reason(r)
             if reason is not None:
@@ -337,6 +404,7 @@ class ServeEngine:
                 continue
             slot = free.pop(0)
             self.slots[slot] = r
+            self.adapter_slots[slot] = aidx[i]
             src.append(i)
             dst.append(slot)
         if src:
@@ -353,12 +421,16 @@ class ServeEngine:
         Admission is atomic per request (``pager.admit``): a request the
         pool cannot hold, even after LRU eviction, goes back to the queue
         holding zero blocks. A failure in the prefill dispatch releases
-        every admitted request's blocks and requeues the wave."""
+        every admitted request's blocks and requeues the wave.
+
+        LoRA requests bypass the prefix index: an adapter on wk/wv makes
+        their KV adapter-specific, so they neither take nor publish
+        prefixes."""
         pgr, bs = self.pager, self.kv_block_size
         admitted, slots_for, seqs, hits, hit_toks = [], [], [], [], []
         for r in group:
             seq = r.prompt
-            hit, ht = pgr.match(seq)
+            hit, ht = pgr.match(seq) if r.adapter is None else ([], 0)
             slot = free[0]
             if not pgr.admit(slot, hit, math.ceil((len(seq) - ht) / bs)):
                 self.queue.push_front(r)     # defer: the pool is dry now
@@ -381,7 +453,9 @@ class ServeEngine:
         prefix_len = np.zeros((wb,), np.int32)
         pbt = np.zeros((wb, max(npb, 1)), np.int32)
         sbt = np.zeros((wb, pl // bs), np.int32)
+        aidx = np.full((wb,), -1, np.int32)
         for i, slot in enumerate(slots_for):
+            aidx[i] = self._adapter_row(admitted[i])
             chunk = seqs[i][hit_toks[i]:]
             toks[i, :len(chunk)] = chunk
             lengths[i] = len(chunk)
@@ -392,7 +466,7 @@ class ServeEngine:
             sbt[i, :nsb] = pgr.tables[slot, nh:nh + nsb]
         try:
             logits = self._paged_prefill(toks, lengths, prefix_len,
-                                         pbt if npb else None, sbt)
+                                         pbt if npb else None, sbt, aidx)
         except Exception:
             for r, slot in zip(admitted, slots_for):
                 pgr.release_slot(slot)
@@ -403,11 +477,14 @@ class ServeEngine:
         for i, (r, slot) in enumerate(zip(admitted, slots_for)):
             r.tokens.append(int(first[i]))
             self.stats.admitted += 1
+            self.stats.lora_requests += r.adapter is not None
             self.stats.prefill_tokens += int(lengths[i])
             self.stats.prefix_hit_tokens += hit_toks[i]
             # publish now: later waves reuse this prefill while the slot
-            # is still decoding
-            pgr.insert(seqs[i], pgr.slot_blocks(slot))
+            # is still decoding (base model only: LoRA KV is
+            # adapter-specific)
+            if r.adapter is None:
+                pgr.insert(seqs[i], pgr.slot_blocks(slot))
             reason = self._stop_reason(r)
             if reason is not None:
                 pgr.release_slot(slot)
@@ -415,20 +492,23 @@ class ServeEngine:
                 free.append(slot)
                 continue
             self.slots[slot] = r
+            self.adapter_slots[slot] = aidx[i]
         self.stats.prefill_waves += 1
         self.stats.blocks_in_use = pgr.blocks_in_use
 
-    def _paged_prefill(self, toks, lengths, prefix_len, pbt, sbt):
+    def _paged_prefill(self, toks, lengths, prefix_len, pbt, sbt, aidx):
         """One paged prefill dispatch: gather the rows' cached prefix KV out
         of the pool through ``pbt`` (None: no row has a hit, plain ragged
-        prefill), run the suffix-only prefill, and scatter the suffix KV
-        into the rows' fresh blocks ``sbt``. Padded rows and entries point
-        at trash block 0, so the scatter sees repeated indices; nobody
-        reads the trash block, so any winner is fine."""
+        prefill), run the suffix-only prefill with the rows' adapter rows
+        ``aidx``, and scatter the suffix KV into the rows' fresh blocks
+        ``sbt``. Padded rows and entries point at trash block 0, so the
+        scatter sees repeated indices; nobody reads the trash block, so
+        any winner is fine."""
         dev, bs = self.device, self.kv_block_size
         wb, pl = toks.shape
         wave = self.api.init_cache(wb, pl, dev)
-        kw = {"lengths": torch.from_numpy(lengths).to(dev)}
+        kw = {"lengths": torch.from_numpy(lengths).to(dev),
+              **self._lora_kw(aidx)}
         if pbt is not None:
             idx = torch.from_numpy(pbt).to(dev).long()
             prefix = {"len": torch.from_numpy(prefix_len).to(dev)}
@@ -488,6 +568,8 @@ class ServeEngine:
     def _finish(self, r: Request, reason: str):
         r.done = True
         r.finish_reason = reason
+        if r.adapter is not None:
+            self.registry.release(r.adapter)  # unpin: evict becomes legal
         self.finished.append(r)
         self.stats.finished += 1
         if r.truncated:
@@ -575,8 +657,13 @@ class ServeEngine:
             self.cache["block_tables"] = torch.from_numpy(
                 self.pager.tables.copy()).to(dev)
             self.stats.blocks_in_use = self.pager.blocks_in_use
+        lora = self._lora_kw(self.adapter_slots)
+
+        def decode(p, t, c):
+            return self.api.decode(p, t, c, **lora)
+
         out = decode_steps(
-            self.api.decode, self.params, torch.from_numpy(last).to(dev),
+            decode, self.params, torch.from_numpy(last).to(dev),
             self.cache, self.rng, torch.from_numpy(stop).to(dev),
             torch.from_numpy(gen).to(dev), torch.from_numpy(budget).to(dev),
             n=n, vocab_size=self.cfg.vocab_size, max_len=self.max_len,
@@ -598,12 +685,15 @@ class ServeEngine:
             if reason is not None:
                 if self.paged:
                     # publish the generated tokens' full blocks too, keyed
-                    # by the sequence fed, then drop the slot's references
-                    self.pager.insert(self._kv_seq(r),
-                                      self.pager.slot_blocks(i))
+                    # by the sequence fed (base model only), then drop the
+                    # slot's references
+                    if r.adapter is None:
+                        self.pager.insert(self._kv_seq(r),
+                                          self.pager.slot_blocks(i))
                     self.pager.release_slot(i)
                 self._finish(r, reason)
                 self.slots[i] = None
+                self.adapter_slots[i] = -1
         if self.paged:
             self.stats.blocks_in_use = self.pager.blocks_in_use
         return True
@@ -619,13 +709,21 @@ class ServeEngine:
         return self.finished
 
     def generate(self, prompts, max_new: int = 32, max_steps: int = 10000,
-                 return_requests: bool = False):
+                 return_requests: bool = False, adapters=None):
         """Serve ``prompts``; returns one token list per prompt (in order).
 
-        Requests still in flight after ``max_steps`` are cancelled: they
-        come back with their partial tokens and ``truncated=True``."""
+        ``adapters``: an optional per-prompt list of registered adapter
+        names (None = base model). Requests still in flight after
+        ``max_steps`` are cancelled: they come back with their partial
+        tokens and ``truncated=True``, and release their adapter pins."""
+        if adapters is None:
+            adapters = [None] * len(prompts)
+        if len(adapters) != len(prompts):
+            raise ValueError(f"adapters list length {len(adapters)} != "
+                             f"{len(prompts)} prompts")
         start = len(self.finished)
-        ids = [self.submit(p, max_new) for p in prompts]
+        ids = [self.submit(p, max_new, adapter=a)
+               for p, a in zip(prompts, adapters)]
         self.run(max_steps)
         want = set(ids)
         new = self.finished[start:]
@@ -642,6 +740,7 @@ class ServeEngine:
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
                 self.slots[i] = None
+                self.adapter_slots[i] = -1
                 if self.paged:
                     self.pager.release_slot(i)
                 r = s
@@ -649,6 +748,8 @@ class ServeEngine:
         else:
             r = next(q for q in self.queue if q.rid == rid)
             self.queue.remove(r)
+        if r.adapter is not None:
+            self.registry.release(r.adapter)
         r.truncated = True
         r.finish_reason = "cancelled"
         self.stats.truncated += 1

@@ -9,8 +9,11 @@ Tolerances: float32 kernels agree with the plain versions to 1e-5
 relative to the output scale (other summation orders); bfloat16 outputs
 to 1e-2 of the scale (one bfloat16 rounding of the result, 2^-8). The
 reuse kernel's multiply count is an integer and must equal
-``reuse_mult_count``.
+``reuse_mult_count``. The quantization kernel's codes and scales must
+equal its plain version's exactly.
 """
+
+import numpy as np
 
 import pytest
 import torch
@@ -23,8 +26,10 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_cuda
+from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
 from repro_torch.models.model import get_model
+from repro_torch.serve.adapters import AdapterRegistry, target_dims
 from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -163,6 +168,31 @@ def test_flash_attention_kernel(card, sq, sk, causal, dtype):
     assert _rel_err(out, want) < _tol(dtype)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(768, 2048), (2, 300, 100), (3, 9, 64),
+                                   (8192, 130)])
+def test_quantize_kernel(card, shape, dtype, bits):
+    g = torch.Generator(device=card).manual_seed(len(shape) + shape[-1])
+    w = (torch.randn(shape, generator=g, device=card) * 0.05).to(dtype)
+    w[..., 1, 3] = 0.0                  # a tie column: absmax 127 * 2^-7
+    w[..., 0, 3] = 127 * 2.0 ** -7
+    w[..., 2, 3] = 2.5 * 2.0 ** -7
+    before = _build.LAUNCHES["quantize"]
+    codes, scale = quantize_cuda(w, bits)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["quantize"] == before + 1
+    # the IEEE float32 quotient: float64 division rounded once to float32
+    qmax = (1 << (bits - 1)) - 1
+    absmax = w.float().abs().amax(-2, keepdim=True).clamp(min=1e-8)
+    assert torch.equal(scale, (absmax.double() / qmax).float())
+    want_codes, want_scale = ref.quantize_ref(w, bits)
+    assert torch.equal(scale, want_scale)
+    assert torch.equal(codes, want_codes)
+    if bits == 8:
+        assert int(codes[..., 2, 3].flatten()[0]) == 2
+
+
 def test_wrappers_reject_what_kernels_do_not_take(card):
     x = torch.randn(8, 64, device=card)
     qt = quantize(torch.randn(64, 32, device=card), QuantConfig())
@@ -183,6 +213,10 @@ def test_wrappers_reject_what_kernels_do_not_take(card):
         paged_decode_attention_cuda(q, pool, pool,
                                     torch.ones(2, 3, dtype=torch.int64,
                                                device=card), one)
+    with pytest.raises(TypeError):
+        quantize_cuda(torch.ones(4, 4, dtype=torch.float16, device=card))
+    with pytest.raises(ValueError):
+        quantize_cuda(torch.ones(4, 4, device=card), bits=9)
     with pytest.raises(ValueError):                     # scale shape
         paged_decode_attention_cuda(
             q, pool.to(torch.int8), pool.to(torch.int8),
@@ -216,3 +250,38 @@ def test_engine_kernel_path_matches_plain_path(card, mode):
     assert sorted(kernel_run[1]) == sorted(kernels)
     assert all(kernel_run[1][k] > 0 for k in kernels)
     assert plain_run[1] == {}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_lora_engine_kernel_path_matches_plain_path(card, paged):
+    """Fused projections and a mixed batch of base and LoRA requests on
+    the reuse kernels give the plain path's tokens."""
+    cfg = CONFIG.reduced(dtype="float32", remat=False)
+    params = get_model(cfg).init(seed=0, device=card)
+    rng = np.random.default_rng(0)
+    reg = AdapterRegistry(cfg, max_loras=2, device=card)
+    for name in ("a0", "a1"):
+        ad = {}
+        for t in reg.targets:
+            n_in, n_out = target_dims(cfg, t)
+            ad[t] = {"lora_a": rng.standard_normal(
+                (cfg.n_layers, n_in, 16)).astype(np.float32) / 4,
+                "lora_b": rng.standard_normal(
+                (cfg.n_layers, 16, n_out)).astype(np.float32) * 0.05}
+        reg.add(name, ad)
+    prompts = [torch.arange(1, n + 1).numpy() for n in (8, 12, 31, 5, 9, 20)]
+    names = [None, "a0", "a1", None, "a1", "a0"]
+    kw = dict(paged=True, kv_block_size=8) if paged else {}
+    runs = {}
+    for impl in ("reuse", "reuse_ref"):
+        eng = ServeEngine(cfg, params, n_slots=2, max_len=64, quantize=True,
+                          decode_chunk=8, impl=impl, fuse_qkv=True,
+                          adapters=reg, device=card, **kw)
+        _build.reset_launches()
+        runs[impl] = (eng.generate(prompts, max_new=16, adapters=names),
+                      dict(_build.LAUNCHES))
+    kernels = ("reuse_matmul", "flash_attention",
+               "paged_decode_attention" if paged else "decode_attention")
+    assert runs["reuse"][0] == runs["reuse_ref"][0]
+    assert sorted(runs["reuse"][1]) == sorted(kernels)
+    assert runs["reuse_ref"][1] == {}

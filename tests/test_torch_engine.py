@@ -118,15 +118,14 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 def test_unported_options_raise(weights):
     _, _, tcfg, tparams = weights
-    for kw in (dict(adapters=object()),
-               dict(fuse_qkv=True), dict(mesh=object()),
+    for kw in (dict(mesh=object()),
                dict(speculate=True), dict(prefill_budget=64),
                dict(max_queue=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(tcfg, tparams, device="cpu", **kw)
     eng = ServeEngine(tcfg, tparams, device="cpu")
     for kw in (dict(on_token=print), dict(deadline_s=1.0),
-               dict(priority=1), dict(adapter="a")):
+               dict(priority=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.submit([1, 2, 3], **kw)
 

@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_repro():
     names, bad, launches, stale = json.loads(out)
     assert len(names) >= 20, names
     for new in ("core.reuse", "kernels.reuse_matmul",
-                "kernels.paged_decode_attention", "serve.paged_cache"):
+                "kernels.paged_decode_attention", "serve.paged_cache",
+                "kernels.quantize", "serve.adapters"):
         assert f"repro_torch.{new}" in names, names
     assert (bad, launches, stale) == ([], {}, False), out
