@@ -7,10 +7,14 @@ NVIDIA GPU.
 1. Fails (exit 1, no result) unless ``torch.cuda.is_available()``.
 2. Prints the card's name and power limit, then builds every CUDA kernel
    of the serving paths from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) and prints the build time.
+   source, in parallel), prints the build time and the number of HGMMA
+   (wgmma) instructions in each quantized-matmul library, and fails if
+   there are none.
 3. Kernel phase: each kernel against its plain PyTorch version on the
    card at the shapes of full-width repro-100m serving (the quantized
-   matmuls also at the fused widths N1280 = wqkv and N4096 = gate_up),
+   matmuls also at the fused widths N1280 = wqkv and N4096 = gate_up, and
+   at M4096 also per-group and packed int4, each case printing whether it
+   took the tensor-core or the SIMT path),
    with its error, tolerance, device time (CUDA events, L2 flushed before
    each launch), the plain version's time, the least time the card could
    take (bound) and the time of one PyTorch library call computing the
@@ -19,7 +23,9 @@ NVIDIA GPU.
    kernel's codes and scales must equal its plain version's, at five
    shapes, bf16 and f32, 8 and 4 bits, and then in a deploy pass through
    ``ops.quantize_channels`` over every projection leaf of full-width
-   repro-100m (84 matrices, one launch per stacked leaf), its path.
+   repro-100m (84 matrices, one launch per stacked leaf), its path. Both
+   paths of both quantized matmuls are timed from M16 to M4096 at N256
+   and N2048, where ``TC_MIN_M`` picks the tensor-core one.
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -40,7 +46,9 @@ NVIDIA GPU.
       ``bridge.registry_from_numpy``) serves run a's prompts, the
       requests cycling base/a0/a1/a2/a3: reuse_matmul, decode_attention,
       flash_attention.
-   Each holds its first wave's logits against the plain path, profiles 4
+   Each requires its matmul's tensor-core path (``<kernel>.wgmma``) to
+   have launched in its prefill waves, holds its first wave's logits
+   against the plain path, profiles 4
    decode chunks for the device's idle share, and serves the same
    requests through the plain path for greedy-token agreement. Run b also
    holds the first-token logits of its first prefix-hit wave, as served
@@ -75,6 +83,7 @@ SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
 LORA_B_STD = 0.01       # run c: B ~ N(0, 0.01^2), A ~ N(0, 1/r)
 FUSED = ((768, 1280), (768, 4096))    # K x N of wqkv and gate_up
+THRESHOLD_M = (16, 32, 48, 64, 96, 128, 256)   # both paths timed at each
 LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 
@@ -140,12 +149,20 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def case_row(name, shape, err, tol, ms, plain_ms, lib_ms, nb, flops, dtype):
+def path_of(m, x, qt) -> str:
+    """The kernel a quantized-matmul call of this shape and type takes."""
+    from repro_torch.kernels.axllm_matmul import tensor_core_path
+    return "wgmma" if tensor_core_path(m, x.dtype, qt) else "simt"
+
+
+def case_row(name, shape, err, tol, ms, plain_ms, lib_ms, nb, flops, dtype,
+             path=None):
     bound_ms, bound_by = bound(nb, flops, dtype)
     row = dict(kernel=name, shape=shape, max_abs_err=err, tolerance=tol,
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=lib_ms)
-    print(f"kernel {name} {shape}: err {err:.3e} (tol {tol:.3e}) "
+               library_ms=lib_ms, path=path)
+    print(f"kernel {name}{'' if path is None else f' [{path}]'} {shape}: "
+          f"err {err:.3e} (tol {tol:.3e}) "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}), library "
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
@@ -171,11 +188,15 @@ def kernel_phase(dev, flush):
     mm_cases = [(8, 768, 768, QuantConfig(8)), (8, 768, 256, QuantConfig(8)),
                 (8, 768, 2048, QuantConfig(8)), (8, 2048, 768, QuantConfig(8)),
                 (4096, 768, 2048, QuantConfig(8)),
+                (4096, 2048, 768, QuantConfig(8)),
                 (8, 768, 2048, QuantConfig(4, "affine", pack=True)),
                 (8, 768, 2048, QuantConfig(8, "affine", "per_group")),
                 (8, 768, 2048, QuantConfig(4, "codebook", pack=True))]
     mm_cases += [(m, k, n, QuantConfig(8)) for m in (N_SLOTS, 4096)
                  for k, n in FUSED]
+    mm_cases += [(4096, 768, 2048, qc) for qc in (   # the prefill path
+        QuantConfig(8, "affine", "per_group"),
+        QuantConfig(4, "affine", pack=True))]
     for m, k, n, qc in mm_cases:
         x = torch.randn(m, k, generator=g, device=dev).to(bf16)
         qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
@@ -192,7 +213,8 @@ def kernel_phase(dev, flush):
         nb = nbytes(x, qt.codes, qt.kernel_scale, got)
         shape = f"M{m} K{k} N{n} {qc.bits}b-{qc.mode}-{qc.granularity}"
         rows.append(case_row("axllm_matmul", shape, err, tol, ms, plain, lib,
-                             nb, 2.0 * m * k * n, "bfloat16"))
+                             nb, 2.0 * m * k * n, "bfloat16",
+                             path_of(m, x, qt)))
 
     # -- decode_attention: one decode step of the 8 slots, S = max_len
     b, s, h, hk, d = N_SLOTS, MAX_LEN, 12, 4, 64
@@ -291,6 +313,9 @@ def reuse_paged_kernel_phase(dev, flush):
     cases += [(N_SLOTS, 768, 2048, QuantConfig(4, "affine", pack=True)),
               (N_SLOTS, 768, 2048, QuantConfig(8, "affine", "per_group")),
               (N_SLOTS, 768, 2048, QuantConfig(4, "codebook", pack=True))]
+    cases += [(4096, 768, 2048, qc) for qc in (      # the prefill path
+        QuantConfig(8, "affine", "per_group"),
+        QuantConfig(4, "affine", pack=True))]
     for m, k, n, qc in cases:
         x = torch.randn(m, k, generator=g, device=dev).to(bf16)
         qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
@@ -314,7 +339,7 @@ def reuse_paged_kernel_phase(dev, flush):
         lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
         nb = nbytes(x, qt.codes, qt.kernel_scale, got)
         row = case_row("reuse_matmul", shape, err, tol, ms, plain, lib, nb,
-                       2.0 * m * k * n, "bfloat16")
+                       2.0 * m * k * n, "bfloat16", path_of(m, x, qt))
         rows.append(dict(row, mults=int(mults), reuse_rate=rate))
 
     # one decode step of the 8 slots: tables shuffled over the pool, rows
@@ -371,6 +396,70 @@ def reuse_paged_kernel_phase(dev, flush):
                              plain, None, nb, 4.0 * n_keys * h * d,
                              "bfloat16"))
     return rows
+
+
+def tensor_core_phase(dev, flush):
+    """Where the tensor-core path of the two quantized matmuls overtakes
+    their skinny kernels: both paths of both kernels at K768 N256 and N2048
+    (bf16, int8 per-channel) for each M of ``THRESHOLD_M`` and M4096, each
+    held against its plain version; and the bf16 output that the serving
+    path asks for at M4096 N2048 (written by the kernel, no separate
+    cast)."""
+    import torch
+    from repro_torch.core.quantization import QuantConfig, quantize
+    from repro_torch.kernels import axllm_matmul, ref, reuse_matmul
+    from repro_torch.kernels.axllm_matmul import TC_MIN_M
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sweep = []
+    for k, n in ((768, 256), (768, 2048)):
+        qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
+                      QuantConfig(8))
+        for m in THRESHOLD_M + (4096,):
+            x = torch.randn(m, k, generator=g, device=dev).to(bf16)
+            want = ref.axllm_matmul_ref(x, qt)
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            row = dict(m=m, k=k, n=n)
+            for name, fn in (
+                    ("axllm_wgmma",
+                     lambda: axllm_matmul.launch(x, qt, f32, True)),
+                    ("axllm_simt",
+                     lambda: axllm_matmul.launch(x, qt, f32, False)),
+                    ("reuse_wgmma", lambda: reuse_matmul.launch(
+                        x, qt, False, f32, True)[0]),
+                    ("reuse_table", lambda: reuse_matmul.launch(
+                        x, qt, False, f32, False)[0])):
+                err = float((fn() - want).abs().max())
+                check(err <= tol, f"{name} M{m} N{n}: error {err} > {tol}")
+                row[name] = time_ms(fn, flush)
+            if m == 4096 and n == 2048:   # the serving path's bf16 output
+                got = axllm_matmul.launch(x, qt, bf16, True)
+                check(torch.equal(got, axllm_matmul.launch(x, qt, f32, True)
+                                  .to(bf16)), "bf16 output is not the f32 "
+                                              "output rounded to nearest even")
+                row["axllm_wgmma_bf16_out"] = time_ms(
+                    lambda: axllm_matmul.launch(x, qt, bf16, True), flush)
+                row["reuse_wgmma_bf16_out"] = time_ms(
+                    lambda: reuse_matmul.launch(x, qt, False, bf16, True)[0],
+                    flush)
+            print(f"tensor-core path vs skinny kernels, M{m} K{k} N{n} int8: "
+                  + ", ".join(f"{key} {v:.4f} ms" for key, v in row.items()
+                              if key not in ("m", "k", "n")), flush=True)
+            sweep.append(row)
+    print(f"tensor-core path taken from M = {TC_MIN_M} (TC_MIN_M)",
+          flush=True)
+    return sweep
+
+
+def sass_hgmma(lib: str) -> int:
+    """The number of HGMMA (wgmma) instructions in a built library."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "--dump-sass",
+         str(_build.target(lib))], capture_output=True, text=True,
+        check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def quantize_kernel_phase(dev, flush):
@@ -705,7 +794,8 @@ def end_to_end(dev, card):
                             size=PROMPT_LENS[i % len(PROMPT_LENS)])
                .astype(np.int32) for i in range(N_REQUESTS)]
     return serve_run(dev, card, "dense", prompts, (
-        "axllm_matmul", "decode_attention", "flash_attention"))[0]
+        "axllm_matmul", "axllm_matmul.wgmma", "decode_attention",
+        "flash_attention"))[0]
 
 
 def layer0_reuse_rates(eng, label, card) -> dict:
@@ -754,7 +844,8 @@ def end_to_end_reuse_paged(dev, card):
         0, vocab, size=TAIL_LENS[i % len(TAIL_LENS)]).astype(np.int32)])
         for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "reuse+paged", prompts, (
-        "reuse_matmul", "paged_decode_attention", "flash_attention"),
+        "reuse_matmul", "reuse_matmul.wgmma", "paged_decode_attention",
+        "flash_attention"),
         impl="reuse", paged=True, kv_block_size=KV_BLOCK)
     check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
           f"reuse+paged: only {e2e['prefix_hit_tokens']} prefix-hit tokens")
@@ -792,7 +883,8 @@ def end_to_end_lora(dev, card):
     cycle = (None,) + ADAPTERS
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "lora+reuse+fused", prompts, (
-        "reuse_matmul", "decode_attention", "flash_attention"), names=names,
+        "reuse_matmul", "reuse_matmul.wgmma", "decode_attention",
+        "flash_attention"), names=names,
         registry=registry, impl="reuse", fuse_qkv=True)
     check(e2e["lora_requests"] == sum(n is not None for n in names),
           f"lora+reuse+fused: {e2e['lora_requests']} LoRA requests admitted")
@@ -801,6 +893,8 @@ def end_to_end_lora(dev, card):
           "lora+reuse+fused: layer 0 is not fused")
     return e2e
 
+
+PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 
 # kernel -> (the TPU kernel it replaces, the main shape reported, the
 # end-to-end run whose launch count is reported)
@@ -844,15 +938,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f"built {len(_build.SIGNATURES)} kernels in "
+    print(f"built {len(_build.LIBRARIES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s ({len(logs)} compiled)",
           flush=True)
+    hgmma = {lib: sass_hgmma(lib) for lib in ("axllm_matmul",
+                                              "reuse_matmul")}
+    for lib, count in hgmma.items():
+        print(f"sass {lib}: {count} HGMMA instructions", flush=True)
+        check(count > 0, f"{lib} has no tensor-core (HGMMA) instruction")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke_nvcc.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = kernel_phase(dev, flush) + reuse_paged_kernel_phase(dev, flush)
+    sweep = tensor_core_phase(dev, flush)
     q_rows, deploy = quantize_kernel_phase(dev, flush)
     rows += q_rows
     small_input_check(dev)
@@ -872,8 +972,20 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=main_shape, launches_from=run))
+        if name in ("axllm_matmul", "reuse_matmul"):
+            # the prefill path: the library's tensor-core entry point
+            tc = next(r for r in rows if r["kernel"] == name
+                      and r["shape"] == PREFILL_SHAPE)
+            kernels[-1]["tensor_core"] = dict(
+                source="src/repro_torch/csrc/quant_gemm_sm90.cuh",
+                shape=PREFILL_SHAPE, hgmma_instructions=hgmma[name],
+                launches=e2e[run]["launches"][f"{name}.wgmma"],
+                **{key: tc[key] for key in (
+                    "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")})
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, kernels=kernels, cases=rows, e2e=e2e), indent=1))
+        dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
+             e2e=e2e), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run used one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

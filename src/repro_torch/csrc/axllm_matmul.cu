@@ -1,4 +1,4 @@
-// Fused AxLLM dequant-matmul for Hopper: y[M,N] f32 = x[M,K] @ deq(codes).
+// Fused AxLLM dequant-matmul for Hopper: y[M,N] = x[M,K] @ deq(codes).
 //
 // Replaces the TPU kernel axllm_matmul_pallas (src/repro/kernels/
 // axllm_matmul.py:104; body _axllm_kernel :81, _dequant_tile :47,
@@ -9,21 +9,35 @@
 // the scale) or codebook[code + n_levels/2] (a 16- or 256-entry table held
 // in shared memory, the on-chip Result Cache). Sums run in f32.
 //
-// What bounds it on an H100: on the decode path (M = n_slots = 8) the
-// work is a few MFLOP against K*N code bytes, so the bound is the bytes:
-// the int8 codes are the smallest form the weights take in device memory
-// and are read exactly once per output tile. At prefill (M ~ 4096) the
-// bound is the operations. The design keeps the dequantized tile in shared
-// memory only, never in device memory, and picks a 16-row tile for skinny
-// M so decode pays no 64-row padding. Each tile's global loads are all
-// issued, predicated and unbranched, before any is used, so a tile costs
-// one memory round trip (a load consumed inside a branch right after its
-// issue serialized them all: 109 us for M8 K768 N2048 on an H100). It is
-// a plain SIMT tile loop (no tensor cores, no TMA, one block per 64
-// columns): a correct first kernel; wgmma tiling and split-K for skinny M
-// are later work.
+// Two kernels; the wrapper (kernels/axllm_matmul.py, tensor_core_path)
+// picks one by shape and type before the launch:
+//
+// 1. Tensor cores (axllm_matmul_wgmma_launch, quant_gemm_sm90.cuh): bf16
+//    activations, affine codes (int8, int4, int4 packed), one scale row or
+//    groups of a multiple of 64 rows, and M at or above the measured
+//    threshold: the prefill waves. Bound there by the operations (M4096
+//    K768 N2048: 12.9 GFLOP, 0.013 ms at the bf16 peak); TMA keeps the x
+//    and code tiles in flight, the codes become bf16 only in shared
+//    memory, and wgmma runs the product, the scale applied once per group
+//    sum (within 1e-5 of the per-product scale of the plain version). It
+//    writes f32 or the caller's bf16.
+//
+// 2. SIMT (axllm_matmul_launch, below): everything else, which is f32
+//    activations (the fp32 engine must give the plain path's tokens, and
+//    bf16 would round x), codebook alphabets (NF4 levels are not exact in
+//    bf16), decode M = n_slots = 8, and group sizes that 64 does not
+//    divide. At decode the work is a few MFLOP against K*N code bytes, so
+//    the bound is the bytes: the int8 codes are read exactly once per
+//    output tile, the dequantized tile lives in shared memory only, and a
+//    16-row tile for skinny M pays no 64-row padding. Each tile's global
+//    loads are all issued, predicated and unbranched, before any is used,
+//    so a tile costs one memory round trip (a load consumed inside a branch
+//    right after its issue serialized them all: 109 us for M8 K768 N2048 on
+//    an H100). A plain SIMT f32 tile loop; split-K for skinny M is later
+//    work.
 
 #include "common.cuh"
+#include "quant_gemm_sm90.cuh"
 
 namespace {
 
@@ -194,4 +208,17 @@ extern "C" int axllm_matmul_launch(const void* x, int x_bf16, const void* codes,
     launch_x<float>(x, codes, scale, codebook, y, M, K, N, packed, n_levels,
                     group_rows, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path: x [M,K] bf16; codes [K,N] int8 or [K,N/2] uint8
+// (packed = 1) of an affine alphabet; scale [n_scale_rows, N] f32 with
+// 1/qmax folded in; y [M,N] f32, or bf16 when out_bf16 = 1.
+extern "C" int axllm_matmul_wgmma_launch(const void* x, const void* codes,
+                                         const float* scale, void* y, int M,
+                                         int K, int N, int packed,
+                                         int n_scale_rows, int out_bf16,
+                                         void* stream) {
+  return qgemm::quant_gemm_launch(x, codes, scale, y, M, K, N, packed,
+                                  n_scale_rows, out_bf16,
+                                  static_cast<cudaStream_t>(stream));
 }

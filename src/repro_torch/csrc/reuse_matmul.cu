@@ -25,20 +25,39 @@
 // add their total to *mults with one atomic. seg is a power of two that
 // divides the block's 256 columns, so no segment spans two blocks.
 //
-// What bounds it on an H100: the time bound is the bytes of the codes at
-// decode (M = 8) and the operations at prefill, but the design's own cost
-// is shared-memory traffic: every product is a 4-byte table read, and a
-// block rewrites its 64 KB table once per chunk. Decode has few output
-// columns, so K is split across blocks (blockIdx.z) into a workspace that
-// a second kernel sums in a fixed order (no atomics on y: the result does
-// not change from run to run). The split keeps the scale after the group
-// sum: with one scale group (per-channel, per-tensor) the splits write
-// unscaled partial sums and the second kernel scales their fixed-order
-// total; with several groups the splits fall on group boundaries, so each
-// split scales only whole groups. A correct first kernel; fewer table
-// bytes per product (bf16 tables, more rows per read) is later work.
+// Two paths; the wrapper (kernels/reuse_matmul.py, tensor_core_path)
+// picks one by shape and type before the launch:
+//
+// 1. Tensor cores (reuse_matmul_wgmma_launch, quant_gemm_sm90.cuh): bf16
+//    activations, affine alphabets (int8, int4, int4 packed), one scale row
+//    or groups of a multiple of 64 rows, and M at or above the measured
+//    threshold: the prefill waves. For an affine alphabet
+//    sign(c) * levels[|c|] == c, so wgmma over bf16 x and bf16-cast codes,
+//    summed in f32 per scale group and scaled after the group sum, is this
+//    kernel's association term for term. At prefill the H100 runs the
+//    multiplies on its tensor cores instead of skipping them: the Result
+//    Cache's saving is energy on the paper's accelerator, and a table gather
+//    cannot reach the tensor cores' rate here (below). With a count asked
+//    for, this kernel runs once more in its count-only mode (M = 0), so the
+//    count is the Result Cache's, as on the other path.
+//
+// 2. The product table (reuse_matmul_launch, below): everything else, which
+//    is f32 activations, codebook alphabets (NF4 levels are not exact in
+//    bf16), decode M = n_slots = 8 and group sizes that 64 does not divide.
+//    Its time bound is the bytes of the codes at decode, but the design's
+//    own cost is shared-memory traffic: every product is a 4-byte table
+//    read, and a block rewrites its 64 KB table once per chunk, which
+//    floors it near 0.8 ms at M4096 K768 N2048 (4.3 ms measured). Decode
+//    has few output columns, so K is split across blocks (blockIdx.z) into
+//    a workspace that a second kernel sums in a fixed order (no atomics on
+//    y: the result does not change from run to run). The split keeps the
+//    scale after the group sum: with one scale group (per-channel, per-
+//    tensor) the splits write unscaled partial sums and the second kernel
+//    scales their fixed-order total; with several groups the splits fall
+//    on group boundaries, so each split scales only whole groups.
 
 #include "common.cuh"
+#include "quant_gemm_sm90.cuh"
 
 namespace {
 
@@ -305,4 +324,28 @@ extern "C" int reuse_matmul_launch(const void* x, int x_bf16, const void* codes,
   sum_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(
       ws, defer ? scale : nullptr, y, MN, N, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path: x [M,K] bf16 with M > 0; codes [K,N] int8 or
+// [K,N/2] uint8 (packed = 1) of an affine alphabet (fold = 1, levels
+// 0..qmax); scale [n_scale_rows, N] f32 with 1/qmax folded in; y [M,N]
+// f32, or bf16 when out_bf16 = 1. With mults != NULL the product-table
+// kernel first adds the Result Cache's count over seg-wide segments to it
+// (zero it first), in its count-only mode.
+extern "C" int reuse_matmul_wgmma_launch(const void* x, const void* codes,
+                                         const float* scale,
+                                         const float* levels, void* y,
+                                         int* mults, int M, int K, int N,
+                                         int packed, int L, int n_scale_rows,
+                                         int seg, int out_bf16, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mults) {
+    const int err = reuse_matmul_launch(x, 1, codes, scale, levels, nullptr,
+                                        nullptr, mults, 0, K, N, packed, L, 1,
+                                        n_scale_rows, seg, 1, stream);
+    if (err) return err;
+  }
+  return qgemm::quant_gemm_launch(x, codes, scale, y, M, K, N, packed,
+                                  n_scale_rows, out_bf16,
+                                  static_cast<cudaStream_t>(stream));
 }

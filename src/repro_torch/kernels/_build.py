@@ -7,9 +7,12 @@ repository's ``build/`` directory at its first use, and loaded with
 flags, so an edited source is rebuilt and a stale build is never loaded.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
-Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
-and nowhere else, so a run can show that its main path went through the
-kernels.
+A library may hold more than one entry point: ``<library>.<path>`` names
+a second one (``axllm_matmul.wgmma``, the tensor-core path). Every wrapper
+adds one to ``LAUNCHES[library]`` where it launches a kernel of that
+library and nowhere else, and one to ``LAUNCHES["<library>.<path>"]``
+when it takes such a second entry point, so a run can show that its main
+path went through the kernels, and through which of them.
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's launch function (all return cudaError_t)
+# C signature of each entry point (all return cudaError_t), by kernel
+# name: "<library>" or "<library>.<path>"
 SIGNATURES = {
     "axllm_matmul": ("axllm_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "axllm_matmul.wgmma": ("axllm_matmul_wgmma_launch",
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention_launch",
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _P]),
@@ -42,11 +48,17 @@ SIGNATURES = {
     "reuse_matmul": ("reuse_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _P]),
+    "reuse_matmul.wgmma": ("reuse_matmul_wgmma_launch",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P]),
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _P]),
     "quantize": ("quantize_launch", [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
+
+# the CUDA sources, one shared library each
+LIBRARIES = tuple(dict.fromkeys(name.split(".")[0] for name in SIGNATURES))
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
@@ -71,7 +83,7 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+def build(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source in parallel. Returns the compiler output (register
     and spill counts from ``-Xptxas -v``) of each library it built."""
@@ -99,11 +111,13 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
 
 
 def launcher(name: str):
-    """The C launch function of library ``name``, built on first use."""
+    """The C launch function of kernel ``name``, its library built on first
+    use."""
     if name not in _LOADED:
-        build([name])
+        lib = name.split(".")[0]
+        build([lib])
         fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(target(name))), fn_name)
+        fn = getattr(ctypes.CDLL(str(target(lib))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LOADED[name] = fn
@@ -115,4 +129,7 @@ def launch(name: str, *args) -> None:
     err = launcher(name)(*args)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    lib = name.split(".")[0]
+    LAUNCHES[lib] += 1
+    if name != lib:
+        LAUNCHES[name] += 1

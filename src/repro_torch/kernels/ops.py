@@ -72,11 +72,11 @@ def axllm_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
     kdim, n = qt.shape[-2], qt.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kdim)
-    if _use_kernel(impl, x):
-        y = axllm_matmul_cuda(x2.contiguous(), qt)
+    if _use_kernel(impl, x):   # the kernel writes out_dtype itself
+        y = axllm_matmul_cuda(x2.contiguous(), qt, out_dtype)
     else:
-        y = _ref.axllm_matmul_ref(x2, qt)
-    return y.reshape(*lead, n).to(out_dtype)
+        y = _ref.axllm_matmul_ref(x2, qt, out_dtype)
+    return y.reshape(*lead, n)
 
 
 def reuse_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
@@ -101,12 +101,13 @@ def reuse_matmul(x: torch.Tensor, qt: QTensor, *, impl: str = "auto",
     kdim, n = qt.shape[-2], qt.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kdim)
-    if _use_kernel(impl, x):
-        y, mults = reuse_matmul_cuda(x2.contiguous(), qt, with_stats)
+    if _use_kernel(impl, x):   # the kernel writes out_dtype itself
+        y, mults = reuse_matmul_cuda(x2.contiguous(), qt, with_stats,
+                                     out_dtype)
     else:
-        y = _ref.reuse_matmul_ref(x2, qt)
+        y = _ref.reuse_matmul_ref(x2, qt, out_dtype)
         mults = _ref.reuse_mult_count(qt, segment(n)) if with_stats else None
-    return y.reshape(*lead, n).to(out_dtype), mults
+    return y.reshape(*lead, n), mults
 
 
 def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,

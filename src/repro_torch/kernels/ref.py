@@ -62,6 +62,32 @@ def reuse_matmul_ref(x: torch.Tensor, qt: QTensor,
     return torch.sum(part * scale[:, None, :], dim=0).to(out_dtype)
 
 
+def quant_gemm_ref(x: torch.Tensor, qt: QTensor, k_tile: int = 64,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """The tensor-core path's arithmetic (``csrc/quant_gemm_sm90.cuh``),
+    step by step: x rounded to bf16 times the affine codes (exact in
+    bf16, and each product exact in f32), f32 sums over each ``k_tile``
+    rows of K added in order within a scale group, and each group's sum
+    times its scale added into the output in group order. It is the
+    association of :func:`reuse_matmul_ref` for an affine alphabet; only
+    the order of the f32 additions differs. x: [M, K]; qt: [K, N]."""
+    if qt.mode != "affine":
+        raise ValueError("the tensor-core path takes affine codes only")
+    c = decode_codes(qt).to(torch.float32)
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    scale = _reuse_scale(qt)                          # [G, N]
+    g_rows = qt.shape[-2] // scale.shape[0]
+    out = torch.zeros((x.shape[0], qt.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for g in range(scale.shape[0]):
+        part = torch.zeros_like(out)
+        for k0 in range(g * g_rows, (g + 1) * g_rows, k_tile):
+            k1 = min(k0 + k_tile, (g + 1) * g_rows)
+            part = part + xb[:, k0:k1] @ c[k0:k1]
+        out = out + part * scale[g]
+    return out.to(out_dtype)
+
+
 def _reuse_scale(qt: QTensor) -> torch.Tensor:
     """[G, N] f32 group scales with the affine 1/qmax folded in (G = 1 for
     per-channel and per-tensor): the factor applied after each group

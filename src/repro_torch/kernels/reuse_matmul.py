@@ -7,8 +7,16 @@ Replaces the TPU kernel ``reuse_matmul_pallas``
 :func:`repro_torch.kernels.ref.reuse_mult_count` for the multiply count.
 The kernel builds a product table of every activation with the code
 alphabet (``core.reuse.rc_alphabet``) in shared memory and gathers from it
-once per code; the source says what bounds it and what its design does
-about that.
+once per code. For the prefill calls that
+:func:`~repro_torch.kernels.axllm_matmul.tensor_core_path` accepts (bf16
+activations, an affine alphabet) the library's tensor-core kernel
+(``csrc/quant_gemm_sm90.cuh``, counted also under
+``LAUNCHES["reuse_matmul.wgmma"]``) runs the same association instead:
+for an affine alphabet ``sign(c) * levels[|c|] == c``, so the group sums of
+``x * c`` scaled after each sum are the table kernel's, and the multiplies
+run on the tensor cores rather than being skipped. The count stays the
+Result Cache's either way. The source says what bounds each path and what
+its design does about that.
 
 The count depends on the column segment it is taken over. The segment is
 fixed here by the JAX rule for the reuse branch of ``pick_blocks``: the
@@ -27,7 +35,8 @@ import torch
 from repro_torch.core.quantization import QTensor
 from repro_torch.core.reuse import rc_alphabet
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.axllm_matmul import check_operands
+from repro_torch.kernels.axllm_matmul import (check_operands, out_buffer,
+                                              tensor_core_path)
 
 BN = 256                 # output columns per block (csrc: kBN)
 BM = 8                   # rows of x per block (csrc: kBM)
@@ -66,38 +75,58 @@ def _alphabet_on(bits: int, mode: str, device: str):
     return torch.from_numpy(levels).to(device), fold
 
 
-def reuse_matmul_cuda(x2: torch.Tensor, qt: QTensor, with_stats: bool = False
+def reuse_matmul_cuda(x2: torch.Tensor, qt: QTensor, with_stats: bool = False,
+                      out_dtype=torch.float32
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(y[M, N] f32, mults) = reuse matmul of x2[M, K] and a 2-D QTensor.
+    """(y[M, N], mults) = reuse matmul of x2[M, K] and a 2-D QTensor, y in
+    ``out_dtype`` (the sums run in f32).
 
     ``mults`` is the multiply count per activation row (an int32 scalar
     tensor on the card, counted by the kernel) when ``with_stats``, else
     None. A CPU tensor takes the plain versions; a CUDA tensor launches the
-    kernel or raises.
+    kernel that ``tensor_core_path`` picks, or raises.
     """
     if x2.device.type == "cpu":
-        y = ref.reuse_matmul_ref(x2, qt)
+        y = ref.reuse_matmul_ref(x2, qt, out_dtype)
         return y, (ref.reuse_mult_count(qt, segment(qt.shape[1]))
                    if with_stats else None)
     check_operands(x2, qt, "reuse_matmul")
     if qt.shape[1] % 8:
         raise ValueError(f"the kernel counts over power-of-two segments: N "
                          f"must be a multiple of 8, got {qt.shape[1]}")
+    return launch(x2, qt, with_stats, out_dtype,
+                  tensor_core_path(x2.shape[0], x2.dtype, qt)
+                  and x2.data_ptr() % 16 == 0)
+
+
+def launch(x2: torch.Tensor, qt: QTensor, with_stats: bool, out_dtype,
+           tensor_cores: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the tensor-core or the product-table kernel on checked
+    operands."""
     k, n = qt.shape
     m = x2.shape[0]
     levels, fold = _alphabet_on(qt.bits, qt.mode, str(x2.device))
     scale = qt.kernel_scale
-    splits = k_splits(m, k, n, levels.numel())
-    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
-          if splits > 1 else None)
+    y = out_buffer(x2, n, out_dtype, tensor_cores)
     mults = (torch.zeros((), dtype=torch.int32, device=x2.device)
              if with_stats else None)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    mults_ptr = None if mults is None else mults.data_ptr()
+    if tensor_cores:
+        _build.launch(
+            "reuse_matmul.wgmma", x2.data_ptr(), qt.codes.data_ptr(),
+            scale.data_ptr(), levels.data_ptr(), y.data_ptr(), mults_ptr, m,
+            k, n, int(qt.packed), levels.numel(), scale.shape[0], segment(n),
+            int(y.dtype == torch.bfloat16), stream)
+        return y.to(out_dtype), mults
+    splits = k_splits(m, k, n, levels.numel())
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+          if splits > 1 else None)
     _build.launch(
         "reuse_matmul", x2.data_ptr(), int(x2.dtype == torch.bfloat16),
         qt.codes.data_ptr(), scale.data_ptr(), levels.data_ptr(),
-        y.data_ptr(), None if ws is None else ws.data_ptr(),
-        None if mults is None else mults.data_ptr(), m, k, n, int(qt.packed),
-        levels.numel(), int(fold), scale.shape[0], segment(n), splits,
-        torch.cuda.current_stream(x2.device).cuda_stream)
-    return y, mults
+        y.data_ptr(), None if ws is None else ws.data_ptr(), mults_ptr, m, k,
+        n, int(qt.packed), levels.numel(), int(fold), scale.shape[0],
+        segment(n), splits, stream)
+    return y.to(out_dtype), mults

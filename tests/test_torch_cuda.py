@@ -8,10 +8,17 @@ card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: float32 kernels agree with the plain versions to 1e-5
 relative to the output scale (other summation orders); bfloat16 outputs
 to 1e-2 of the scale (one bfloat16 rounding of the result, 2^-8). The
+quantized matmuls take their tensor-core kernel where
+``tensor_core_path`` says so (bf16, affine, M >= TC_MIN_M) and their SIMT
+kernel elsewhere; the M values cross that threshold, K = 200 is ragged
+against the 64-row K tile, and a bf16 output must equal the f32 output
+rounded once. The
 reuse kernel's multiply count is an integer and must equal
 ``reuse_mult_count``. The quantization kernel's codes and scales must
 equal its plain version's exactly.
 """
+
+import dataclasses
 
 import numpy as np
 
@@ -21,7 +28,8 @@ import torch
 from repro_torch.configs.repro_100m import CONFIG
 from repro_torch.core.quantization import QuantConfig, quantize
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
+from repro_torch.kernels.axllm_matmul import (axllm_matmul_cuda,
+                                              tensor_core_path)
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_decode_attention import \
@@ -53,22 +61,39 @@ def _tol(dtype):
     return 1e-5 if dtype == torch.float32 else 1e-2
 
 
+def _fit_group(qcfg, k):
+    """A per-group config whose groups divide ``k``: K = 200 takes groups
+    of 8 rows, which 64 does not divide (the SIMT kernels' case)."""
+    if qcfg.granularity == "per_group" and k % qcfg.group_size:
+        return dataclasses.replace(qcfg, group_size=8)
+    return qcfg
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("qcfg", [
     QuantConfig(8), QuantConfig(8, "affine", "per_group", group_size=64),
     QuantConfig(4, "affine", pack=True), QuantConfig(4, "codebook")],
     ids=["int8", "int8-group", "int4", "nf4"])
-@pytest.mark.parametrize("m", [8, 37, 300])
-def test_axllm_matmul_kernel(card, m, qcfg, dtype):
-    g = torch.Generator(device=card).manual_seed(m)
-    x = torch.randn(m, 192, generator=g, device=card).to(dtype)
-    qt = quantize(torch.randn(192, 96, generator=g, device=card), qcfg)
-    before = _build.LAUNCHES["axllm_matmul"]
+@pytest.mark.parametrize("k", [192, 200])
+@pytest.mark.parametrize("m", [8, 37, 63, 64, 65, 300, 1000])
+def test_axllm_matmul_kernel(card, m, k, qcfg, dtype):
+    g = torch.Generator(device=card).manual_seed(m + k)
+    qcfg = _fit_group(qcfg, k)
+    x = torch.randn(m, k, generator=g, device=card).to(dtype)
+    qt = quantize(torch.randn(k, 96, generator=g, device=card), qcfg)
+    before = dict(_build.LAUNCHES)
     y = axllm_matmul_cuda(x, qt)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["axllm_matmul"] == before + 1
+    tc = int(tensor_core_path(m, dtype, qt))
+    assert _build.LAUNCHES["axllm_matmul"] == before.get("axllm_matmul",
+                                                         0) + 1
+    assert _build.LAUNCHES["axllm_matmul.wgmma"] == before.get(
+        "axllm_matmul.wgmma", 0) + tc
     # f32 output either way: the sums run in f32 over the same inputs
     assert _rel_err(y, ref.axllm_matmul_ref(x, qt)) < 1e-5
+    # a bf16 output is the f32 output rounded once, to nearest even
+    assert torch.equal(axllm_matmul_cuda(x, qt, torch.bfloat16),
+                       y.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -78,15 +103,22 @@ def test_axllm_matmul_kernel(card, m, qcfg, dtype):
     QuantConfig(4, "codebook"), QuantConfig(8, "codebook")],
     ids=["int8", "int8-group", "int4", "int4-unpacked", "nf4", "cb8"])
 @pytest.mark.parametrize("m,k,n", [(8, 192, 96), (37, 256, 512),
-                                   (300, 768, 256), (0, 64, 64)])
+                                   (63, 256, 512), (64, 256, 512),
+                                   (65, 768, 256), (300, 768, 256),
+                                   (300, 200, 256), (1000, 768, 256),
+                                   (0, 64, 64)])
 def test_reuse_matmul_kernel(card, m, k, n, qcfg, dtype):
     g = torch.Generator(device=card).manual_seed(m + n)
+    qcfg = _fit_group(qcfg, k)
     x = torch.randn(m, k, generator=g, device=card).to(dtype)
     qt = quantize(torch.randn(k, n, generator=g, device=card), qcfg)
-    before = _build.LAUNCHES["reuse_matmul"]
+    before = dict(_build.LAUNCHES)
     y, mults = reuse_matmul_cuda(x, qt, with_stats=True)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["reuse_matmul"] == before + 1
+    assert _build.LAUNCHES["reuse_matmul"] == before.get("reuse_matmul",
+                                                         0) + 1
+    assert _build.LAUNCHES["reuse_matmul.wgmma"] == before.get(
+        "reuse_matmul.wgmma", 0) + int(tensor_core_path(m, dtype, qt))
     assert int(mults) == ref.reuse_mult_count(qt, segment(n))
     assert y.shape == (m, n)
     if m:
@@ -94,6 +126,8 @@ def test_reuse_matmul_kernel(card, m, k, n, qcfg, dtype):
     y2, none = reuse_matmul_cuda(x, qt)        # serving: no count
     torch.cuda.synchronize()
     assert none is None and torch.equal(y, y2)
+    y3, _ = reuse_matmul_cuda(x, qt, out_dtype=torch.bfloat16)
+    assert torch.equal(y3, y.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
