@@ -8,13 +8,18 @@ NVIDIA GPU.
 2. Prints the card's name and power limit, then builds every CUDA kernel
    of the serving paths from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel), prints the build time and the number of HGMMA
-   (wgmma) instructions in each quantized-matmul library, and fails if
-   there are none.
+   (wgmma) instructions in each quantized-matmul library and in the flash
+   attention library, and fails if there are none.
 3. Kernel phase: each kernel against its plain PyTorch version on the
    card at the shapes of full-width repro-100m serving (the quantized
    matmuls also at the fused widths N1280 = wqkv and N4096 = gate_up, and
    at M4096 also per-group and packed int4, each case printing whether it
    took the tensor-core or the SIMT path),
+   flash attention at the prefill wave, at Sq256 Sk1024 causal and full
+   and at the wave with head dim 128, through its wrapper (the
+   tensor-core kernel, also held against its emulation
+   ``ref.flash_attention_tc_ref``) and through the SIMT kernel; the
+   split-KV decode kernels also against their split emulations;
    with its error, tolerance, device time (CUDA events, L2 flushed before
    each launch), the plain version's time, the least time the card could
    take (bound) and the time of one PyTorch library call computing the
@@ -46,10 +51,12 @@ NVIDIA GPU.
       ``bridge.registry_from_numpy``) serves run a's prompts, the
       requests cycling base/a0/a1/a2/a3: reuse_matmul, decode_attention,
       flash_attention.
-   Each requires its matmul's tensor-core path (``<kernel>.wgmma``) to
-   have launched in its prefill waves, holds its first wave's logits
+   Each requires its matmul's and flash attention's tensor-core paths
+   (``<kernel>.wgmma``) to have launched in its prefill waves (every
+   flash launch on the tensor cores), holds its first wave's logits
    against the plain path, profiles 4
-   decode chunks for the device's idle share, and serves the same
+   decode chunks for the device's idle share and its first wave's
+   prefill for its device time (flash attention's share), serves the same
    requests through the plain path for greedy-token agreement. Run b also
    holds the first-token logits of its first prefix-hit wave, as served
    (prefix KV gathered out of the pool, suffix-only prefill), against a
@@ -84,6 +91,9 @@ ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
 LORA_B_STD = 0.01       # run c: B ~ N(0, 0.01^2), A ~ N(0, 1/r)
 FUSED = ((768, 1280), (768, 4096))    # K x N of wqkv and gate_up
 THRESHOLD_M = (16, 32, 48, 64, 96, 128, 256)   # both paths timed at each
+# flash kernel phase: (B, Sq, Sk, causal, head dim)
+FLASH_CASES = ((N_SLOTS, 512, 512, True, 64), (2, 256, 1024, True, 64),
+               (2, 256, 1024, False, 64), (N_SLOTS, 512, 512, True, 128))
 LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 
@@ -116,9 +126,10 @@ def time_ms(fn, flush, iters: int = 20) -> float:
 
 
 def device_busy_ms(fn) -> tuple:
-    """(wall ms, device-busy ms, top kernels) of ``fn`` under
-    torch.profiler: the busy time is the sum of the card's kernel, memcpy
-    and memset durations (one stream, so they do not overlap)."""
+    """(wall ms, device-busy ms, device ms of every kernel by name, the
+    largest first) of ``fn`` under torch.profiler: the busy time is the
+    sum of the card's kernel, memcpy and memset durations (one stream, so
+    they do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -134,7 +145,7 @@ def device_busy_ms(fn) -> tuple:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return wall, sum(by_name.values()), top
 
 
@@ -153,6 +164,17 @@ def path_of(m, x, qt) -> str:
     """The kernel a quantized-matmul call of this shape and type takes."""
     from repro_torch.kernels.axllm_matmul import tensor_core_path
     return "wgmma" if tensor_core_path(m, x.dtype, qt) else "simt"
+
+
+def split_err(got, emu, name) -> float:
+    """A split-KV decode kernel against its emulation (the same splits):
+    within one bf16 rounding of the output (2^-8 of its scale)."""
+    err = float((got.float() - emu.float()).abs().max())
+    tol = 2.0 ** -8 * max(1.0, float(emu.float().abs().max()))
+    print(f"kernel {name}: err vs its split emulation {err:.3e} "
+          f"(tol {tol:.3e})", flush=True)
+    check(err <= tol, f"{name} differs from its split emulation by {err}")
+    return err
 
 
 def case_row(name, shape, err, tol, ms, plain_ms, lib_ms, nb, flops, dtype,
@@ -176,9 +198,10 @@ def kernel_phase(dev, flush):
     from repro_torch.core.quantization import QuantConfig, dequantize, \
         quantize
     from repro_torch.kernels import ref
+    from repro_torch.kernels import _build
     from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, \
+        split_plan
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -245,6 +268,9 @@ def kernel_phase(dev, flush):
               "decode_attention: a length-0 row is not exactly 0")
         err = float((got.float() - want.float()).abs().max())
         tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+        split_err(got, ref.decode_attention_split_ref(
+            q.float(), kc, vc, length, ks, vs,
+            *split_plan(s, b * hk, _build.sm_count(dev))), "decode_attention")
         ms = time_ms(lambda: decode_attention_cuda(q, kc, vc, length, ks, vs),
                      flush)
         plain = time_ms(lambda: ref.decode_attention_ref(q, kc, vc, length,
@@ -260,19 +286,20 @@ def kernel_phase(dev, flush):
         rows.append(case_row("decode_attention", shape, err, tol, ms, plain,
                              lib, nb, 4.0 * n_keys * h * d, "bfloat16"))
 
-    # -- flash_attention: the prefill wave (8 x 512), and Sq < Sk
-    for b, sq, sk, causal in ((N_SLOTS, 512, 512, True), (2, 256, 1024, True),
-                              (2, 256, 1024, False)):
-        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(bf16)
-        k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(bf16)
-        v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(bf16)
+    # -- flash_attention: the prefill wave (8 x 512), Sq < Sk and the wave
+    # at head dim 128; the wrapper's own choice (the tensor-core kernel,
+    # also held against its emulation) and the SIMT kernel
+    from repro_torch.kernels import flash_attention as fa
+    for b, sq, sk, causal, dd in FLASH_CASES:
+        q = torch.randn(b, sq, h, dd, generator=g, device=dev).to(bf16)
+        k = torch.randn(b, sk, hk, dd, generator=g, device=dev).to(bf16)
+        v = torch.randn(b, sk, hk, dd, generator=g, device=dev).to(bf16)
         want = ref.attention_ref(q, k, v, causal)
-        got = flash_attention_cuda(q, k, v, causal)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
         tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal), flush)
-        plain = time_ms(lambda: ref.attention_ref(q, k, v, causal), flush)
+        check(fa.tensor_core_path(q), "bf16 attention does not take the "
+                                      "tensor-core path")
+        emu = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                         causal)
         qt_, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         amask = None
         if causal:      # queries sit at the last sq key positions
@@ -280,13 +307,31 @@ def kernel_phase(dev, flush):
                      >= torch.arange(sk, device=dev)[None, :])
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt_, kt, vt, attn_mask=amask, enable_gqa=True), flush)
+        plain = time_ms(lambda: ref.attention_ref(q, k, v, causal), flush)
         pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq)) if causal \
             else sq * sk
-        nb = nbytes(q, k, v, got)
-        shape = f"B{b} Sq{sq} Sk{sk} H{h} Hk{hk} d{d} " \
+        shape = f"B{b} Sq{sq} Sk{sk} H{h} Hk{hk} d{dd} " \
                 f"{'causal' if causal else 'full'}"
-        rows.append(case_row("flash_attention", shape, err, tol, ms, plain,
-                             lib, nb, 4.0 * b * h * d * pairs, "bfloat16"))
+        for path, call in (
+                ("wgmma", lambda: fa.flash_attention_cuda(q, k, v, causal)),
+                ("simt", lambda: fa.launch(q, k, v, causal, False))):
+            got = call()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ms = time_ms(call, flush)
+            row = case_row("flash_attention", shape, err, tol, ms, plain, lib,
+                           nbytes(q, k, v, got), 4.0 * b * h * dd * pairs,
+                           "bfloat16", path)
+            if path == "wgmma":
+                emu_err = float((got.float() - emu).abs().max())
+                emu_tol = 2.0 ** -8 * max(1.0, float(emu.abs().max()))
+                print(f"kernel flash_attention [wgmma] {shape}: err vs its "
+                      f"emulation {emu_err:.3e} (tol {emu_tol:.3e})",
+                      flush=True)
+                check(emu_err <= emu_tol, f"flash_attention {shape} differs "
+                                          f"from its emulation by {emu_err}")
+                row.update(emulation_err=emu_err)
+            rows.append(row)
     return rows
 
 
@@ -299,6 +344,8 @@ def reuse_paged_kernel_phase(dev, flush):
     from repro_torch.core.quantization import QuantConfig, dequantize, \
         quantize
     from repro_torch.kernels import ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import split_plan
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_cuda
     from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
@@ -374,6 +421,10 @@ def reuse_paged_kernel_phase(dev, flush):
         torch.cuda.synchronize()
         check(int(torch.count_nonzero(got[0])) == 0,
               "paged_decode_attention: a length-0 row is not exactly 0")
+        split_err(got, ref.paged_decode_attention_split_ref(
+            q.float(), kp, vp, bt, length, ks, vs,
+            *split_plan(mb * bs, b * hk, _build.sm_count(dev), bs)),
+            "paged_decode_attention")
         err = float((got.float() - want.float()).abs().max())
         tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
         ms = time_ms(lambda: paged_decode_attention_cuda(
@@ -662,6 +713,12 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     for name in kernels:
         check(launches.get(name, 0) > 0, f"{label}: {name} never launched "
                                          "on the main path")
+    # bf16 prefill: every flash launch takes the tensor cores, 12 (one a
+    # layer) per wave that runs flash attention
+    check(launches.get("flash_attention.wgmma") ==
+          launches.get("flash_attention"), f"{label}: flash launches "
+          f"{launches.get('flash_attention')} of which "
+          f"{launches.get('flash_attention.wgmma')} on the tensor cores")
     generated = sum(len(r.tokens) for r in done.values())
     st = eng.stats
     print(f"{tag}: {generated} tokens in {wall:.3f} s = "
@@ -702,11 +759,19 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
         check(bool(torch.isfinite(a).all()), f"{label}: non-finite {what}")
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
-        agree = float((a[:, :cfg.vocab_size].argmax(-1)
-                       == b[:, :cfg.vocab_size].argmax(-1)).float().mean())
+        ka = a[:, :cfg.vocab_size].argmax(-1)
+        kb = b[:, :cfg.vocab_size].argmax(-1)
+        agree = float((ka == kb).float().mean())
+        # where the argmax differs: the plain path's own margin between its
+        # top token and the kernel path's (a near-tie when below err)
+        gaps = [float(b[i, kb[i]] - b[i, ka[i]])
+                for i in range(len(ka)) if ka[i] != kb[i]]
         print(f"{tag}: {what} |kernel - plain| = {err:.4e}, scale "
               f"{scale:.4f}, tolerance {LOGIT_TOL * max(1.0, scale):.4e}; "
-              f"argmax agreement {agree:.3f}", flush=True)
+              f"argmax agreement {agree:.3f}"
+              + ("" if not gaps else "; plain-path logit margin of the "
+                 "differing rows " + ", ".join(f"{x:.4e}" for x in gaps)),
+              flush=True)
         check(err <= LOGIT_TOL * max(1.0, scale),
               f"{label}: {what} differ by {err}")
         return err, scale, agree
@@ -759,8 +824,17 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     print(f"{tag}: 4 decode chunks (32 steps, 8 slots): wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{idle:.3f}", flush=True)
-    for name, ms in top:
+    for name, ms in top[:8]:
         print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
+    # where a prefill wave's time goes: the first wave's prefill through
+    # the kernel path (as served: the same model call), profiled
+    p_wall, p_busy, p_top = device_busy_ms(
+        lambda: dense_logits(impl, wave, wave_names))
+    flash_ms = sum(ms for name, ms in p_top if "flash" in name)
+    print(f"{tag}: one prefill wave ({len(wave)} rows): wall {p_wall:.2f} "
+          f"ms, device busy {p_busy:.2f} ms, idle share "
+          f"{1.0 - p_busy / p_wall:.3f}; flash attention {flash_ms:.3f} ms "
+          f"device", flush=True)
 
     plain = engine(plain_impl)
     for p, name in zip(prompts, names):
@@ -783,7 +857,9 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                 first_wave_argmax_agree=argmax_agree, **hit,
                 requests_identical=same, position_agree=float(agree),
                 decode_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                                    idle_share=idle, top=top)), eng
+                                    idle_share=idle, top=top),
+                prefill_profile=dict(wall_ms=p_wall, busy_ms=p_busy,
+                                     flash_ms=flash_ms, top=p_top[:8])), eng
 
 
 def end_to_end(dev, card):
@@ -795,7 +871,7 @@ def end_to_end(dev, card):
                .astype(np.int32) for i in range(N_REQUESTS)]
     return serve_run(dev, card, "dense", prompts, (
         "axllm_matmul", "axllm_matmul.wgmma", "decode_attention",
-        "flash_attention"))[0]
+        "flash_attention", "flash_attention.wgmma"))[0]
 
 
 def layer0_reuse_rates(eng, label, card) -> dict:
@@ -845,7 +921,7 @@ def end_to_end_reuse_paged(dev, card):
         for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "reuse+paged", prompts, (
         "reuse_matmul", "reuse_matmul.wgmma", "paged_decode_attention",
-        "flash_attention"),
+        "flash_attention", "flash_attention.wgmma"),
         impl="reuse", paged=True, kv_block_size=KV_BLOCK)
     check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
           f"reuse+paged: only {e2e['prefix_hit_tokens']} prefix-hit tokens")
@@ -884,7 +960,7 @@ def end_to_end_lora(dev, card):
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "lora+reuse+fused", prompts, (
         "reuse_matmul", "reuse_matmul.wgmma", "decode_attention",
-        "flash_attention"), names=names,
+        "flash_attention", "flash_attention.wgmma"), names=names,
         registry=registry, impl="reuse", fuse_qkv=True)
     check(e2e["lora_requests"] == sum(n is not None for n in names),
           f"lora+reuse+fused: {e2e['lora_requests']} LoRA requests admitted")
@@ -913,6 +989,10 @@ KERNELS = {
     "quantize": ("src/repro/kernels/quantize.py:33", "K768 N2048 bfloat16 8b",
                  "deploy"),
 }
+# the path of each kernel's main row: the one its serving path takes
+MAIN_PATH = {"flash_attention": "wgmma"}
+ROW_KEYS = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -941,8 +1021,8 @@ def main() -> int:
     print(f"built {len(_build.LIBRARIES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s ({len(logs)} compiled)",
           flush=True)
-    hgmma = {lib: sass_hgmma(lib) for lib in ("axllm_matmul",
-                                              "reuse_matmul")}
+    hgmma = {lib: sass_hgmma(lib) for lib in ("axllm_matmul", "reuse_matmul",
+                                              "flash_attention")}
     for lib, count in hgmma.items():
         print(f"sass {lib}: {count} HGMMA instructions", flush=True)
         check(count > 0, f"{lib} has no tensor-core (HGMMA) instruction")
@@ -964,13 +1044,12 @@ def main() -> int:
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
         row = next(r for r in rows
-                   if r["kernel"] == name and r["shape"] == main_shape)
+                   if r["kernel"] == name and r["shape"] == main_shape
+                   and r["path"] == MAIN_PATH.get(name, r["path"]))
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=replaces, launches=e2e[run]["launches"][name],
-            max_abs_err=row["max_abs_err"], tolerance=row["tolerance"],
-            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **{key: row[key] for key in ROW_KEYS},
             shape=main_shape, launches_from=run))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the prefill path: the library's tensor-core entry point
@@ -980,9 +1059,15 @@ def main() -> int:
                 source="src/repro_torch/csrc/quant_gemm_sm90.cuh",
                 shape=PREFILL_SHAPE, hgmma_instructions=hgmma[name],
                 launches=e2e[run]["launches"][f"{name}.wgmma"],
-                **{key: tc[key] for key in (
-                    "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")})
+                **{key: tc[key] for key in ROW_KEYS})
+        if name == "flash_attention":
+            # the main row is the tensor-core kernel; the SIMT one beside it
+            simt = next(r for r in rows if r["kernel"] == name
+                        and r["shape"] == main_shape and r["path"] == "simt")
+            kernels[-1].update(
+                path="wgmma", hgmma_instructions=hgmma[name],
+                wgmma_launches=e2e[run]["launches"][f"{name}.wgmma"],
+                simt={key: simt[key] for key in ROW_KEYS})
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
              e2e=e2e), indent=1))

@@ -25,5 +25,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Masked-score sentinel shared with the plain versions (kernels/ref.py).
 constexpr float kNegInf = -1e30f;

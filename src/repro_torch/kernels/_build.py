@@ -8,7 +8,8 @@ flags, so an edited source is rebuilt and a stale build is never loaded.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
 A library may hold more than one entry point: ``<library>.<path>`` names
-a second one (``axllm_matmul.wgmma``, the tensor-core path). Every wrapper
+a second one (``axllm_matmul.wgmma``, ``flash_attention.wgmma``: the
+tensor-core paths). Every wrapper
 adds one to ``LAUNCHES[library]`` where it launches a kernel of that
 library and nowhere else, and one to ``LAUNCHES["<library>.<path>"]``
 when it takes such a second entry point, so a run can show that its main
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,11 +42,12 @@ SIGNATURES = {
     "axllm_matmul.wgmma": ("axllm_matmul_wgmma_launch",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention_launch",
-                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _P]),
+                         [_P] * 9 + [_I] * 9 + [_F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P]),
+    "flash_attention.wgmma": ("flash_attention_wgmma_launch",
+                              [_P] * 4 + [_I] * 7 + [_F, _P]),
     "reuse_matmul": ("reuse_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _P]),
@@ -52,8 +55,7 @@ SIGNATURES = {
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P]),
     "paged_decode_attention": ("paged_decode_attention_launch",
-                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _F, _P]),
+                               [_P] * 10 + [_I] * 11 + [_F, _P]),
     "quantize": ("quantize_launch", [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
 
@@ -66,6 +68,13 @@ _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The device's number of SMs (a host-side property)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -6,6 +6,10 @@ Replaces the TPU kernel ``decode_attention_pallas``
 :func:`repro_torch.kernels.ref.decode_attention_ref`. On an H100 it is
 bound by the bytes of the valid KV prefix; the kernel reads only that
 prefix, once per GQA group, and clamps each row's length to the cache.
+It splits each row's keys across blocks (:func:`split_plan`, from shapes
+alone: the wrapper never reads a length back from the card) and merges
+the splits in the same launch; :func:`ref.decode_attention_split_ref`
+computes what it does, split by split.
 """
 
 from __future__ import annotations
@@ -18,6 +22,60 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128)
 MAX_REP = 8          # query heads per KV head the kernel holds in registers
+SPLIT_KEYS = 64      # a split's length is a multiple of this many keys
+BLOCKS_PER_SM = 2    # the split grid aims at this many blocks per SM
+TABLE = 256          # block-table entries a paged block stages
+                     # (csrc/decode_attention_body.cuh kDecodeTable)
+
+
+def split_plan(limit: int, rows: int, sms: int, bs=None) -> tuple:
+    """(n_split, split_len) of the split-KV decode kernels for ``rows`` =
+    B * Hk (row, KV head) pairs over up to ``limit`` keys (S, or MB * bs
+    paged with ``bs``-key blocks) on a card of ``sms`` SMs: about
+    ``BLOCKS_PER_SM`` blocks per SM, each split a multiple of
+    ``SPLIT_KEYS`` keys (and, paged, at most ``TABLE - 1`` blocks).
+    Splits cover every position: n_split * split_len >= limit. A function
+    of shapes only, so the launch needs no host sync."""
+    want = max(1, -(-BLOCKS_PER_SM * sms // rows))
+    split_len = -(-limit // want)
+    split_len = -(-split_len // SPLIT_KEYS) * SPLIT_KEYS
+    if bs is not None:
+        split_len = min(split_len, max(
+            SPLIT_KEYS, (TABLE - 1) * bs // SPLIT_KEYS * SPLIT_KEYS))
+    return -(-limit // split_len), split_len
+
+
+_SPLITS: dict = {}
+
+
+def split_buffers(q: torch.Tensor, limit: int, rows: int, stream: int,
+                  bs=None) -> tuple:
+    """(n_split, split_len, partials, counters) of a split launch of ``q``
+    [B, H, d] over ``rows`` = B * Hk pairs and up to ``limit`` keys
+    (``bs``-key blocks if paged): the plan of :func:`split_plan`, an f32
+    scratch for every split's partial, and ``rows`` int32 arrival counters
+    at 0 (a launch leaves them at 0); None, None for one split. Made once
+    per (device, stream, shapes) and kept: launches on one stream run in
+    order, so each reuses them, and a decode step, bound by the host,
+    pays one dict lookup. Serving has one decode shape per engine."""
+    key = (q.device, stream, tuple(q.shape), limit, rows, bs)
+    hit = _SPLITS.get(key)
+    if hit is None:
+        n_split, split_len = split_plan(limit, rows,
+                                        _build.sm_count(q.device), bs)
+        part = counters = None
+        if n_split > 1:
+            b, h, d = q.shape
+            rep = h // (rows // b)
+            part = torch.empty(rows * n_split * rep * (d + 1),
+                               dtype=torch.float32, device=q.device)
+            counters = torch.zeros(rows, dtype=torch.int32, device=q.device)
+        hit = _SPLITS[key] = (n_split, split_len, part, counters)
+    return hit
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def check_operands(q, k, v, length, k_scale, v_scale, names, extra=()):
@@ -81,11 +139,12 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     _, s, hk, _ = k_cache.shape
     out = torch.empty_like(q)
     quantized = k_scale is not None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split, split_len, part, counters = split_buffers(q, s, b * hk, stream)
     _build.launch(
         "decode_attention", q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None, length.data_ptr(),
-        out.data_ptr(), b, s, h, hk, d, int(q.dtype == torch.bfloat16),
-        int(quantized), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale), length.data_ptr(),
+        out.data_ptr(), _ptr(part), _ptr(counters), b, s, h, hk, d,
+        int(q.dtype == torch.bfloat16), int(quantized), n_split, split_len,
+        1.0 / (d ** 0.5), stream)
     return out

@@ -1,11 +1,15 @@
-"""Causal or non-causal GQA flash attention: wrapper of the CUDA kernel
+"""Causal or non-causal GQA flash attention: wrapper of the CUDA kernels
 ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py:81``). Its plain version is
-:func:`repro_torch.kernels.ref.attention_ref`. On an H100, at the prefill
-wave's shapes, it is bound by its operations; the kernel skips key tiles
-above the causal diagonal and masks ragged edges itself.
+:func:`repro_torch.kernels.ref.attention_ref`. :func:`tensor_core_path`
+picks, before the launch, the library's tensor-core kernel (TMA + wgmma,
+counted also under ``LAUNCHES["flash_attention.wgmma"]``) for bf16 at
+head dim 64 or 128, whose arithmetic :func:`ref.flash_attention_tc_ref`
+emulates (P rounded to bf16 before P V), and the SIMT kernel for the
+rest (f32, head dim 32); the source says what each design does about its
+bound.
 """
 
 from __future__ import annotations
@@ -15,6 +19,16 @@ import torch
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)   # head dims of the tensor-core kernel
+
+
+def tensor_core_path(q: torch.Tensor) -> bool:
+    """Whether attention of ``q`` [B, Sq, H, d] takes the tensor-core
+    kernel: bf16 at a head dim of ``TC_HEAD_DIMS``. Reads q's dtype and
+    shape, never its values. f32 keeps the SIMT kernel (the tensor cores
+    would round it to bf16), and so does d = 32, below one 128-byte TMA
+    row and not a served shape."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
 
 
 def _check(q, k, v) -> None:
@@ -43,17 +57,33 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, H, d]; k, v: [B, Sk, Hk, d] -> [B, Sq, H, d].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.
+    kernel that :func:`tensor_core_path` picks, or raises.
     """
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
     _check(q, k, v)
+    return launch(q, k, v, causal, tensor_core_path(q))
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           tensor_cores: bool) -> torch.Tensor:
+    """Launch the tensor-core or the SIMT kernel on checked operands."""
+    if tensor_cores and not tensor_core_path(q):
+        raise ValueError(f"the tensor-core kernel takes bf16 at head dims "
+                         f"{TC_HEAD_DIMS}, got {q.dtype} d={q.shape[-1]}")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if not tensor_cores:
+        _build.launch(
+            "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, sq, sk, h, hk, d,
+            int(q.dtype == torch.bfloat16), int(causal), 1.0 / (d ** 0.5),
+            stream)
+        return out
     _build.launch(
-        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, sq, sk, h, hk, d, int(q.dtype == torch.bfloat16),
-        int(causal), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        "flash_attention.wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, sq, sk, h, hk, d, int(causal), 1.0 / (d ** 0.5),
+        stream)
     return out

@@ -6,7 +6,9 @@ Replaces the TPU kernel ``paged_decode_attention_pallas``
 :func:`repro_torch.kernels.ref.paged_decode_attention_ref`. On an H100 it
 is bound by the bytes of the valid KV entries; the kernel reads them once
 per GQA group, through the block table, and clamps each row's length to
-its table (``MB * bs``).
+its table (``MB * bs``). Its body is the dense kernel's, split-KV
+(:func:`repro_torch.kernels.decode_attention.split_plan`); its split
+arithmetic is :func:`ref.paged_decode_attention_split_ref`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import check_operands
+from repro_torch.kernels.decode_attention import (_ptr, check_operands,
+                                                  split_buffers)
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -43,14 +46,17 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("block_tables must be int32 [B, MB]")
     b, h, d = q.shape
     nb, bs, hk, _ = k_pool.shape
+    mb = block_tables.shape[1]
     out = torch.empty_like(q)
     quantized = k_scale is not None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split, split_len, part, counters = split_buffers(q, mb * bs, b * hk,
+                                                       stream, bs)
     _build.launch(
         "paged_decode_attention", q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None, block_tables.data_ptr(),
-        length.data_ptr(), out.data_ptr(), b, h, hk, d, nb, bs,
-        block_tables.shape[1], int(q.dtype == torch.bfloat16),
-        int(quantized), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        block_tables.data_ptr(), length.data_ptr(), out.data_ptr(),
+        _ptr(part), _ptr(counters), b, h, hk, d, nb, bs, mb,
+        int(q.dtype == torch.bfloat16), int(quantized), n_split, split_len,
+        1.0 / (d ** 0.5), stream)
     return out

@@ -161,6 +161,75 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _scale_log2(d: int) -> torch.Tensor:
+    """The kernels' score scale in log2 units: the f32 1/sqrt(d) times the
+    f32 log2(e), one f32 multiply."""
+    return (torch.tensor(1.0 / (d ** 0.5), dtype=torch.float32)
+            * torch.tensor(LOG2E, dtype=torch.float32))
+
+
+def _merge_splits(parts) -> torch.Tensor:
+    """Merge split partials [(o, lse)] (o normalized, lse = log2-sum-exp
+    in log2 units or NEG_INF for an empty split) as the kernels do: the
+    weights exp2(lse - max lse), an empty split weighing exactly 0."""
+    lse = torch.stack([p[1] for p in parts])
+    mx = lse.amax(0)
+    w = torch.where(lse == NEG_INF, torch.zeros((), device=lse.device),
+                    torch.exp2(lse - mx))
+    o = sum(w[i][..., None] * parts[i][0] for i in range(len(parts)))
+    return o / torch.clamp(w.sum(0), min=1e-30)[..., None]
+
+
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True) -> torch.Tensor:
+    """The tensor-core flash kernel's arithmetic (``csrc/flash_attention.cu``
+    ``fa::``), step by step: q, k, v read as bf16; per 64-row query tile,
+    the key tiles up to the tile's causal end (128 keys each at d = 64, 64
+    at d = 128), an f32 online softmax in log2 units per key tile, with P
+    rounded to bf16 before P V (the one rounding the plain version has
+    not) and the row sums taken before that rounding. q: [B, Sq, H, d]; k,
+    v: [B, Sk, Hk, d]; causal queries at the last Sq key positions."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bn = 128 if d == 64 else 64
+    rep = h // k.shape[2]
+    qf = q.to(torch.bfloat16).to(torch.float32)
+    kf = _repeat_kv(k.to(torch.bfloat16).to(torch.float32), rep)
+    vf = _repeat_kv(v.to(torch.bfloat16).to(torch.float32), rep)
+    scale = _scale_log2(d).to(q.device)
+    off = sk - sq
+    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, 64):
+        q1 = min(q0 + 64, sq)
+        qpos = torch.arange(q0, q1, device=q.device) + off
+        k_end = min(sk, q1 + off) if causal else sk
+        m = torch.full((b, h, q1 - q0), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, q1 - q0, d), device=q.device)
+        for k0 in range(0, k_end, bn):
+            k1 = min(k0 + bn, sk)
+            x = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            if causal:
+                kpos = torch.arange(k0, k1, device=q.device)
+                x = torch.where((kpos[None, :] <= qpos[:, None])[None, None],
+                                x, NEG_INF)
+            # every row sees key 0 in its first tile: m is finite from then
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            pb = p.to(torch.bfloat16).to(torch.float32)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", pb, vf[:, k0:k1])
+            m = m_new
+        out[:, q0:q1] = (acc / l[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
 def _length_bias(length: torch.Tensor, s: int) -> torch.Tensor:
     mask = torch.arange(s, device=length.device)[None, :] < length[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=length.device)
@@ -220,6 +289,82 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         q, gather(k_pool), gather(v_pool), length,
         k_scale=None if k_scale is None else gather(k_scale),
         v_scale=None if v_scale is None else gather(v_scale))
+
+
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, length: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None,
+                               n_split: int = 1,
+                               split_len: Optional[int] = None
+                               ) -> torch.Tensor:
+    """The split-KV decode kernels' arithmetic
+    (``csrc/decode_attention_body.cuh``): the length clamped to [0, S];
+    q pre-scaled by the f32 scale in log2 units; int8 keys' dot products
+    times their scale, values dequantized; split s (keys [s * split_len,
+    (s + 1) * split_len) of the clamped length, default one split of S)
+    reduced to its normalized partial and log2-sum-exp, an empty split to
+    0 and -1e30; the splits merged with an empty one weighing exactly 0, so
+    a length-0 row is exactly 0. Shapes as :func:`decode_attention_ref`."""
+    b, h, d = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    split_len = split_len or s
+    if n_split * split_len < s:
+        raise ValueError(f"{n_split} splits of {split_len} keys do not cover "
+                         f"S = {s}")
+    rep = h // hk
+    qs = q.to(torch.float32) * _scale_log2(d).to(q.device)
+    kf = _repeat_kv(k_cache.to(torch.float32), rep)
+    vf = _repeat_kv(v_cache.to(torch.float32), rep)
+    x = torch.einsum("bhd,bshd->bhs", qs, kf)
+    if k_scale is not None:
+        x = x * _repeat_kv(k_scale, rep)[..., 0].permute(0, 2, 1)
+    if v_scale is not None:
+        vf = vf * _repeat_kv(v_scale, rep)
+    n = torch.clamp(length.to(torch.int64), 0, s)[:, None]      # [B, 1]
+    pos = torch.arange(s, device=q.device)[None, :]
+    parts = []
+    for sp in range(n_split):
+        valid = (pos >= sp * split_len) & (pos < torch.minimum(
+            n, torch.full_like(n, (sp + 1) * split_len)))       # [B, S]
+        xs = torch.where(valid[:, None], x, NEG_INF)
+        m = xs.amax(-1)
+        p = torch.where(valid[:, None], torch.exp2(xs - m[..., None]),
+                        torch.zeros((), device=q.device))
+        l = p.sum(-1)
+        o = torch.einsum("bhs,bshd->bhd", p, vf) / torch.clamp(
+            l, min=1e-30)[..., None]
+        lse = torch.where(l > 0, m + torch.log2(torch.clamp(l, min=1e-30)),
+                          NEG_INF)
+        parts.append((o, lse))
+    out = parts[0][0] if n_split == 1 else _merge_splits(parts)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     length: torch.Tensor,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None,
+                                     n_split: int = 1,
+                                     split_len: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """:func:`decode_attention_split_ref` through a block-paged pool: each
+    row's logical sequence gathered through its table, entries clamped
+    into [0, NB - 1] as the kernel clamps them. Shapes as
+    :func:`paged_decode_attention_ref`."""
+    b, mb = block_tables.shape
+    bs = k_pool.shape[1]
+    idx = torch.clamp(block_tables.long(), 0, k_pool.shape[0] - 1)
+
+    def gather(pool):
+        return pool[idx].reshape(b, mb * bs, *pool.shape[2:])
+
+    return decode_attention_split_ref(
+        q, gather(k_pool), gather(v_pool), length,
+        None if k_scale is None else gather(k_scale),
+        None if v_scale is None else gather(v_scale), n_split, split_len)
 
 
 def prefix_attention_ref(q: torch.Tensor, k_prefix: torch.Tensor,

@@ -8,6 +8,11 @@ card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: float32 kernels agree with the plain versions to 1e-5
 relative to the output scale (other summation orders); bfloat16 outputs
 to 1e-2 of the scale (one bfloat16 rounding of the result, 2^-8). The
+redesigned attention kernels are also held to their emulations
+(``ref.flash_attention_tc_ref``, ``ref.decode_attention_split_ref``):
+within 2^-8 of the scale for a bf16 output (its one rounding), 1e-5 for
+f32. Flash takes its tensor-core kernel for bf16 (``tensor_core_path``)
+and is tested on both paths; decode lengths sit at split boundaries. The
 quantized matmuls take their tensor-core kernel where
 ``tensor_core_path`` says so (bf16, affine, M >= TC_MIN_M) and their SIMT
 kernel elsewhere; the M values cross that threshold, K = 200 is ragged
@@ -31,7 +36,13 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.axllm_matmul import (axllm_matmul_cuda,
                                               tensor_core_path)
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import \
+    split_plan as decode_split_plan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import launch as \
+    flash_attention_launch
+from repro_torch.kernels.flash_attention import \
+    tensor_core_path as flash_attention_tensor_core_path
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_cuda
 from repro_torch.kernels.quantize import quantize_cuda
@@ -188,18 +199,157 @@ def test_decode_attention_kernel(card, quant, dtype):
     assert _rel_err(out, want) < _tol(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,path", [
+    (torch.float32, "simt"), (torch.bfloat16, "simt"),
+    (torch.bfloat16, "wgmma")], ids=["f32-simt", "bf16-simt", "bf16-wgmma"])
 @pytest.mark.parametrize("sq,sk,causal", [(128, 128, True), (70, 70, True),
                                           (50, 190, True), (50, 190, False)])
-def test_flash_attention_kernel(card, sq, sk, causal, dtype):
+def test_flash_attention_kernel(card, sq, sk, causal, dtype, path):
     g = torch.Generator(device=card).manual_seed(sq)
     q = torch.randn(2, sq, 12, 64, generator=g, device=card).to(dtype)
     k = torch.randn(2, sk, 4, 64, generator=g, device=card).to(dtype)
     v = torch.randn(2, sk, 4, 64, generator=g, device=card).to(dtype)
-    out = flash_attention_cuda(q, k, v, causal)
+    before = dict(_build.LAUNCHES)
+    out = flash_attention_launch(q, k, v, causal, path == "wgmma")
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention.wgmma"] == before.get(
+        "flash_attention.wgmma", 0) + (path == "wgmma")
     want = ref.attention_ref(q, k, v, causal)
     assert _rel_err(out, want) < _tol(dtype)
+    if dtype == torch.bfloat16:     # the wrapper's own choice
+        assert flash_attention_tensor_core_path(q)
+        assert torch.equal(flash_attention_cuda(q, k, v, causal),
+                           flash_attention_launch(q, k, v, causal, True))
+    if path == "wgmma":             # its arithmetic, to one output rounding
+        emu = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                         causal)
+        assert _rel_err(out, emu) < 2.0 ** -8
+
+
+@pytest.mark.parametrize("b,sq,sk,d,causal", [
+    (8, 512, 512, 64, True), (2, 256, 1024, 64, True),
+    (2, 256, 1024, 64, False), (2, 256, 1024, 128, True),
+    (1, 130, 300, 128, False), (3, 1, 9, 64, True),
+    (1, 256, 4096, 64, False), (1, 64, 5000, 128, True),
+    (1, 100, 3000, 64, True)])
+def test_flash_attention_tensor_core_kernel(card, b, sq, sk, d, causal):
+    """The tensor-core kernel at the serving wave's shape, at Sq < Sk, at
+    long key ranges (ragged ones too), at d = 128 and at a single query;
+    held against its emulation to one bf16 rounding of the output, and
+    against the plain version at the bf16 tolerance."""
+    g = torch.Generator(device=card).manual_seed(sk + d)
+    q = torch.randn(b, sq, 12, d, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(b, sk, 4, d, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(b, sk, 4, d, generator=g, device=card).to(torch.bfloat16)
+    out = flash_attention_launch(q, k, v, causal, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    emu = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(), causal)
+    assert _rel_err(out, emu) < 2.0 ** -8
+    assert _rel_err(out, ref.attention_ref(q, k, v, causal)) < _tol(
+        torch.bfloat16)
+    assert torch.equal(out, flash_attention_launch(q, k, v, causal, True))
+
+
+def test_flash_attention_misaligned_bf16_raises(card):
+    """bf16 at d = 64 takes the tensor-core kernel whatever its address:
+    a base that TMA cannot read (not 16-byte aligned) raises from the
+    launch and falls back to nothing."""
+    n = 1 * 64 * 4 * 64
+    buf = torch.randn(n + 1, device=card).to(torch.bfloat16)
+    q = buf[1:].view(1, 64, 4, 64)                 # 2 bytes past a base
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = _build.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError):
+        flash_attention_cuda(q, q, q, True)
+    assert _build.LAUNCHES["flash_attention"] == before
+
+
+def _decode_split_case(card, quant, dtype, b, s, h, hk, d, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=card).to(dtype)
+    if quant:
+        kc = torch.randint(-127, 128, (b, s, hk, d), generator=g,
+                           device=card, dtype=torch.int8)
+        vc = torch.randint(-127, 128, (b, s, hk, d), generator=g,
+                           device=card, dtype=torch.int8)
+        ks = torch.rand(b, s, hk, 1, generator=g, device=card) * 0.02
+        vs = torch.rand(b, s, hk, 1, generator=g, device=card) * 0.02
+        return q, kc, vc, ks, vs
+    kc = torch.randn(b, s, hk, d, generator=g, device=card).to(dtype)
+    vc = torch.randn(b, s, hk, d, generator=g, device=card).to(dtype)
+    return q, kc, vc, None, None
+
+
+def _emu_tol(dtype):
+    # f32: another order of f32 additions; bf16: one rounding of the output
+    return 1e-5 if dtype == torch.float32 else 2.0 ** -8
+
+
+# (H, Hk, d) of the body's instantiations: the serving shape (4 query heads
+# per KV head in registers), 8 per KV head at d = 32, and d = 128 with 8
+HEADS = [(12, 4, 64), (16, 2, 32), (8, 1, 128)]
+
+
+@pytest.mark.parametrize("heads", HEADS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8kv"])
+def test_decode_attention_split_kernel(card, quant, dtype, heads):
+    """One decode step at the serving shape and the other head layouts:
+    lengths 0, 1, each side of a split boundary, the whole cache and past
+    it; held against the split emulation and the plain version. The
+    counters are left at 0, so a second launch gives the same bits."""
+    (h, hk, d), b, s = heads, 9, 1024
+    q, kc, vc, ks, vs = _decode_split_case(card, quant, dtype, b, s, h, hk, d,
+                                           3)
+    n_split, split_len = decode_split_plan(s, b * hk, _build.sm_count(card))
+    assert n_split > 1
+    length = torch.tensor([0, 1, split_len - 1, split_len, split_len + 1,
+                           3 * split_len, 700, s, s + 9], dtype=torch.int32,
+                          device=card)
+    out = decode_attention_cuda(q, kc, vc, length, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]) == 0
+    emu = ref.decode_attention_split_ref(q, kc, vc, length, ks, vs, n_split,
+                                         split_len)
+    assert _rel_err(out, emu) < _emu_tol(dtype)
+    assert _rel_err(out, ref.decode_attention_ref(q, kc, vc, length, ks,
+                                                  vs)) < _tol(dtype)
+    assert torch.equal(out, decode_attention_cuda(q, kc, vc, length, ks, vs))
+
+
+@pytest.mark.parametrize("heads", HEADS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8kv"])
+def test_paged_decode_attention_split_kernel(card, quant, dtype, heads):
+    """The paged body at the serving shape (16-key blocks, 64 a row,
+    shuffled and shared) and the other head layouts, lengths at split
+    boundaries, 0 and past the table; a table entry out of the pool is
+    clamped into it."""
+    (h, hk, d), b, bs, mb = heads, 8, 16, 64
+    nb = 2 * b * mb + 2
+    g = torch.Generator(device=card).manual_seed(5)
+    q, kp, vp, ks, vs = _decode_split_case(card, quant, dtype, nb, bs, h, hk,
+                                           d, 6)
+    q = q[:b].contiguous()
+    bt = (1 + torch.randperm(nb - 1, generator=g, device=card)[:b * mb])
+    bt = bt.reshape(b, mb).to(torch.int32)
+    bt[1:, :16] = bt[0, :16]                  # a shared 256-token prefix
+    n_split, split_len = decode_split_plan(mb * bs, b * hk,
+                                           _build.sm_count(card), bs)
+    length = torch.tensor([0, split_len - 1, split_len, split_len + 1, 511,
+                           1000, mb * bs, mb * bs + 300], dtype=torch.int32,
+                          device=card)
+    bt[2, 1] = nb + 7                         # clamped to NB - 1
+    out = paged_decode_attention_cuda(q, kp, vp, bt, length, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]) == 0
+    emu = ref.paged_decode_attention_split_ref(q, kp, vp, bt, length, ks, vs,
+                                               n_split, split_len)
+    assert _rel_err(out, emu) < _emu_tol(dtype)
+    clamped = torch.clamp(bt, 0, nb - 1)
+    assert _rel_err(out, ref.paged_decode_attention_ref(
+        q, kp, vp, clamped, length, ks, vs)) < _tol(dtype)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
