@@ -13,14 +13,20 @@ first launch in the process (module loading, first-call set-up), then
 as ``dense`` with every kernel warm. Each
 prints its runs' prefill wall time (``EngineStats.prefill_wall_s``),
 tokens per second, the profiled 4 decode chunks' wall time, device-busy
-time, idle share and decode attention device time, and, where the
+time, idle share, decode attention device time and the quantized
+matmuls' decode device time (their kernels and, where a checkout has
+one, the split-sum kernel), and, where the
 checkout's ``chip_smoke`` profiles it (``prefill_profile``), the first
 prefill wave's device-busy and flash attention time. Then the host time
 of one wrapper call, in microseconds: ``flash_attention_cuda`` at the
 prefill wave (B8 Sq=Sk=512 H12 Hk4 d64 bf16 causal) and
-``decode_attention_cuda`` at a decode step (B8 S1024, bf16 KV), each
-the median of 5 rounds of 200 calls enqueued behind a device spin, so
-that the host never waits for the card. The last lines are the
+``decode_attention_cuda`` at a decode step (B8 S1024, bf16 KV), and
+``axllm_matmul_cuda`` and ``reuse_matmul_cuda`` at a decode projection
+(M8 K768 N2048 int8, bf16 out), each the median of 5 rounds of 200
+calls enqueued behind a device spin, so that the host never waits for
+the card. Then the device time of both quantized matmuls at each decode
+projection (``kernels``: M8, int8, bf16 out, L2 flushed before each
+launch, as ``chip_smoke.time_ms`` times a kernel). The last lines are the
 per-checkout medians (of two runs each: their mean). Host clocks vary
 from call to call, so compare the two checkouts only within one call.
 Exits 1 without a GPU.
@@ -35,7 +41,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-RUNS = ("dense-cold", "dense", "reuse+paged", "lora+reuse+fused", "host")
+RUNS = ("dense-cold", "dense", "reuse+paged", "lora+reuse+fused", "host",
+        "kernels")
 
 WORKER = r'''
 import json, statistics, sys, time
@@ -43,8 +50,11 @@ sys.path.insert(0, "src"); sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import _build
+from repro_torch.core.quantization import QuantConfig, quantize
+from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build()
@@ -64,7 +74,11 @@ for name, fn in (("dense-cold", cs.end_to_end), ("dense", cs.end_to_end),
                      idle_share=dp["idle_share"],
                      decode_attention_ms=sum(
                          ms for k, ms in dp["top"]
-                         if "decode_attention" in k or "paged_decode" in k))
+                         if "decode_attention" in k or "paged_decode" in k),
+                     decode_matmul_ms=sum(
+                         ms for k, ms in dp["top"]
+                         if "matmul" in k or "gemv" in k
+                         or "sum_splits" in k))
     if "prefill_profile" in r:
         out[name].update(prefill_wave_busy_ms=r["prefill_profile"]["busy_ms"],
                          prefill_wave_flash_ms=r["prefill_profile"]
@@ -93,9 +107,28 @@ qd = torch.randn(8, 12, 64, generator=g, device=dev).to(bf16)
 kc = torch.randn(8, 1024, 4, 64, generator=g, device=dev).to(bf16)
 length = torch.tensor([0, 64, 200, 511, 700, 1000, 1024, 1324],
                       dtype=torch.int32, device=dev)
+xm = torch.randn(8, 768, generator=g, device=dev).to(bf16)
+qt = quantize(torch.randn(768, 2048, generator=g, device=dev) * 0.03,
+              QuantConfig(8))
 out["host"] = dict(
     flash_call_us=host_us(lambda: flash_attention_cuda(q, k, k, True)),
-    decode_call_us=host_us(lambda: decode_attention_cuda(qd, kc, kc, length)))
+    decode_call_us=host_us(lambda: decode_attention_cuda(qd, kc, kc, length)),
+    axllm_call_us=host_us(lambda: axllm_matmul_cuda(xm, qt, bf16)),
+    reuse_call_us=host_us(lambda: reuse_matmul_cuda(xm, qt, False, bf16)))
+
+# the quantized matmuls' device time at each decode projection (M8, int8,
+# bf16 out), as chip_smoke times a kernel (L2 flushed before each launch)
+flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+out["kernels"] = {}
+for kk, nn in ((768, 2048), (768, 768), (768, 256), (2048, 768),
+               (768, 1280), (768, 4096)):
+    w = quantize(torch.randn(kk, nn, generator=g, device=dev) * kk ** -0.5,
+                 QuantConfig(8))
+    xk = torch.randn(8, kk, generator=g, device=dev).to(bf16)
+    out["kernels"][f"axllm_K{kk}_N{nn}_ms"] = cs.time_ms(
+        lambda: axllm_matmul_cuda(xk, w, bf16), flush)
+    out["kernels"][f"reuse_K{kk}_N{nn}_ms"] = cs.time_ms(
+        lambda: reuse_matmul_cuda(xk, w, False, bf16), flush)
 print("AB " + json.dumps(out), flush=True)
 '''
 

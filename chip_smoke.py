@@ -14,7 +14,10 @@ NVIDIA GPU.
    card at the shapes of full-width repro-100m serving (the quantized
    matmuls also at the fused widths N1280 = wqkv and N4096 = gate_up, and
    at M4096 also per-group and packed int4, each case printing whether it
-   took the tensor-core or the SIMT path),
+   took the tensor-core, the split-K decode or the tile kernel; a decode
+   case also against its split emulation ``ref.quant_gemv_split_ref``, a
+   second launch and its bf16 output, with the tile kernel's time beside
+   it),
    flash attention at the prefill wave, at Sq256 Sk1024 causal and full
    and at the wave with head dim 128, through its wrapper (the
    tensor-core kernel, also held against its emulation
@@ -28,9 +31,10 @@ NVIDIA GPU.
    kernel's codes and scales must equal its plain version's, at five
    shapes, bf16 and f32, 8 and 4 bits, and then in a deploy pass through
    ``ops.quantize_channels`` over every projection leaf of full-width
-   repro-100m (84 matrices, one launch per stacked leaf), its path. Both
-   paths of both quantized matmuls are timed from M16 to M4096 at N256
-   and N2048, where ``TC_MIN_M`` picks the tensor-core one.
+   repro-100m (84 matrices, one launch per stacked leaf), its path. The
+   kernels of both quantized matmuls are timed from M1 to M4096 at N256
+   and N2048 (the decode kernels up to M16, the tensor-core ones from
+   M16), where ``TC_MIN_M`` and ``GEMV_MAX_M`` pick the path.
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -53,8 +57,12 @@ NVIDIA GPU.
       flash_attention.
    Each requires its matmul's and flash attention's tensor-core paths
    (``<kernel>.wgmma``) to have launched in its prefill waves (every
-   flash launch on the tensor cores), holds its first wave's logits
-   against the plain path, profiles 4
+   flash launch on the tensor cores) and its matmul's decode kernel
+   (``<kernel>.gemv``) in its decode steps (every matmul launch one of
+   the two), holds its first wave's logits against the plain path, holds
+   every generated token to the token gate (``serve/token_gate.py``: the
+   plain path's teacher-forced logit of the token within 2 x the logits
+   tolerance of the plain maximum, at every position), profiles 4
    decode chunks for the device's idle share and its first wave's
    prefill for its device time (flash attention's share), serves the same
    requests through the plain path for greedy-token agreement. Run b also
@@ -90,7 +98,8 @@ SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
 LORA_B_STD = 0.01       # run c: B ~ N(0, 0.01^2), A ~ N(0, 1/r)
 FUSED = ((768, 1280), (768, 4096))    # K x N of wqkv and gate_up
-THRESHOLD_M = (16, 32, 48, 64, 96, 128, 256)   # both paths timed at each
+THRESHOLD_M = (1, 8, 16, 32, 48, 64, 96, 128, 256)  # paths timed at each
+GEMV_M = (1, 8, 16)     # where the decode kernels are timed as well
 # flash kernel phase: (B, Sq, Sk, causal, head dim)
 FLASH_CASES = ((N_SLOTS, 512, 512, True, 64), (2, 256, 1024, True, 64),
                (2, 256, 1024, False, 64), (N_SLOTS, 512, 512, True, 128))
@@ -161,9 +170,37 @@ def nbytes(*tensors) -> int:
 
 
 def path_of(m, x, qt) -> str:
-    """The kernel a quantized-matmul call of this shape and type takes."""
-    from repro_torch.kernels.axllm_matmul import tensor_core_path
-    return "wgmma" if tensor_core_path(m, x.dtype, qt) else "simt"
+    """The kernel a quantized-matmul call of this shape and type takes:
+    "wgmma", "gemv" (the split-K decode kernel) or "tile"."""
+    from repro_torch.kernels.axllm_matmul import matmul_path
+    return matmul_path(m, x.dtype, qt, x.data_ptr() % 16 == 0)
+
+
+def gemv_checks(name, x, qt, got, call, reuse) -> dict:
+    """A split-K decode kernel's result ``got`` (f32) of ``call(dtype)``
+    against its split emulation (within 1e-5 of the output scale), a
+    second launch (the same bits) and its bf16 output (the f32 output
+    rounded to nearest even)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.axllm_matmul import gemv_buffers
+    plan = gemv_buffers(x, qt, torch.cuda.current_stream(x.device)
+                        .cuda_stream, reuse)[0]
+    emu = ref.quant_gemv_split_ref(x, qt, plan, reuse)
+    err = float((got - emu).abs().max())
+    tol = 1e-5 * max(1.0, float(emu.abs().max()))
+    same = torch.equal(call(torch.float32), got)
+    rne = torch.equal(call(torch.bfloat16), got.to(torch.bfloat16))
+    print(f"kernel {name} [gemv] M{x.shape[0]} K{qt.shape[0]} "
+          f"N{qt.shape[1]}: err vs its split emulation {err:.3e} (tol "
+          f"{tol:.3e}); {plan.blocks} blocks ({plan.n_tiles} column x "
+          f"{plan.m_tiles} M x {plan.splits} K splits of "
+          f"{plan.k_per_split}); second launch identical {same}; bf16 out "
+          f"= f32 out rounded {rne}", flush=True)
+    check(err <= tol, f"{name} differs from its split emulation by {err}")
+    check(same, f"{name}: a second launch gave other bits")
+    check(rne, f"{name}: bf16 output is not the f32 output rounded")
+    return dict(emulation_err=err, blocks=plan.blocks, splits=plan.splits)
 
 
 def split_err(got, emu, name) -> float:
@@ -199,6 +236,7 @@ def kernel_phase(dev, flush):
         quantize
     from repro_torch.kernels import ref
     from repro_torch.kernels import _build
+    from repro_torch.kernels import axllm_matmul
     from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
     from repro_torch.kernels.decode_attention import decode_attention_cuda, \
         split_plan
@@ -235,9 +273,18 @@ def kernel_phase(dev, flush):
         lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
         nb = nbytes(x, qt.codes, qt.kernel_scale, got)
         shape = f"M{m} K{k} N{n} {qc.bits}b-{qc.mode}-{qc.granularity}"
-        rows.append(case_row("axllm_matmul", shape, err, tol, ms, plain, lib,
-                             nb, 2.0 * m * k * n, "bfloat16",
-                             path_of(m, x, qt)))
+        path = path_of(m, x, qt)
+        row = case_row("axllm_matmul", shape, err, tol, ms, plain, lib, nb,
+                       2.0 * m * k * n, "bfloat16", path)
+        if path == "gemv":   # beside it: its checks and the tile kernel
+            row.update(gemv_checks(
+                "axllm_matmul", x, qt, got,
+                lambda dt: axllm_matmul_cuda(x, qt, dt), False))
+            row["tile_ms"] = time_ms(lambda: axllm_matmul.launch(
+                x, qt, torch.float32, "tile"), flush)
+            print(f"kernel axllm_matmul [tile] {shape}: {row['tile_ms']:.4f}"
+                  " ms", flush=True)
+        rows.append(row)
 
     # -- decode_attention: one decode step of the 8 slots, S = max_len
     b, s, h, hk, d = N_SLOTS, MAX_LEN, 12, 4, 64
@@ -346,6 +393,7 @@ def reuse_paged_kernel_phase(dev, flush):
     from repro_torch.kernels import ref
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels import reuse_matmul
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_cuda
     from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
@@ -385,8 +433,17 @@ def reuse_paged_kernel_phase(dev, flush):
         plain = time_ms(lambda: ref.reuse_matmul_ref(x, qt), flush)
         lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
         nb = nbytes(x, qt.codes, qt.kernel_scale, got)
+        path = path_of(m, x, qt)
         row = case_row("reuse_matmul", shape, err, tol, ms, plain, lib, nb,
-                       2.0 * m * k * n, "bfloat16", path_of(m, x, qt))
+                       2.0 * m * k * n, "bfloat16", path)
+        if path == "gemv":   # beside it: its checks and the tile kernel
+            row.update(gemv_checks(
+                "reuse_matmul", x, qt, got,
+                lambda dt: reuse_matmul_cuda(x, qt, out_dtype=dt)[0], True))
+            row["tile_ms"] = time_ms(lambda: reuse_matmul.launch(
+                x, qt, False, torch.float32, "tile"), flush)
+            print(f"kernel reuse_matmul [tile] {shape}: {row['tile_ms']:.4f}"
+                  " ms", flush=True)
         rows.append(dict(row, mults=int(mults), reuse_rate=rate))
 
     # one decode step of the 8 slots: tables shuffled over the pool, rows
@@ -451,11 +508,12 @@ def reuse_paged_kernel_phase(dev, flush):
 
 def tensor_core_phase(dev, flush):
     """Where the tensor-core path of the two quantized matmuls overtakes
-    their skinny kernels: both paths of both kernels at K768 N256 and N2048
-    (bf16, int8 per-channel) for each M of ``THRESHOLD_M`` and M4096, each
-    held against its plain version; and the bf16 output that the serving
-    path asks for at M4096 N2048 (written by the kernel, no separate
-    cast)."""
+    their skinny kernels: the tensor-core and tile kernels of both at K768
+    N256 and N2048 (bf16, int8 per-channel) for each M of ``THRESHOLD_M``
+    and M4096, and the split-K decode kernels at each M of ``GEMV_M``,
+    each held against its plain version; and the bf16 output that the
+    serving path asks for at M4096 N2048 (written by the kernel, no
+    separate cast)."""
     import torch
     from repro_torch.core.quantization import QuantConfig, quantize
     from repro_torch.kernels import axllm_matmul, ref, reuse_matmul
@@ -472,28 +530,37 @@ def tensor_core_phase(dev, flush):
             want = ref.axllm_matmul_ref(x, qt)
             tol = 1e-5 * max(1.0, float(want.abs().max()))
             row = dict(m=m, k=k, n=n)
-            for name, fn in (
+            calls = [
+                ("axllm_simt",
+                 lambda: axllm_matmul.launch(x, qt, f32, "tile")),
+                ("reuse_table", lambda: reuse_matmul.launch(
+                    x, qt, False, f32, "tile")[0])]
+            if m >= 16:
+                calls += [
                     ("axllm_wgmma",
-                     lambda: axllm_matmul.launch(x, qt, f32, True)),
-                    ("axllm_simt",
-                     lambda: axllm_matmul.launch(x, qt, f32, False)),
+                     lambda: axllm_matmul.launch(x, qt, f32, "wgmma")),
                     ("reuse_wgmma", lambda: reuse_matmul.launch(
-                        x, qt, False, f32, True)[0]),
-                    ("reuse_table", lambda: reuse_matmul.launch(
-                        x, qt, False, f32, False)[0])):
+                        x, qt, False, f32, "wgmma")[0])]
+            if m in GEMV_M:
+                calls += [
+                    ("axllm_gemv",
+                     lambda: axllm_matmul.launch(x, qt, f32, "gemv")),
+                    ("reuse_gemv", lambda: reuse_matmul.launch(
+                        x, qt, False, f32, "gemv")[0])]
+            for name, fn in calls:
                 err = float((fn() - want).abs().max())
                 check(err <= tol, f"{name} M{m} N{n}: error {err} > {tol}")
                 row[name] = time_ms(fn, flush)
             if m == 4096 and n == 2048:   # the serving path's bf16 output
-                got = axllm_matmul.launch(x, qt, bf16, True)
-                check(torch.equal(got, axllm_matmul.launch(x, qt, f32, True)
-                                  .to(bf16)), "bf16 output is not the f32 "
-                                              "output rounded to nearest even")
+                got = axllm_matmul.launch(x, qt, bf16, "wgmma")
+                check(torch.equal(got, axllm_matmul.launch(
+                    x, qt, f32, "wgmma").to(bf16)), "bf16 output is not the "
+                    "f32 output rounded to nearest even")
                 row["axllm_wgmma_bf16_out"] = time_ms(
-                    lambda: axllm_matmul.launch(x, qt, bf16, True), flush)
+                    lambda: axllm_matmul.launch(x, qt, bf16, "wgmma"), flush)
                 row["reuse_wgmma_bf16_out"] = time_ms(
-                    lambda: reuse_matmul.launch(x, qt, False, bf16, True)[0],
-                    flush)
+                    lambda: reuse_matmul.launch(x, qt, False, bf16,
+                                                "wgmma")[0], flush)
             print(f"tensor-core path vs skinny kernels, M{m} K{k} N{n} int8: "
                   + ", ".join(f"{key} {v:.4f} ms" for key, v in row.items()
                               if key not in ("m", "k", "n")), flush=True)
@@ -671,6 +738,7 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine, _pow2_bucket
+    from repro_torch.serve.token_gate import token_gate
 
     cfg = CONFIG
     params = get_model(cfg).init(seed=0, device=dev)
@@ -713,6 +781,14 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     for name in kernels:
         check(launches.get(name, 0) > 0, f"{label}: {name} never launched "
                                          "on the main path")
+    # every quantized-matmul launch took the tensor cores (prefill) or the
+    # split-K decode kernel (decode): none the tile kernel
+    for lib in ("axllm_matmul", "reuse_matmul"):
+        check(launches.get(lib, 0) == launches.get(f"{lib}.wgmma", 0)
+              + launches.get(f"{lib}.gemv", 0), f"{label}: {lib} launches "
+              f"{launches.get(lib, 0)} are not wgmma "
+              f"{launches.get(f'{lib}.wgmma', 0)} + gemv "
+              f"{launches.get(f'{lib}.gemv', 0)}")
     # bf16 prefill: every flash launch takes the tensor cores, 12 (one a
     # layer) per wave that runs flash attention
     check(launches.get("flash_attention.wgmma") ==
@@ -730,6 +806,20 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
           f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag}: launches {launches}", flush=True)
 
+    # the token gate: each request's tokens, teacher-forced through the
+    # plain path on the kernel path's own prefix
+    gate = token_gate(cfg, eng.params, prompts,
+                      [done[i].tokens for i in range(len(prompts))],
+                      impl=plain_impl, tol_rel=LOGIT_TOL, device=dev,
+                      registry=registry, names=names)
+    print(f"{tag}: token gate: {gate.positions} generated positions checked "
+          f"against the plain path's teacher-forced logits; {gate.differ} "
+          f"where the token is not the plain path's argmax; smallest slack "
+          f"{gate.min_slack:.4e} (request {gate.worst[0]}, position "
+          f"{gate.worst[1]}); {len(gate.failures)} positions more than "
+          f"2 x tol below the plain maximum", flush=True)
+    check(gate.ok, f"{label}: token gate failed at (request, position, "
+                   f"slack) {gate.failures[:5]}")
     def dense_logits(which, wave, wave_names=None):
         """First-token logits of a plain dense prefill of ``wave``, row i
         with adapter ``wave_names[i]`` (all base when None)."""
@@ -854,6 +944,9 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                 prefix_hit_tokens=st.prefix_hit_tokens,
                 blocks_in_use=st.blocks_in_use, peak_bytes=peak,
                 launches=launches, logit_err=logit_err, logit_scale=scale,
+                gate=dict(positions=gate.positions, differ=gate.differ,
+                          min_slack=gate.min_slack,
+                          failures=len(gate.failures)),
                 first_wave_argmax_agree=argmax_agree, **hit,
                 requests_identical=same, position_agree=float(agree),
                 decode_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
@@ -870,7 +963,8 @@ def end_to_end(dev, card):
                             size=PROMPT_LENS[i % len(PROMPT_LENS)])
                .astype(np.int32) for i in range(N_REQUESTS)]
     return serve_run(dev, card, "dense", prompts, (
-        "axllm_matmul", "axllm_matmul.wgmma", "decode_attention",
+        "axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
+        "decode_attention",
         "flash_attention", "flash_attention.wgmma"))[0]
 
 
@@ -920,7 +1014,8 @@ def end_to_end_reuse_paged(dev, card):
         0, vocab, size=TAIL_LENS[i % len(TAIL_LENS)]).astype(np.int32)])
         for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "reuse+paged", prompts, (
-        "reuse_matmul", "reuse_matmul.wgmma", "paged_decode_attention",
+        "reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
+        "paged_decode_attention",
         "flash_attention", "flash_attention.wgmma"),
         impl="reuse", paged=True, kv_block_size=KV_BLOCK)
     check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
@@ -959,7 +1054,8 @@ def end_to_end_lora(dev, card):
     cycle = (None,) + ADAPTERS
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "lora+reuse+fused", prompts, (
-        "reuse_matmul", "reuse_matmul.wgmma", "decode_attention",
+        "reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
+        "decode_attention",
         "flash_attention", "flash_attention.wgmma"), names=names,
         registry=registry, impl="reuse", fuse_qkv=True)
     check(e2e["lora_requests"] == sum(n is not None for n in names),
@@ -990,7 +1086,8 @@ KERNELS = {
                  "deploy"),
 }
 # the path of each kernel's main row: the one its serving path takes
-MAIN_PATH = {"flash_attention": "wgmma"}
+MAIN_PATH = {"flash_attention": "wgmma", "axllm_matmul": "gemv",
+             "reuse_matmul": "gemv"}
 ROW_KEYS = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
 
@@ -1052,6 +1149,17 @@ def main() -> int:
             **{key: row[key] for key in ROW_KEYS},
             shape=main_shape, launches_from=run))
         if name in ("axllm_matmul", "reuse_matmul"):
+            # the main row is the decode kernel; beside it the tile kernel
+            # at the same shape (for axllm_matmul the path the row took
+            # before it; reuse_matmul's took a split-K table kernel that
+            # the decode kernel replaced: chip_ab.py times it)
+            kernels[-1].update(
+                path="gemv", skeleton="src/repro_torch/csrc/quant_gemv.cuh",
+                gemv_launches=e2e[run]["launches"][f"{name}.gemv"],
+                tile_ms=row["tile_ms"], emulation_err=row["emulation_err"],
+                blocks=row["blocks"])
+            if name == "axllm_matmul":   # its tile kernel is the old path
+                kernels[-1]["was"] = dict(path="simt", ms=row["tile_ms"])
             # the prefill path: the library's tensor-core entry point
             tc = next(r for r in rows if r["kernel"] == name
                       and r["shape"] == PREFILL_SHAPE)

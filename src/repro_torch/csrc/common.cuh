@@ -1,5 +1,6 @@
-// Shared helpers of the port's CUDA kernels: element loads as f32 and
-// stores from f32 (round to nearest even, as torch's .to(bfloat16)).
+// Shared helpers of the port's CUDA kernels: element loads as f32,
+// stores from f32 (round to nearest even, as torch's .to(bfloat16)) and
+// asynchronous global -> shared copies (cp.async).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +29,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // the shared-memory address of a generic pointer into shared memory
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros if !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Masked-score sentinel shared with the plain versions (kernels/ref.py).

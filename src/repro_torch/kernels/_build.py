@@ -9,7 +9,8 @@ flags, so an edited source is rebuilt and a stale build is never loaded.
 
 A library may hold more than one entry point: ``<library>.<path>`` names
 a second one (``axllm_matmul.wgmma``, ``flash_attention.wgmma``: the
-tensor-core paths). Every wrapper
+tensor-core paths; ``axllm_matmul.gemv``, ``reuse_matmul.gemv``: the
+split-K decode kernels). Every wrapper
 adds one to ``LAUNCHES[library]`` where it launches a kernel of that
 library and nowhere else, and one to ``LAUNCHES["<library>.<path>"]``
 when it takes such a second entry point, so a run can show that its main
@@ -41,6 +42,9 @@ SIGNATURES = {
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "axllm_matmul.wgmma": ("axllm_matmul_wgmma_launch",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "axllm_matmul.gemv": ("axllm_matmul_gemv_launch",
+                          [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 8
+                          + [_P]),
     "decode_attention": ("decode_attention_launch",
                          [_P] * 9 + [_I] * 9 + [_F, _P]),
     "flash_attention": ("flash_attention_launch",
@@ -49,11 +53,13 @@ SIGNATURES = {
     "flash_attention.wgmma": ("flash_attention_wgmma_launch",
                               [_P] * 4 + [_I] * 7 + [_F, _P]),
     "reuse_matmul": ("reuse_matmul_launch",
-                     [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _P]),
+                     [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
     "reuse_matmul.wgmma": ("reuse_matmul_wgmma_launch",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P]),
+    "reuse_matmul.gemv": ("reuse_matmul_gemv_launch",
+                          [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11
+                          + [_P]),
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_P] * 10 + [_I] * 11 + [_F, _P]),
     "quantize": ("quantize_launch", [_P, _I, _P, _P, _I, _I, _I, _I, _P]),

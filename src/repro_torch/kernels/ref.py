@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantization import QTensor, decode_codes, dequantize
+from repro_torch.core.quantization import (QTensor, decode_codes,
+                                          dequantize, resolve_codebook)
 
 NEG_INF = -1e30
 
@@ -43,15 +44,7 @@ def reuse_matmul_ref(x: torch.Tensor, qt: QTensor,
     integer regime both associations are exact and bitwise equal;
     elsewhere they differ by normal rounding. x: [M, K]; qt: [K, N].
     """
-    from repro_torch.core.reuse import rc_alphabet
-    levels, fold = rc_alphabet(qt.bits, qt.mode)
-    levels = torch.from_numpy(levels).to(x.device)
-    c = decode_codes(qt).to(torch.int64)
-    if fold:
-        vals = levels[c.abs()]
-        vals = torch.where(c < 0, -vals, vals)
-    else:
-        vals = levels[c + (levels.shape[0] >> 1)]
+    vals = _reuse_values(qt, x.device)
     kdim, n = qt.shape[-2], qt.shape[-1]
     m = x.shape[0]
     scale = _reuse_scale(qt)                          # [G, N]
@@ -86,6 +79,79 @@ def quant_gemm_ref(x: torch.Tensor, qt: QTensor, k_tile: int = 64,
             part = part + xb[:, k0:k1] @ c[k0:k1]
         out = out + part * scale[g]
     return out.to(out_dtype)
+
+
+def quant_gemv_split_ref(x: torch.Tensor, qt: QTensor, plan,
+                         reuse: bool = False,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """The split-K decode kernels' arithmetic (``csrc/quant_gemv.cuh``,
+    ``axllm_matmul.gemv`` with ``reuse=False``, ``reuse_matmul.gemv``
+    with ``reuse=True``) over the K ranges of ``plan``
+    (``axllm_matmul.gemv_plan``): each split's f32 partial sum of
+    ``x * level`` per scale group it holds; a split that holds whole
+    groups adds each group's sum times its scale, one inside a group
+    (``plan.defer``) leaves its sum unscaled; the splits merged in order,
+    a deferred group's splits added first and their total scaled. The
+    level is the code (affine, 1/qmax in the scale) or its codebook entry;
+    the reuse kernel reads it from its product table, the same value.
+    x: [M, K]; qt: [K, N]."""
+    vals = _reuse_values(qt, x.device) if reuse else \
+        _code_levels(qt).to(x.device)
+    scale = qt.kernel_scale.to(x.device)                # [G, N]
+    xf = x.to(torch.float32)
+    g_rows = plan.group_rows
+    parts = []
+    for k0, k1 in plan.k_ranges():
+        acc = None
+        s0 = k0
+        while s0 < k1:
+            s1 = min(k1, (s0 // g_rows + 1) * g_rows)
+            piece = xf[:, s0:s1] @ vals[s0:s1]
+            if plan.defer:
+                acc = piece
+            else:
+                piece = piece * scale[s0 // g_rows]
+                acc = piece if acc is None else acc + piece
+            s0 = s1
+        parts.append(acc)
+    total = torch.zeros_like(parts[0])
+    if not plan.defer:
+        for p in parts:
+            total = total + p
+        return total.to(out_dtype)
+    group = torch.zeros_like(total)
+    for z, (k0, _) in enumerate(plan.k_ranges()):
+        group = group + parts[z]
+        g = k0 // g_rows
+        if z == plan.splits - 1 or \
+                (z + 1) * plan.k_per_split // g_rows != g:
+            total = total + group * scale[g]
+            group = torch.zeros_like(total)
+    return total.to(out_dtype)
+
+
+def _code_levels(qt: QTensor) -> torch.Tensor:
+    """[K, N] f32 level of each code: the code itself (affine) or its
+    codebook entry, unscaled."""
+    c = decode_codes(qt).to(torch.int64)
+    cb = resolve_codebook(qt)
+    if cb is None:
+        return c.to(torch.float32)
+    return cb.to(c.device)[c + (cb.shape[0] >> 1)]
+
+
+def _reuse_values(qt: QTensor, device) -> torch.Tensor:
+    """[K, N] f32 signed product-table value of each code, as the reuse
+    kernels read it: ``sign(c) * levels[|c|]`` for a folded affine
+    alphabet, ``levels[c + L/2]`` for a codebook."""
+    from repro_torch.core.reuse import rc_alphabet
+    levels, fold = rc_alphabet(qt.bits, qt.mode)
+    levels = torch.from_numpy(levels).to(device)
+    c = decode_codes(qt).to(torch.int64).to(device)
+    if fold:
+        vals = levels[c.abs()]
+        return torch.where(c < 0, -vals, vals)
+    return levels[c + (levels.shape[0] >> 1)]
 
 
 def _reuse_scale(qt: QTensor) -> torch.Tensor:

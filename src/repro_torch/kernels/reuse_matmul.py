@@ -7,15 +7,20 @@ Replaces the TPU kernel ``reuse_matmul_pallas``
 :func:`repro_torch.kernels.ref.reuse_mult_count` for the multiply count.
 The kernel builds a product table of every activation with the code
 alphabet (``core.reuse.rc_alphabet``) in shared memory and gathers from it
-once per code. For the prefill calls that
+once per code. :func:`~repro_torch.kernels.axllm_matmul.matmul_path` picks
+the library's kernel before the launch: at decode (M <= 16) the split-K
+table kernel (counted also under ``LAUNCHES["reuse_matmul.gemv"]``; its
+plan, scratch and counters as ``axllm_matmul.gemv_buffers`` keeps them),
+which writes the caller's dtype in one launch; for the prefill calls that
 :func:`~repro_torch.kernels.axllm_matmul.tensor_core_path` accepts (bf16
 activations, an affine alphabet) the library's tensor-core kernel
 (``csrc/quant_gemm_sm90.cuh``, counted also under
 ``LAUNCHES["reuse_matmul.wgmma"]``) runs the same association instead:
 for an affine alphabet ``sign(c) * levels[|c|] == c``, so the group sums of
 ``x * c`` scaled after each sum are the table kernel's, and the multiplies
-run on the tensor cores rather than being skipped. The count stays the
-Result Cache's either way. The source says what bounds each path and what
+run on the tensor cores rather than being skipped; the table kernel over
+all of K takes the rest. The count stays the Result Cache's on every
+path. The source says what bounds each path and what
 its design does about that.
 
 The count depends on the column segment it is taken over. The segment is
@@ -27,7 +32,6 @@ repro-100m projection), so the kernel's count equals the JAX kernel's.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,13 +39,9 @@ import torch
 from repro_torch.core.quantization import QTensor
 from repro_torch.core.reuse import rc_alphabet
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.axllm_matmul import (check_operands, out_buffer,
-                                              tensor_core_path)
-
-BN = 256                 # output columns per block (csrc: kBN)
-BM = 8                   # rows of x per block (csrc: kBM)
-TABLE_PAIRS = 2048       # K rows per chunk x levels (csrc: kTablePairs)
-TARGET_BLOCKS = 264      # two blocks per SM of an H100: K is split to fill
+from repro_torch.kernels.axllm_matmul import (_ptr, check_operands,
+                                              gemv_buffers, matmul_path,
+                                              out_buffer)
 
 
 def segment(n: int) -> int:
@@ -52,19 +52,6 @@ def segment(n: int) -> int:
         if b <= n and n % b == 0:
             return b
     return n
-
-
-def k_splits(m: int, k: int, n: int, n_levels: int) -> int:
-    """Blocks along K: enough to fill the card when M and N give few (one
-    for M = 0, where only the count runs and there is no workspace)."""
-    if m == 0:
-        return 1
-    bk = 32 if n_levels * 32 <= TABLE_PAIRS else (
-        16 if n_levels * 16 <= TABLE_PAIRS else 8)
-    chunks = math.ceil(k / bk)
-    blocks = math.ceil(n / BN) * max(1, math.ceil(m / BM))
-    splits = max(1, min(chunks, math.ceil(TARGET_BLOCKS / blocks)))
-    return math.ceil(chunks / math.ceil(chunks / splits))
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +71,7 @@ def reuse_matmul_cuda(x2: torch.Tensor, qt: QTensor, with_stats: bool = False,
     ``mults`` is the multiply count per activation row (an int32 scalar
     tensor on the card, counted by the kernel) when ``with_stats``, else
     None. A CPU tensor takes the plain versions; a CUDA tensor launches the
-    kernel that ``tensor_core_path`` picks, or raises.
+    kernel that ``matmul_path`` picks, or raises.
     """
     if x2.device.type == "cpu":
         y = ref.reuse_matmul_ref(x2, qt, out_dtype)
@@ -94,39 +81,43 @@ def reuse_matmul_cuda(x2: torch.Tensor, qt: QTensor, with_stats: bool = False,
     if qt.shape[1] % 8:
         raise ValueError(f"the kernel counts over power-of-two segments: N "
                          f"must be a multiple of 8, got {qt.shape[1]}")
-    return launch(x2, qt, with_stats, out_dtype,
-                  tensor_core_path(x2.shape[0], x2.dtype, qt)
-                  and x2.data_ptr() % 16 == 0)
+    return launch(x2, qt, with_stats, out_dtype, matmul_path(
+        x2.shape[0], x2.dtype, qt, x2.data_ptr() % 16 == 0))
 
 
 def launch(x2: torch.Tensor, qt: QTensor, with_stats: bool, out_dtype,
-           tensor_cores: bool
-           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the tensor-core or the product-table kernel on checked
-    operands."""
+           path: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the kernel of ``path`` ("wgmma", "gemv" or "tile": the
+    product table over all of K) on checked operands."""
     k, n = qt.shape
     m = x2.shape[0]
     levels, fold = _alphabet_on(qt.bits, qt.mode, str(x2.device))
     scale = qt.kernel_scale
-    y = out_buffer(x2, n, out_dtype, tensor_cores)
+    y = out_buffer(x2, n, out_dtype, path)
     mults = (torch.zeros((), dtype=torch.int32, device=x2.device)
              if with_stats else None)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    mults_ptr = None if mults is None else mults.data_ptr()
-    if tensor_cores:
+    out_bf16 = int(y.dtype == torch.bfloat16)
+    x_bf16 = int(x2.dtype == torch.bfloat16)
+    if path == "wgmma":
         _build.launch(
             "reuse_matmul.wgmma", x2.data_ptr(), qt.codes.data_ptr(),
-            scale.data_ptr(), levels.data_ptr(), y.data_ptr(), mults_ptr, m,
-            k, n, int(qt.packed), levels.numel(), scale.shape[0], segment(n),
-            int(y.dtype == torch.bfloat16), stream)
-        return y.to(out_dtype), mults
-    splits = k_splits(m, k, n, levels.numel())
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
-          if splits > 1 else None)
+            scale.data_ptr(), levels.data_ptr(), y.data_ptr(), _ptr(mults),
+            m, k, n, int(qt.packed), levels.numel(), scale.shape[0],
+            segment(n), out_bf16, stream)
+        return y, mults
+    if path == "gemv":
+        plan, part, counters = gemv_buffers(x2, qt, stream, reuse=True)
+        _build.launch(
+            "reuse_matmul.gemv", x2.data_ptr(), x_bf16, qt.codes.data_ptr(),
+            scale.data_ptr(), levels.data_ptr(), y.data_ptr(), out_bf16,
+            _ptr(part), _ptr(counters), _ptr(mults), m, k, n, int(qt.packed),
+            levels.numel(), int(fold), scale.shape[0], segment(n), plan.mt,
+            plan.k_per_split, plan.splits, stream)
+        return (y if y.dtype == out_dtype else y.to(out_dtype)), mults
     _build.launch(
-        "reuse_matmul", x2.data_ptr(), int(x2.dtype == torch.bfloat16),
-        qt.codes.data_ptr(), scale.data_ptr(), levels.data_ptr(),
-        y.data_ptr(), None if ws is None else ws.data_ptr(), mults_ptr, m, k,
+        "reuse_matmul", x2.data_ptr(), x_bf16, qt.codes.data_ptr(),
+        scale.data_ptr(), levels.data_ptr(), y.data_ptr(), _ptr(mults), m, k,
         n, int(qt.packed), levels.numel(), int(fold), scale.shape[0],
-        segment(n), splits, stream)
+        segment(n), stream)
     return y.to(out_dtype), mults

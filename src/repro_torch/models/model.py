@@ -5,6 +5,7 @@
     logits = api.forward(params, {"tokens": tokens})
     cache = api.init_cache(batch, max_len, device)
     logits, cache = api.prefill(params, {"tokens": tokens}, cache, lengths)
+    # all_positions=True: [B, S, V] logits of every position
     logits, cache = api.decode(params, token, cache)
 
 ``cache_spec`` gives the batch axis of every cache leaf (the serve
@@ -59,10 +60,12 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
         init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
             cfg, batch, max_len, device),
         prefill=lambda p, b, c, lengths=None, adapters=None,
-        adapter_idx=None, lora_scaling=1.0, prefix=None: mod.prefill(
+        adapter_idx=None, lora_scaling=1.0, prefix=None,
+        all_positions=False: mod.prefill(
             p, b["tokens"], cfg, c, impl=impl, lengths=lengths,
             adapters=adapters, adapter_idx=adapter_idx,
-            lora_scaling=lora_scaling, prefix=prefix),
+            lora_scaling=lora_scaling, prefix=prefix,
+            all_positions=all_positions),
         decode=lambda p, t, c, adapters=None, adapter_idx=None,
         lora_scaling=1.0: mod.decode_step(
             p, t, cfg, c, impl=impl, adapters=adapters,

@@ -105,8 +105,11 @@ def _layer_cache(cache, i: int):
 
 def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
             adapters=None, adapter_idx=None, lora_scaling: float = 1.0,
-            prefix=None):
+            prefix=None, all_positions: bool = False):
     """tokens: [B, S] -> (last-position logits [B, V], cache).
+
+    ``all_positions`` returns the logits of every position, [B, S, V],
+    instead: a teacher-forced pass (``serve/token_gate.py``).
 
     Writes positions [0, S) of every row of ``cache`` in place. With
     ``lengths`` ([B] int32, right-padded ragged prompts) logits come from
@@ -149,14 +152,19 @@ def prefill(params, tokens, cfg, cache, impl: str = "auto", lengths=None,
         h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
     if lengths is None:
-        x = x[:, -1:]
         pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        last = x[:, -1:]
     else:
         pos = lengths.to(device=x.device, dtype=torch.int32)
-        x = x[torch.arange(b, device=x.device), pos.long() - 1][:, None]
+        last = x[torch.arange(b, device=x.device), pos.long() - 1][:, None]
+    if not all_positions:
+        x = last
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
-    logits = L.head_fwd(params["embed"], x, cfg, impl=impl)[:, 0]
+    logits = L.head_fwd(params["embed"], x, cfg, impl=impl)
     cache["pos"] = pos if prefix_len is None else pos + prefix_len
+    if all_positions:
+        return logits, cache
+    logits = logits[:, 0]
     return logits, cache
 
 

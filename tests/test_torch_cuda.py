@@ -18,8 +18,13 @@ quantized matmuls take their tensor-core kernel where
 kernel elsewhere; the M values cross that threshold, K = 200 is ragged
 against the 64-row K tile, and a bf16 output must equal the f32 output
 rounded once. The
+split-K decode kernels (``axllm_matmul.gemv``, ``reuse_matmul.gemv``, M
+<= 16) are also held to their emulation (``ref.quant_gemv_split_ref``)
+within 1e-5 of the output scale, must give the same bits on a second
+launch and be one kernel launch a call. The
 reuse kernel's multiply count is an integer and must equal
-``reuse_mult_count``. The quantization kernel's codes and scales must
+``reuse_mult_count``. The engines' greedy tokens on a bf16 model are held
+to the teacher-forced token gate (``serve/token_gate.py``). The quantization kernel's codes and scales must
 equal its plain version's exactly.
 """
 
@@ -33,7 +38,9 @@ import torch
 from repro_torch.configs.repro_100m import CONFIG
 from repro_torch.core.quantization import QuantConfig, quantize
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.axllm_matmul import (axllm_matmul_cuda,
+from repro_torch.kernels import axllm_matmul as axllm_kernel
+from repro_torch.kernels import reuse_matmul as reuse_kernel
+from repro_torch.kernels.axllm_matmul import (axllm_matmul_cuda, gemv_buffers,
                                               tensor_core_path)
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.decode_attention import \
@@ -50,6 +57,7 @@ from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
 from repro_torch.models.model import get_model
 from repro_torch.serve.adapters import AdapterRegistry, target_dims
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.token_gate import token_gate
 
 pytestmark = pytest.mark.cuda
 
@@ -417,11 +425,13 @@ def test_engine_kernel_path_matches_plain_path(card, mode):
     prompts = [torch.arange(1, n + 1).numpy() for n in (8, 12, 31, 5)] + \
         [head + [40 + i, 50 + i] for i in range(4)]
     kw, impls, kernels = {}, ("cuda", "ref"), (
-        "axllm_matmul", "decode_attention", "flash_attention")
+        "axllm_matmul", "axllm_matmul.gemv", "decode_attention",
+        "flash_attention")
     if mode == "paged-reuse":
         kw = dict(paged=True, kv_block_size=8)
         impls, kernels = ("reuse", "reuse_ref"), (
-            "reuse_matmul", "paged_decode_attention", "flash_attention")
+            "reuse_matmul", "reuse_matmul.gemv", "paged_decode_attention",
+            "flash_attention")
     runs = {}
     for impl in impls:
         eng = ServeEngine(cfg, params, n_slots=2, max_len=64, quantize=True,
@@ -464,8 +474,139 @@ def test_lora_engine_kernel_path_matches_plain_path(card, paged):
         _build.reset_launches()
         runs[impl] = (eng.generate(prompts, max_new=16, adapters=names),
                       dict(_build.LAUNCHES))
-    kernels = ("reuse_matmul", "flash_attention",
+    kernels = ("reuse_matmul", "reuse_matmul.gemv", "flash_attention",
                "paged_decode_attention" if paged else "decode_attention")
     assert runs["reuse"][0] == runs["reuse_ref"][0]
     assert sorted(runs["reuse"][1]) == sorted(kernels)
     assert runs["reuse_ref"][1] == {}
+
+
+# the split-K decode kernels: the seven projections' K x N and the two
+# fused ones, every alphabet
+GEMV_SHAPES = [(768, 768), (768, 256), (768, 2048), (2048, 768), (768, 1280),
+               (768, 4096)]
+GEMV_ALPHABETS = [
+    QuantConfig(8), QuantConfig(4, "affine", pack=True),
+    QuantConfig(4, "affine", pack=False),
+    QuantConfig(8, "affine", "per_tensor"),
+    QuantConfig(8, "affine", "per_group", group_size=64),
+    QuantConfig(8, "affine", "per_group", group_size=128),
+    QuantConfig(4, "codebook", pack=True), QuantConfig(8, "codebook")]
+GEMV_IDS = ["int8", "int4", "int4-unpacked", "per-tensor", "group64",
+            "group128", "nf4", "cb8"]
+
+
+def _gemv_call(kernel, x, qt, out_dtype, with_stats=False):
+    if kernel == "axllm_matmul":
+        return axllm_matmul_cuda(x, qt, out_dtype), None
+    return reuse_matmul_cuda(x, qt, with_stats, out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qcfg", GEMV_ALPHABETS, ids=GEMV_IDS)
+@pytest.mark.parametrize("kernel", ["axllm_matmul", "reuse_matmul"])
+def test_quant_gemv_kernel(card, kernel, qcfg, dtype):
+    """Each decode kernel at M 1, 2, 8 and 16 and every projection shape:
+    one launch of its own path key, within 1e-5 of the output scale of its
+    plain version and of its split emulation, the same bits on a second
+    launch, a bf16 output equal to the f32 output rounded once, and (reuse)
+    the Result Cache's count."""
+    g = torch.Generator(device=card).manual_seed(7)
+    plain = ref.axllm_matmul_ref if kernel == "axllm_matmul" else \
+        ref.reuse_matmul_ref
+    for k, n in GEMV_SHAPES:
+        qt = quantize(torch.randn(k, n, generator=g, device=card)
+                      * k ** -0.5, qcfg)
+        for m in (1, 2, 8, 16):
+            x = torch.randn(m, k, generator=g, device=card).to(dtype)
+            before = dict(_build.LAUNCHES)
+            y, mults = _gemv_call(kernel, x, qt, torch.float32, True)
+            torch.cuda.synchronize()
+            case = f"M{m} K{k} N{n}"
+            assert _build.LAUNCHES[kernel] == before.get(kernel, 0) + 1, case
+            assert _build.LAUNCHES[f"{kernel}.gemv"] == before.get(
+                f"{kernel}.gemv", 0) + 1, case
+            assert y.dtype == torch.float32 and y.shape == (m, n)
+            assert _rel_err(y, plain(x, qt)) < 1e-5, case
+            plan = gemv_buffers(x, qt, torch.cuda.current_stream(
+                card).cuda_stream, kernel == "reuse_matmul")[0]
+            emu = ref.quant_gemv_split_ref(x, qt, plan,
+                                           kernel == "reuse_matmul")
+            assert _rel_err(y, emu) < 1e-5, case
+            if mults is not None:
+                assert int(mults) == ref.reuse_mult_count(qt, segment(n))
+            again, _ = _gemv_call(kernel, x, qt, torch.float32)
+            assert torch.equal(again, y), case
+            y16, _ = _gemv_call(kernel, x, qt, torch.bfloat16)
+            assert y16.dtype == torch.bfloat16
+            assert torch.equal(y16, y.to(torch.bfloat16)), case
+
+
+@pytest.mark.parametrize("kernel", ["axllm_matmul", "reuse_matmul"])
+def test_quant_gemv_is_one_launch_a_call(card, kernel):
+    """A decode call at the serving shape (M8 K768 N2048, bf16 in and
+    out) runs one kernel on the card and nothing else: no cast, no sum
+    kernel, no workspace memset, read from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=card).manual_seed(3)
+    qt = quantize(torch.randn(768, 2048, generator=g, device=card) * 0.03,
+                  QuantConfig(8))
+    x = torch.randn(8, 768, generator=g, device=card).to(torch.bfloat16)
+    _gemv_call(kernel, x, qt, torch.bfloat16)      # plan, scratch, build
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        y, _ = _gemv_call(kernel, x, qt, torch.bfloat16)
+        torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 1 and "gemv" in ops[0], ops
+    grown = {key: v - before.get(key, 0) for key, v in _build.LAUNCHES.items()
+             if v != before.get(key, 0)}
+    assert grown == {kernel: 1, f"{kernel}.gemv": 1}
+
+
+def test_quant_gemv_takes_the_tile_kernel_for_unaligned_codes(card):
+    """Codes the decode kernels cannot read in 16-byte vectors (N = 88)
+    take the tile kernels, and give the plain version's result."""
+    qt = quantize(torch.randn(192, 88, device=card), QuantConfig(8))
+    x = torch.randn(8, 192, device=card)
+    for kernel in ("axllm_matmul", "reuse_matmul"):
+        before = dict(_build.LAUNCHES)
+        y, _ = _gemv_call(kernel, x, qt, torch.float32)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES.get(f"{kernel}.gemv", 0) == before.get(
+            f"{kernel}.gemv", 0)
+        assert _rel_err(y, ref.axllm_matmul_ref(x, qt)) < 1e-5
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged-reuse"])
+def test_engine_tokens_pass_the_token_gate(card, mode):
+    """A bf16 reduced model served through the kernels: every greedy
+    token's plain-path logit (teacher-forced on the kernel path's own
+    prefix) lies within twice the logits tolerance of the plain maximum;
+    the decode steps ran the split-K kernels."""
+    cfg = CONFIG.reduced(remat=False)
+    assert cfg.dtype == "bfloat16"
+    params = get_model(cfg).init(seed=0, device=card)
+    rng = np.random.default_rng(1)
+    head = rng.integers(0, cfg.vocab_size, size=16).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (8, 12, 31, 5)] + [
+        np.concatenate([head, rng.integers(0, cfg.vocab_size, size=3 + i)
+                        .astype(np.int32)]) for i in range(4)]
+    kw, impl, plain, gemv = {}, "cuda", "ref", "axllm_matmul.gemv"
+    if mode == "paged-reuse":
+        kw, impl, plain, gemv = (dict(paged=True, kv_block_size=8), "reuse",
+                                 "reuse_ref", "reuse_matmul.gemv")
+    eng = ServeEngine(cfg, params, n_slots=4, max_len=64, quantize=True,
+                      decode_chunk=8, impl=impl, device=card, **kw)
+    _build.reset_launches()
+    toks = eng.generate(prompts, max_new=24)
+    assert _build.LAUNCHES[gemv] > 0
+    gate = token_gate(cfg, eng.params, prompts, toks, impl=plain,
+                      tol_rel=5e-2, device=card)
+    assert gate.positions == 24 * len(prompts)
+    assert gate.ok, gate.failures[:5]
