@@ -32,9 +32,14 @@ NVIDIA GPU.
    shapes, bf16 and f32, 8 and 4 bits, and then in a deploy pass through
    ``ops.quantize_channels`` over every projection leaf of full-width
    repro-100m (84 matrices, one launch per stacked leaf), its path. The
-   kernels of both quantized matmuls are timed from M1 to M4096 at N256
-   and N2048 (the decode kernels up to M16, the tensor-core ones from
-   M16), where ``TC_MIN_M`` and ``GEMV_MAX_M`` pick the path.
+   codebook route of the tensor-core path (NF4 and identity-8, per
+   channel and per group of 128, at a prefill wave's M4096 and the
+   projections' K x N) is held on both matmuls against the plain version
+   and its emulation ``ref.quant_gemm_ref``, with the tile kernel it
+   replaced timed beside it. The kernels of both quantized matmuls are
+   timed from M1 to M4096 at N256 and N2048, int8 and NF4 (the decode
+   kernels up to M16, the tensor-core ones from M16), where ``TC_MIN_M``
+   and ``GEMV_MAX_M`` pick the path.
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -55,6 +60,12 @@ NVIDIA GPU.
       ``bridge.registry_from_numpy``) serves run a's prompts, the
       requests cycling base/a0/a1/a2/a3: reuse_matmul, decode_attention,
       flash_attention.
+   d. NF4 reuse: the run-a engine with ``impl="reuse", quant_bits=4,
+      quant_mode="codebook"`` (packed NF4, per channel) serves run a's
+      prompts: reuse_matmul (prefill on the codebook route of its
+      tensor-core path, one launch per projection and wave; decode on
+      ``.gemv``, one per projection and step), decode_attention,
+      flash_attention.
    Each requires its matmul's and flash attention's tensor-core paths
    (``<kernel>.wgmma``) to have launched in its prefill waves (every
    flash launch on the tensor cores) and its matmul's decode kernel
@@ -68,8 +79,10 @@ NVIDIA GPU.
    requests through the plain path for greedy-token agreement. Run b also
    holds the first-token logits of its first prefix-hit wave, as served
    (prefix KV gathered out of the pool, suffix-only prefill), against a
-   plain dense prefill of the whole prompts; runs b and c read the reuse
-   rate the kernel achieves on each projection of layer 0. Run c also
+   plain dense prefill of the whole prompts; runs b, c and d read the
+   reuse rate the kernel achieves on each projection of layer 0 (run d
+   on the decode and the prefill path, each count held against
+   ``reuse_mult_count``). Run c also
    requires each adapter row's first-wave logits to differ from the same
    prompt's base logits by more than the tolerance.
 6. Prints the ``kernels`` JSON line, then the result line.
@@ -79,6 +92,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -98,6 +112,10 @@ SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
 LORA_B_STD = 0.01       # run c: B ~ N(0, 0.01^2), A ~ N(0, 1/r)
 FUSED = ((768, 1280), (768, 4096))    # K x N of wqkv and gate_up
+# the codebook route's kernel phase: the 7 projections' K x N and the fused
+# ones at a prefill wave's M, NF4 (packed) and identity-8, per channel and
+# in groups of 128 rows
+CODEBOOK_SHAPES = ((768, 2048), (768, 768), (768, 256), (2048, 768)) + FUSED
 THRESHOLD_M = (1, 8, 16, 32, 48, 64, 96, 128, 256)  # paths timed at each
 GEMV_M = (1, 8, 16)     # where the decode kernels are timed as well
 # flash kernel phase: (B, Sq, Sk, causal, head dim)
@@ -506,14 +524,99 @@ def reuse_paged_kernel_phase(dev, flush):
     return rows
 
 
+def codebook_kernel_phase(dev, flush):
+    """The codebook route of the tensor-core path (each level three bf16
+    terms) on both quantized matmuls at a prefill wave (M4096), for NF4
+    (packed) and identity-8, per channel and per group of 128 rows, at
+    ``CODEBOOK_SHAPES``: each row held against its plain version and the
+    route's emulation ``ref.quant_gemm_ref`` (within 1e-5 of the output
+    scale), its bf16 output against its f32 output rounded to nearest even,
+    a second launch against the first (the same bits), and the reuse
+    kernel's count against ``reuse_mult_count``; beside its time the plain
+    version's, ``torch.matmul`` on the dequantized bf16 weights and the old
+    tile kernel's (the route these calls took before)."""
+    import torch
+    from repro_torch.core.quantization import QuantConfig, dequantize, \
+        quantize
+    from repro_torch.kernels import axllm_matmul, ref, reuse_matmul
+    from repro_torch.kernels.reuse_matmul import segment
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = 4096
+    rows = []
+    for qc in (QuantConfig(4, "codebook"),
+               QuantConfig(4, "codebook", "per_group"),
+               QuantConfig(8, "codebook"),
+               QuantConfig(8, "codebook", "per_group")):
+        for k, n in CODEBOOK_SHAPES:
+            x = torch.randn(m, k, generator=g, device=dev).to(bf16)
+            qt = quantize(torch.randn(k, n, generator=g, device=dev)
+                          * k ** -0.5, qc)
+            emu = ref.quant_gemm_ref(x, qt)
+            w_deq = dequantize(qt, bf16)
+            lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
+            shape = f"M{m} K{k} N{n} {qc.bits}b-{qc.mode}-{qc.granularity}"
+            for name, plain_fn, call, tile in (
+                    ("axllm_matmul", ref.axllm_matmul_ref,
+                     lambda dt: axllm_matmul.launch(x, qt, dt, "wgmma"),
+                     lambda: axllm_matmul.launch(x, qt, f32, "tile")),
+                    ("reuse_matmul", ref.reuse_matmul_ref,
+                     lambda dt: reuse_matmul.launch(x, qt, False, dt,
+                                                    "wgmma")[0],
+                     lambda: reuse_matmul.launch(x, qt, False, f32,
+                                                 "tile")[0])):
+                path = path_of(m, x, qt)
+                check(path == "wgmma", f"{name} {shape} takes {path}")
+                want = plain_fn(x, qt)
+                got = call(f32)
+                torch.cuda.synchronize()
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got - want).abs().max())
+                emu_err = float((got - emu).abs().max())
+                same = torch.equal(call(f32), got)
+                rne = torch.equal(call(bf16), got.to(bf16))
+                check(emu_err <= 1e-5 * scale, f"{name} {shape} differs "
+                      f"from its emulation by {emu_err}")
+                check(same, f"{name} {shape}: a second launch gave other "
+                            "bits")
+                check(rne, f"{name} {shape}: bf16 output is not the f32 "
+                           "output rounded")
+                extra = {}
+                if name == "reuse_matmul":   # the count, on the served call
+                    _, mults = reuse_matmul.launch(x, qt, True, bf16,
+                                                   "wgmma")
+                    count = ref.reuse_mult_count(qt, segment(n))
+                    check(int(mults) == count, f"{name} {shape} counted "
+                          f"{int(mults)} multiplies, not {count}")
+                    extra = dict(mults=int(mults),
+                                 reuse_rate=1.0 - int(mults) / (k * n))
+                ms = time_ms(lambda: call(f32), flush)
+                plain = time_ms(lambda: plain_fn(x, qt), flush)
+                tile_ms = time_ms(tile, flush)
+                row = case_row(name, shape, err, 1e-5 * scale, ms, plain,
+                               lib, nbytes(x, qt.codes, qt.kernel_scale,
+                                           got), 2.0 * m * k * n,
+                               "bfloat16", path)
+                print(f"kernel {name} [wgmma] {shape}: err vs its emulation "
+                      f"{emu_err:.3e}; second launch identical {same}; bf16 "
+                      f"out = f32 out rounded {rne}; the tile kernel "
+                      f"{tile_ms:.4f} ms"
+                      + (f"; mults {extra['mults']} = reuse_mult_count"
+                         if extra else ""), flush=True)
+                rows.append(dict(row, emulation_err=emu_err,
+                                 tile_ms=tile_ms, **extra))
+    return rows
+
+
 def tensor_core_phase(dev, flush):
     """Where the tensor-core path of the two quantized matmuls overtakes
     their skinny kernels: the tensor-core and tile kernels of both at K768
-    N256 and N2048 (bf16, int8 per-channel) for each M of ``THRESHOLD_M``
-    and M4096, and the split-K decode kernels at each M of ``GEMV_M``,
-    each held against its plain version; and the bf16 output that the
-    serving path asks for at M4096 N2048 (written by the kernel, no
-    separate cast)."""
+    N256 and N2048 (bf16, int8 and NF4 per-channel) for each M of
+    ``THRESHOLD_M`` and M4096, and the split-K decode kernels at each M of
+    ``GEMV_M``, each held against its plain version; and the bf16 output
+    that the serving path asks for at M4096 N2048 (written by the kernel,
+    no separate cast)."""
     import torch
     from repro_torch.core.quantization import QuantConfig, quantize
     from repro_torch.kernels import axllm_matmul, ref, reuse_matmul
@@ -522,14 +625,16 @@ def tensor_core_phase(dev, flush):
     g = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
     sweep = []
-    for k, n in ((768, 256), (768, 2048)):
+    for (k, n), (alpha, qc) in itertools.product(
+            ((768, 256), (768, 2048)),
+            (("int8", QuantConfig(8)), ("nf4", QuantConfig(4, "codebook")))):
         qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
-                      QuantConfig(8))
+                      qc)
         for m in THRESHOLD_M + (4096,):
             x = torch.randn(m, k, generator=g, device=dev).to(bf16)
             want = ref.axllm_matmul_ref(x, qt)
             tol = 1e-5 * max(1.0, float(want.abs().max()))
-            row = dict(m=m, k=k, n=n)
+            row = dict(m=m, k=k, n=n, alphabet=alpha)
             calls = [
                 ("axllm_simt",
                  lambda: axllm_matmul.launch(x, qt, f32, "tile")),
@@ -551,7 +656,8 @@ def tensor_core_phase(dev, flush):
                 err = float((fn() - want).abs().max())
                 check(err <= tol, f"{name} M{m} N{n}: error {err} > {tol}")
                 row[name] = time_ms(fn, flush)
-            if m == 4096 and n == 2048:   # the serving path's bf16 output
+            if m == 4096 and n == 2048 and alpha == "int8":
+                # the serving path's bf16 output
                 got = axllm_matmul.launch(x, qt, bf16, "wgmma")
                 check(torch.equal(got, axllm_matmul.launch(
                     x, qt, f32, "wgmma").to(bf16)), "bf16 output is not the "
@@ -561,9 +667,10 @@ def tensor_core_phase(dev, flush):
                 row["reuse_wgmma_bf16_out"] = time_ms(
                     lambda: reuse_matmul.launch(x, qt, False, bf16,
                                                 "wgmma")[0], flush)
-            print(f"tensor-core path vs skinny kernels, M{m} K{k} N{n} int8: "
-                  + ", ".join(f"{key} {v:.4f} ms" for key, v in row.items()
-                              if key not in ("m", "k", "n")), flush=True)
+            print(f"tensor-core path vs skinny kernels, M{m} K{k} N{n} "
+                  f"{alpha}: " + ", ".join(
+                      f"{key} {v:.4f} ms" for key, v in row.items()
+                      if key not in ("m", "k", "n", "alphabet")), flush=True)
             sweep.append(row)
     print(f"tensor-core path taken from M = {TC_MIN_M} (TC_MIN_M)",
           flush=True)
@@ -955,23 +1062,29 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                                      flash_ms=flash_ms, top=p_top[:8])), eng
 
 
-def end_to_end(dev, card):
+def run_a_prompts() -> list:
+    """Run a's 16 prompts (64/200/511 tokens, numpy seed 0), which runs c
+    and d serve too."""
     import numpy as np
     from repro_torch.configs.repro_100m import CONFIG
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, CONFIG.vocab_size,
-                            size=PROMPT_LENS[i % len(PROMPT_LENS)])
-               .astype(np.int32) for i in range(N_REQUESTS)]
-    return serve_run(dev, card, "dense", prompts, (
+    return [rng.integers(0, CONFIG.vocab_size,
+                         size=PROMPT_LENS[i % len(PROMPT_LENS)])
+            .astype(np.int32) for i in range(N_REQUESTS)]
+
+
+def end_to_end(dev, card):
+    return serve_run(dev, card, "dense", run_a_prompts(), (
         "axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
         "decode_attention",
         "flash_attention", "flash_attention.wgmma"))[0]
 
 
-def layer0_reuse_rates(eng, label, card) -> dict:
+def layer0_reuse_rates(eng, label, card, rows=(N_SLOTS,)) -> dict:
     """The reuse rate the kernel counts on each quantized projection of
-    layer 0 of ``eng``'s served weights, each count held against
-    ``reuse_mult_count``, beside the analytic Gaussian model."""
+    layer 0 of ``eng``'s served weights, on a call of each M in ``rows``
+    (each through the path serving takes at that M), each count held
+    against ``reuse_mult_count``, beside the analytic Gaussian model."""
     import torch
     from repro_torch.core.quantization import QTensor
     from repro_torch.core.reuse import expected_reuse_rate
@@ -987,17 +1100,20 @@ def layer0_reuse_rates(eng, label, card) -> dict:
             if not isinstance(qt, QTensor):
                 continue
             k, n = qt.shape
-            x = torch.ones((N_SLOTS, k), dtype=torch.bfloat16,
-                           device=qt.codes.device)
-            _, mults = ops.reuse_matmul(x, qt, impl="reuse", with_stats=True)
             count = ref.reuse_mult_count(qt, segment(n))
-            check(int(mults) == count, f"{label}: layer-0 {name}: kernel "
-                                       f"counted {int(mults)}, host {count}")
-            rates[name] = 1.0 - int(mults) / (k * n)
-            print(f"e2e {label} [{card}]: layer 0 {name} K{k} N{n}: reuse "
-                  f"rate {rates[name]:.4f} (kernel count {int(mults)} = "
-                  f"reuse_mult_count; analytic gaussian model "
-                  f"{predicted:.4f})", flush=True)
+            for m in rows:
+                x = torch.ones((m, k), dtype=torch.bfloat16,
+                               device=qt.codes.device)
+                _, mults = ops.reuse_matmul(x, qt, impl="reuse",
+                                            with_stats=True)
+                check(int(mults) == count, f"{label}: layer-0 {name} M{m}: "
+                      f"kernel counted {int(mults)}, host {count}")
+            rates[name] = 1.0 - count / (k * n)
+            print(f"e2e {label} [{card}]: layer 0 {name} K{k} N{n} "
+                  f"{qt.bits}b-{qt.mode}: reuse rate {rates[name]:.4f} "
+                  f"(kernel count {count} = reuse_mult_count at M "
+                  f"{', '.join(f'{m} [{path_of(m, x, qt)}]' for m in rows)}"
+                  f"; analytic gaussian model {predicted:.4f})", flush=True)
     return dict(reuse_rate_layer0=rates, reuse_rate_predicted=predicted)
 
 
@@ -1047,10 +1163,7 @@ def end_to_end_lora(dev, card):
                        * LORA_B_STD).astype(np.float32)}
     registry = registry_from_numpy(CONFIG, stacked, list(ADAPTERS), lcfg,
                                    device=dev)
-    rng = np.random.default_rng(0)           # run a's prompts
-    prompts = [rng.integers(0, CONFIG.vocab_size,
-                            size=PROMPT_LENS[i % len(PROMPT_LENS)])
-               .astype(np.int32) for i in range(N_REQUESTS)]
+    prompts = run_a_prompts()
     cycle = (None,) + ADAPTERS
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
     e2e, eng = serve_run(dev, card, "lora+reuse+fused", prompts, (
@@ -1066,7 +1179,42 @@ def end_to_end_lora(dev, card):
     return e2e
 
 
+def end_to_end_nf4(dev, card):
+    """Run d: run a's prompts through a reuse engine on NF4 weights (4-bit
+    codebook, packed, per channel: the QLoRA-style base). Every prefill
+    projection takes the codebook route of the tensor cores and every
+    decode projection the split-K table kernel; layer 0's counted reuse
+    rates on both paths."""
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.core.quantization import QTensor
+
+    e2e, eng = serve_run(dev, card, "nf4+reuse", run_a_prompts(), (
+        "reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
+        "decode_attention",
+        "flash_attention", "flash_attention.wgmma"),
+        impl="reuse", quant_bits=4, quant_mode="codebook")
+    wq = eng.params["layers"]["attn"]["wq"]
+    check(isinstance(wq, QTensor) and (wq.bits, wq.mode, wq.packed) ==
+          (4, "codebook", True), "nf4+reuse: the engine does not serve "
+          "packed NF4 weights")
+    # one launch per projection and layer: every prefill one on the tensor
+    # cores, every decode one on the split-K kernel
+    n_proj = 7 * CONFIG.n_layers
+    got = e2e["launches"]
+    check(got.get("reuse_matmul.wgmma") == n_proj * e2e["prefill_waves"],
+          f"nf4+reuse: {got.get('reuse_matmul.wgmma')} tensor-core launches "
+          f"for {e2e['prefill_waves']} prefill waves of {n_proj} "
+          "projections")
+    check(got.get("reuse_matmul.gemv") == n_proj * e2e["steps"],
+          f"nf4+reuse: {got.get('reuse_matmul.gemv')} decode launches for "
+          f"{e2e['steps']} decode steps of {n_proj} projections")
+    e2e.update(layer0_reuse_rates(eng, "nf4+reuse", card,
+                                  rows=(N_SLOTS, 512)))
+    return e2e
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
+CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
 # kernel -> (the TPU kernel it replaces, the main shape reported, the
 # end-to-end run whose launch count is reported)
@@ -1129,6 +1277,7 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = kernel_phase(dev, flush) + reuse_paged_kernel_phase(dev, flush)
+    rows += codebook_kernel_phase(dev, flush)
     sweep = tensor_core_phase(dev, flush)
     q_rows, deploy = quantize_kernel_phase(dev, flush)
     rows += q_rows
@@ -1136,6 +1285,7 @@ def main() -> int:
     e2e = {"dense": end_to_end(dev, card),
            "reuse+paged": end_to_end_reuse_paged(dev, card),
            "lora+reuse+fused": end_to_end_lora(dev, card),
+           "nf4+reuse": end_to_end_nf4(dev, card),
            "deploy": deploy}
 
     kernels = []
@@ -1168,6 +1318,21 @@ def main() -> int:
                 shape=PREFILL_SHAPE, hgmma_instructions=hgmma[name],
                 launches=e2e[run]["launches"][f"{name}.wgmma"],
                 **{key: tc[key] for key in ROW_KEYS})
+            # its codebook route (NF4); run d serves it through reuse_matmul,
+            # and no run serves axllm_matmul on a codebook: no count is read
+            # for it
+            cb = next(r for r in rows if r["kernel"] == name
+                      and r["shape"] == CODEBOOK_SHAPE)
+            served = name == "reuse_matmul"
+            kernels[-1]["codebook"] = dict(
+                source="src/repro_torch/csrc/quant_gemm_sm90.cuh",
+                shape=CODEBOOK_SHAPE, path=cb["path"],
+                launches=(e2e["nf4+reuse"]["launches"][f"{name}.wgmma"]
+                          if served else None),
+                launches_from="nf4+reuse" if served else None,
+                emulation_err=cb["emulation_err"],
+                was=dict(path="tile", ms=cb["tile_ms"]),
+                **{key: cb[key] for key in ROW_KEYS})
         if name == "flash_attention":
             # the main row is the tensor-core kernel; the SIMT one beside it
             simt = next(r for r in rows if r["kernel"] == name

@@ -13,15 +13,16 @@
 // one by shape, type and alignment before the launch:
 //
 // 1. Tensor cores (axllm_matmul_wgmma_launch, quant_gemm_sm90.cuh): bf16
-//    activations, affine codes (int8, int4, int4 packed), one scale row or
-//    groups of a multiple of 64 rows, and M above the decode kernel's 16
-//    rows (where it measured faster than the tiles below at every M): the
-//    prefill waves. Bound there by the operations (M4096 K768 N2048: 12.9
-//    GFLOP, 0.013 ms at the bf16 peak); TMA keeps the x
-//    and code tiles in flight, the codes become bf16 only in shared
-//    memory, and wgmma runs the product, the scale applied once per group
-//    sum (within 1e-5 of the per-product scale of the plain version). It
-//    writes f32 or the caller's bf16.
+//    activations, every alphabet (affine int8, int4, int4 packed; the
+//    codebooks NF4, packed or not, and identity-8, each level split into
+//    three bf16 terms), one scale row or groups of a multiple of 64 rows,
+//    and M above the decode kernel's 16 rows (where it measured faster
+//    than the tiles below at every M): the prefill waves. Bound there by
+//    the operations (M4096 K768 N2048: 12.9 GFLOP, 0.013 ms at the bf16
+//    peak); TMA keeps the x and code tiles in flight, the codes become
+//    bf16 only in shared memory, and wgmma runs the product, the scale
+//    applied once per group sum (within 1e-5 of the per-product scale of
+//    the plain version). It writes f32 or the caller's bf16.
 //
 // 2. Decode (axllm_matmul_gemv_launch, below, on quant_gemv.cuh): M <= 16,
 //    f32 or bf16 x, every alphabet, codes 16-byte aligned with N a
@@ -37,8 +38,8 @@
 //    where M <= 8, else 16. It writes f32 or the caller's bf16 itself.
 //
 // 3. SIMT tiles (axllm_matmul_launch, below): everything else, which is
-//    f32 and codebook activations or alphabets above M = 16, group sizes
-//    that 64 does not divide, and small M with codes the decode kernel
+//    f32 activations above M = 16, group sizes that 64 does not divide,
+//    rows TMA cannot address, and small M with codes the decode kernel
 //    cannot read in 16-byte vectors. The int8 codes are read exactly once
 //    per output tile, the dequantized tile lives in shared memory only,
 //    and a 16-row tile for skinny M pays no 64-row padding.
@@ -421,16 +422,22 @@ extern "C" int axllm_matmul_launch(const void* x, int x_bf16, const void* codes,
 }
 
 // The tensor-core path: x [M,K] bf16; codes [K,N] int8 or [K,N/2] uint8
-// (packed = 1) of an affine alphabet; scale [n_scale_rows, N] f32 with
-// 1/qmax folded in; y [M,N] f32, or bf16 when out_bf16 = 1.
+// (packed = 1); scale [n_scale_rows, N] f32 (1/qmax folded in for affine
+// codes); alphabet (qgemm::Alphabet): affine (codebook NULL), NF4
+// (codebook: its [16] f32 table) or identity-8 (int8 codes; the kernel
+// computes the levels c / 127, codebook not read); sum_rows: a codebook's
+// partial-sum span (kernels/ref.py CODEBOOK_SUM_ROWS), 0 for affine
+// codes; y [M,N] f32, or bf16 when out_bf16 = 1.
 extern "C" int axllm_matmul_wgmma_launch(const void* x, const void* codes,
-                                         const float* scale, void* y, int M,
-                                         int K, int N, int packed,
+                                         const float* scale,
+                                         const float* codebook, void* y,
+                                         int M, int K, int N, int packed,
+                                         int alphabet, int sum_rows,
                                          int n_scale_rows, int out_bf16,
                                          void* stream) {
-  return qgemm::quant_gemm_launch(x, codes, scale, y, M, K, N, packed,
-                                  n_scale_rows, out_bf16,
-                                  static_cast<cudaStream_t>(stream));
+  return qgemm::quant_gemm_launch(x, codes, scale, codebook, y, M, K, N,
+                                  packed, n_scale_rows, alphabet, sum_rows,
+                                  out_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The decode path: x [M,K] f32 (x_bf16 = 0) or bf16 with 1 <= M <= 16;

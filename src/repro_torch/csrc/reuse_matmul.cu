@@ -29,18 +29,21 @@
 // one by shape, type and alignment before the launch:
 //
 // 1. Tensor cores (reuse_matmul_wgmma_launch, quant_gemm_sm90.cuh): bf16
-//    activations, affine alphabets (int8, int4, int4 packed), one scale row
-//    or groups of a multiple of 64 rows, and M above the decode kernel's
-//    16 rows (measured faster than the table kernels at every such M): the
-//    prefill waves. For an affine alphabet
-//    sign(c) * levels[|c|] == c, so wgmma over bf16 x and bf16-cast codes,
-//    summed in f32 per scale group and scaled after the group sum, is this
-//    kernel's association term for term. At prefill the H100 runs the
-//    multiplies on its tensor cores instead of skipping them: the Result
-//    Cache's saving is energy on the paper's accelerator, and a table gather
-//    cannot reach the tensor cores' rate here (below). With a count asked
-//    for, the table kernel runs once more in its count-only mode (M = 0), so
-//    the count is the Result Cache's, as on the other paths.
+//    activations, every alphabet (affine int8, int4, int4 packed; NF4,
+//    packed or not; identity-8), one scale row or groups of a multiple of
+//    64 rows, and M above the decode kernel's 16 rows (measured faster
+//    than the table kernels at every such M, int8 and NF4): the prefill
+//    waves. For an affine alphabet sign(c) * levels[|c|] == c, so wgmma
+//    over bf16 x and bf16-cast codes, summed in f32 per scale group and
+//    scaled after the group sum, is this kernel's association term for
+//    term; a codebook level is split into three bf16 terms whose sum is
+//    the level exactly, and three wgmma passes add x * term into the same
+//    group sum. At prefill the H100 runs the multiplies on its tensor
+//    cores instead of skipping them: the Result Cache's saving is energy
+//    on the paper's accelerator, and a table gather cannot reach the
+//    tensor cores' rate here (below). With a count asked for, the table
+//    kernel runs once more in its count-only mode (M = 0), so the count is
+//    the Result Cache's, as on the other paths.
 //
 // 2. Decode (reuse_matmul_gemv_launch, below, on quant_gemv.cuh): M <= 16,
 //    f32 or bf16 x, every alphabet, codes 16-byte aligned with N a multiple
@@ -59,8 +62,8 @@
 //    second kernel.
 //
 // 3. The product table over all of K (reuse_matmul_launch, below):
-//    everything else, which is f32 and codebook activations or alphabets
-//    above M = 16, group sizes that 64 does not divide, small M with codes
+//    everything else, which is f32 activations above M = 16, group sizes
+//    that 64 does not divide, rows TMA cannot address, small M with codes
 //    the decode kernel cannot read in 16-byte vectors, and the count-only
 //    mode. Its time bound is the bytes of the codes, but the design's own
 //    cost is shared-memory traffic: every product is a 4-byte table read,
@@ -600,25 +603,37 @@ extern "C" int reuse_matmul_gemv_launch(
 }
 
 // The tensor-core path: x [M,K] bf16 with M > 0; codes [K,N] int8 or
-// [K,N/2] uint8 (packed = 1) of an affine alphabet (fold = 1, levels
-// 0..qmax); scale [n_scale_rows, N] f32 with 1/qmax folded in; y [M,N]
-// f32, or bf16 when out_bf16 = 1. With mults != NULL the product-table
-// kernel first adds the Result Cache's count over seg-wide segments to it
-// (zero it first), in its count-only mode.
+// [K,N/2] uint8 (packed = 1); levels [L] f32 and fold as for the table
+// path, and the alphabet (qgemm::Alphabet) they are: affine (fold = 1,
+// levels 0..qmax, not read; 1/qmax folded into scale), NF4 (fold = 0,
+// L = 16, levels read) or the identity-8 table c / 127 (fold = 0, L = 256,
+// int8 codes; the kernel computes the levels); sum_rows: a codebook's
+// partial-sum span (kernels/ref.py CODEBOOK_SUM_ROWS), 0 for affine codes;
+// scale [n_scale_rows, N] f32; y [M,N] f32, or bf16 when out_bf16 = 1.
+// With mults != NULL the product-table kernel first adds the Result
+// Cache's count over seg-wide segments to it (zero it first), in its
+// count-only mode.
 extern "C" int reuse_matmul_wgmma_launch(const void* x, const void* codes,
                                          const float* scale,
                                          const float* levels, void* y,
                                          int* mults, int M, int K, int N,
-                                         int packed, int L, int n_scale_rows,
-                                         int seg, int out_bf16, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                         int packed, int L, int fold,
+                                         int alphabet, int sum_rows,
+                                         int n_scale_rows, int seg,
+                                         int out_bf16, void* stream) {
+  // the alphabet must be the one levels and fold describe
+  if (M <= 0 ||
+      (alphabet == qgemm::kAffine) != (fold != 0) ||
+      (alphabet == qgemm::kNF4 && L != 16) ||
+      (alphabet == qgemm::kIdentity8 && L != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (mults) {
     const int err = reuse_matmul_launch(x, 1, codes, scale, levels, nullptr,
-                                        mults, 0, K, N, packed, L, 1,
+                                        mults, 0, K, N, packed, L, fold,
                                         n_scale_rows, seg, stream);
     if (err) return err;
   }
-  return qgemm::quant_gemm_launch(x, codes, scale, y, M, K, N, packed,
-                                  n_scale_rows, out_bf16,
+  return qgemm::quant_gemm_launch(x, codes, scale, levels, y, M, K, N, packed,
+                                  n_scale_rows, alphabet, sum_rows, out_bf16,
                                   static_cast<cudaStream_t>(stream));
 }

@@ -41,7 +41,7 @@ SIGNATURES = {
     "axllm_matmul": ("axllm_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "axllm_matmul.wgmma": ("axllm_matmul_wgmma_launch",
-                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                           [_P] * 5 + [_I] * 8 + [_P]),
     "axllm_matmul.gemv": ("axllm_matmul_gemv_launch",
                           [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 8
                           + [_P]),
@@ -55,8 +55,7 @@ SIGNATURES = {
     "reuse_matmul": ("reuse_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
     "reuse_matmul.wgmma": ("reuse_matmul_wgmma_launch",
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P]),
+                           [_P] * 6 + [_I] * 11 + [_P]),
     "reuse_matmul.gemv": ("reuse_matmul_gemv_launch",
                           [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11
                           + [_P]),

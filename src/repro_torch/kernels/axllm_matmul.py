@@ -8,10 +8,12 @@ call (M = n_slots) is bound by the bytes of the int8 codes and the prefill
 call by its operations. :func:`matmul_path` picks, before the launch, one
 of the library's three kernels: the tensor-core kernel
 (``csrc/quant_gemm_sm90.cuh``, counted also under
-``LAUNCHES["axllm_matmul.wgmma"]``) for the prefill calls it can take, the
-split-K decode kernel (``csrc/quant_gemv.cuh``, under
-``LAUNCHES["axllm_matmul.gemv"]``) for M <= ``GEMV_MAX_M``, and the SIMT
-tile kernel for the rest. The decode kernel's plan (:func:`gemv_plan`,
+``LAUNCHES["axllm_matmul.wgmma"]``) for the prefill calls it can take
+(bf16 activations at M >= ``TC_MIN_M``, affine codes and the codebooks
+NF4 and identity-8 alike), the split-K decode kernel
+(``csrc/quant_gemv.cuh``, under ``LAUNCHES["axllm_matmul.gemv"]``) for M
+<= ``GEMV_MAX_M``, and the SIMT tile kernel for the rest (f32 activations
+above M = 16, odd group sizes). The decode kernel's plan (:func:`gemv_plan`,
 from shapes alone) and its scratch and counters are made once per
 (device, stream, shape); :func:`ref.quant_gemv_split_ref` computes what
 it does, split by split. The source says what each design does about
@@ -35,6 +37,8 @@ TC_MIN_M = GEMV_MAX_M + 1
 TC_BK = 64        # its K tile (csrc/quant_gemm_sm90.cuh kBK)
 GEMV_BN = 32      # the decode kernel's columns per block (csrc kGemvBN)
 REUSE_GEMV_BN = 256   # the reuse decode kernel's (csrc kBN)
+# the tensor-core kernel's alphabets (csrc/quant_gemm_sm90.cuh Alphabet)
+TC_AFFINE, TC_NF4, TC_IDENTITY8 = 0, 1, 2
 GEMV_SPLITS = 64  # K splits a plan aims at, at most
 GEMV_MERGE = 16   # splits the reuse plan takes before it shrinks its M tile
 REUSE_GEMV_MT = 4  # the reuse decode kernel's M tile, at most: one 16-byte
@@ -45,16 +49,27 @@ GEMV_SMEM = 96 * 1024  # shared bytes of a split's codes and x, at most
 def tensor_core_path(m: int, dtype: torch.dtype, qt: QTensor) -> bool:
     """Whether an [m, K] @ qt call takes the tensor-core (wgmma) kernel of
     ``csrc/quant_gemm_sm90.cuh``, shared by this kernel and
-    ``reuse_matmul``: bf16 activations, an affine alphabet (exact in
-    bf16), one scale row or groups of a multiple of ``TC_BK`` rows, M at
-    least ``TC_MIN_M``, and rows that TMA can address (K a multiple of 8,
-    N of 16, of 32 when packed). Everything else keeps a CUDA-core kernel:
-    f32 activations, codebooks, decode M and odd group sizes."""
+    ``reuse_matmul``: bf16 activations, any alphabet (affine codes, exact
+    in bf16; the codebooks NF4, packed or not, and identity-8, each level
+    split into three bf16 terms whose sum is the level), one scale row or
+    groups of a multiple of ``TC_BK`` rows, M at least ``TC_MIN_M``, and
+    rows that TMA can address (K a multiple of 8, N of 16, of 32 when
+    packed). Everything else keeps a CUDA-core kernel: f32 activations,
+    decode M and odd group sizes."""
     k, n = qt.shape[-2], qt.shape[-1]
-    return (dtype == torch.bfloat16 and qt.mode == "affine"
-            and m >= TC_MIN_M and k % 8 == 0
+    return (dtype == torch.bfloat16 and m >= TC_MIN_M and k % 8 == 0
             and n % (32 if qt.packed else 16) == 0
             and (qt.granularity != "per_group" or qt.group_size % TC_BK == 0))
+
+
+def tc_alphabet(qt: QTensor):
+    """(alphabet, sum_rows) that both tensor-core entry points take for
+    ``qt``: ``TC_AFFINE`` with 0 (partials span their scale row), or the
+    codebook, ``TC_NF4`` (4 bits) or ``TC_IDENTITY8`` (8 bits), with the
+    partial-sum span ``ref.CODEBOOK_SUM_ROWS`` that the emulation uses."""
+    if qt.mode == "affine":
+        return TC_AFFINE, 0
+    return (TC_NF4 if qt.bits == 4 else TC_IDENTITY8), ref.CODEBOOK_SUM_ROWS
 
 
 def gemv_path(m: int, qt: QTensor) -> bool:
@@ -254,25 +269,26 @@ def launch(x2: torch.Tensor, qt: QTensor, out_dtype,
     scale = qt.kernel_scale
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     out_bf16 = int(y.dtype == torch.bfloat16)
+    cb = resolve_codebook(qt)
+    n_levels = 0 if cb is None else cb.numel()
     if path == "wgmma":
         _build.launch(
             "axllm_matmul.wgmma", x2.data_ptr(), qt.codes.data_ptr(),
-            scale.data_ptr(), y.data_ptr(), m, k, n, int(qt.packed),
-            scale.shape[0], out_bf16, stream)
+            scale.data_ptr(), _ptr(cb), y.data_ptr(), m, k, n,
+            int(qt.packed), *tc_alphabet(qt), scale.shape[0], out_bf16,
+            stream)
         return y
-    cb = resolve_codebook(qt)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     if path == "gemv":
         plan, part, counters = gemv_buffers(x2, qt, stream)
         _build.launch(
             "axllm_matmul.gemv", x2.data_ptr(), x_bf16, qt.codes.data_ptr(),
             scale.data_ptr(), _ptr(cb), y.data_ptr(), out_bf16, _ptr(part),
-            _ptr(counters), m, k, n, int(qt.packed),
-            0 if cb is None else cb.numel(), scale.shape[0],
-            plan.k_per_split, plan.splits, stream)
+            _ptr(counters), m, k, n, int(qt.packed), n_levels,
+            scale.shape[0], plan.k_per_split, plan.splits, stream)
         return y if y.dtype == out_dtype else y.to(out_dtype)
     _build.launch(
         "axllm_matmul", x2.data_ptr(), x_bf16, qt.codes.data_ptr(),
         scale.data_ptr(), _ptr(cb), y.data_ptr(), m, k, n, int(qt.packed),
-        0 if cb is None else cb.numel(), scale.shape[0], stream)
+        n_levels, scale.shape[0], stream)
     return y.to(out_dtype)

@@ -55,29 +55,67 @@ def reuse_matmul_ref(x: torch.Tensor, qt: QTensor,
     return torch.sum(part * scale[:, None, :], dim=0).to(out_dtype)
 
 
+def level_terms(levels: torch.Tensor) -> torch.Tensor:
+    """[3, L] f32 bf16 terms of each f32 level, as the tensor-core path
+    splits a codebook (``csrc/quant_gemm_sm90.cuh`` store_terms): hi =
+    bf16(l), mid = bf16(l - hi), lo = bf16(l - hi - mid), each rounded to
+    nearest even. Every subtraction is exact in f32, and hi + mid + lo ==
+    l."""
+    rest = levels.to(torch.float32)
+    terms = []
+    for _ in range(3):
+        t = rest.to(torch.bfloat16).to(torch.float32)
+        terms.append(t)
+        rest = rest - t
+    return torch.stack(terms)
+
+
+# rows of K a codebook's partial sum spans at most on the tensor-core path:
+# the wrappers pass it to the kernel (kernels/axllm_matmul.py tc_alphabet)
+CODEBOOK_SUM_ROWS = 256
+
+
 def quant_gemm_ref(x: torch.Tensor, qt: QTensor, k_tile: int = 64,
                    out_dtype=torch.float32) -> torch.Tensor:
     """The tensor-core path's arithmetic (``csrc/quant_gemm_sm90.cuh``),
-    step by step: x rounded to bf16 times the affine codes (exact in
-    bf16, and each product exact in f32), f32 sums over each ``k_tile``
-    rows of K added in order within a scale group, and each group's sum
-    times its scale added into the output in group order. It is the
-    association of :func:`reuse_matmul_ref` for an affine alphabet; only
-    the order of the f32 additions differs. x: [M, K]; qt: [K, N]."""
-    if qt.mode != "affine":
-        raise ValueError("the tensor-core path takes affine codes only")
-    c = decode_codes(qt).to(torch.float32)
-    xb = x.to(torch.bfloat16).to(torch.float32)
-    scale = _reuse_scale(qt)                          # [G, N]
-    g_rows = qt.shape[-2] // scale.shape[0]
+    step by step, for the calls it takes (bf16 x, one scale row or groups
+    of a multiple of ``k_tile`` rows): x times each step's bf16 B values,
+    every product exact in f32. An affine code is its own B value (exact
+    in bf16); a codebook level is three steps, its :func:`level_terms`.
+    f32 sums over each ``k_tile`` rows of K, step by step, added in order
+    into a partial sum that spans its scale row's rows (all of K with one
+    row) and, for a codebook, at most ``CODEBOOK_SUM_ROWS`` of them; each
+    partial times its scale row added into the output in order. It is the
+    association of :func:`reuse_matmul_ref` term for term; only the order
+    of the f32 additions differs. x: [M, K] bf16; qt: [K, N]."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core path takes bf16 x, got {x.dtype}")
+    kdim = qt.shape[-2]
+    scale = _reuse_scale(qt).to(x.device)             # [G, N]
+    grouped = scale.shape[0] > 1
+    g_rows = kdim // scale.shape[0]
+    if grouped and g_rows % k_tile:
+        raise ValueError(f"the tensor-core path takes groups of a multiple "
+                         f"of {k_tile} rows, got {g_rows}")
+    c = decode_codes(qt).to(torch.int64).to(x.device)
+    cb = resolve_codebook(qt)
+    if cb is None:
+        steps = [c.to(torch.float32)]
+    else:
+        steps = list(level_terms(cb.to(x.device))[:, c + (cb.shape[0] >> 1)])
+    span = g_rows if cb is None else min(g_rows, CODEBOOK_SUM_ROWS)
+    xb = x.to(torch.float32)
     out = torch.zeros((x.shape[0], qt.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    for g in range(scale.shape[0]):
-        part = torch.zeros_like(out)
-        for k0 in range(g * g_rows, (g + 1) * g_rows, k_tile):
-            k1 = min(k0 + k_tile, (g + 1) * g_rows)
-            part = part + xb[:, k0:k1] @ c[k0:k1]
-        out = out + part * scale[g]
+    for r0 in range(0, kdim, g_rows):                 # each scale row
+        for s0 in range(r0, r0 + g_rows, span):       # each partial sum
+            s1 = min(s0 + span, r0 + g_rows)
+            part = torch.zeros_like(out)
+            for k0 in range(s0, s1, k_tile):
+                k1 = min(k0 + k_tile, s1)
+                for b in steps:
+                    part = part + xb[:, k0:k1] @ b[k0:k1]
+            out = out + part * scale[r0 // g_rows]
     return out.to(out_dtype)
 
 

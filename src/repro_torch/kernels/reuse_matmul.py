@@ -13,15 +13,17 @@ table kernel (counted also under ``LAUNCHES["reuse_matmul.gemv"]``; its
 plan, scratch and counters as ``axllm_matmul.gemv_buffers`` keeps them),
 which writes the caller's dtype in one launch; for the prefill calls that
 :func:`~repro_torch.kernels.axllm_matmul.tensor_core_path` accepts (bf16
-activations, an affine alphabet) the library's tensor-core kernel
+activations at M >= 17, every alphabet) the library's tensor-core kernel
 (``csrc/quant_gemm_sm90.cuh``, counted also under
 ``LAUNCHES["reuse_matmul.wgmma"]``) runs the same association instead:
-for an affine alphabet ``sign(c) * levels[|c|] == c``, so the group sums of
-``x * c`` scaled after each sum are the table kernel's, and the multiplies
-run on the tensor cores rather than being skipped; the table kernel over
-all of K takes the rest. The count stays the Result Cache's on every
-path. The source says what bounds each path and what
-its design does about that.
+for an affine alphabet ``sign(c) * levels[|c|] == c``, and a codebook
+level (NF4, identity-8) is the exact sum of three bf16 terms, so the group
+sums of ``x * level`` scaled after each sum are the table kernel's, and
+the multiplies run on the tensor cores rather than being skipped; it
+writes the caller's f32 or bf16. The table kernel over all of K takes the
+rest (f32 activations above M = 16, odd group sizes). The count stays the
+Result Cache's on every path. The source says what bounds each path and
+what its design does about that.
 
 The count depends on the column segment it is taken over. The segment is
 fixed here by the JAX rule for the reuse branch of ``pick_blocks``: the
@@ -41,7 +43,7 @@ from repro_torch.core.reuse import rc_alphabet
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.axllm_matmul import (_ptr, check_operands,
                                               gemv_buffers, matmul_path,
-                                              out_buffer)
+                                              out_buffer, tc_alphabet)
 
 
 def segment(n: int) -> int:
@@ -103,8 +105,8 @@ def launch(x2: torch.Tensor, qt: QTensor, with_stats: bool, out_dtype,
         _build.launch(
             "reuse_matmul.wgmma", x2.data_ptr(), qt.codes.data_ptr(),
             scale.data_ptr(), levels.data_ptr(), y.data_ptr(), _ptr(mults),
-            m, k, n, int(qt.packed), levels.numel(), scale.shape[0],
-            segment(n), out_bf16, stream)
+            m, k, n, int(qt.packed), levels.numel(), int(fold),
+            *tc_alphabet(qt), scale.shape[0], segment(n), out_bf16, stream)
         return y, mults
     if path == "gemv":
         plan, part, counters = gemv_buffers(x2, qt, stream, reuse=True)

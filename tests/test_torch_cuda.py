@@ -23,7 +23,10 @@ split-K decode kernels (``axllm_matmul.gemv``, ``reuse_matmul.gemv``, M
 within 1e-5 of the output scale, must give the same bits on a second
 launch and be one kernel launch a call. The
 reuse kernel's multiply count is an integer and must equal
-``reuse_mult_count``. The engines' greedy tokens on a bf16 model are held
+``reuse_mult_count``. The tensor-core path's codebook route (NF4, packed
+or not, and identity-8, each level three bf16 terms) is held to its plain
+version and its emulation (``ref.quant_gemm_ref``) within 1e-5 of the
+output scale. The engines' greedy tokens on a bf16 model are held
 to the teacher-forced token gate (``serve/token_gate.py``). The quantization kernel's codes and scales must
 equal its plain version's exactly.
 """
@@ -417,6 +420,57 @@ def test_wrappers_reject_what_kernels_do_not_take(card):
             torch.ones(5, 16, 2, 2, device=card))
 
 
+CODEBOOKS = [QuantConfig(4, "codebook"), QuantConfig(4, "codebook", pack=False),
+             QuantConfig(8, "codebook"),
+             QuantConfig(4, "codebook", "per_group", group_size=64),
+             QuantConfig(8, "codebook", "per_group", group_size=128),
+             QuantConfig(4, "codebook", "per_group", group_size=320),
+             QuantConfig(4, "codebook", "per_group", group_size=1024)]
+CODEBOOK_IDS = ["nf4", "nf4-unpacked", "cb8", "nf4-group64", "cb8-group128",
+                "nf4-group320", "nf4-group1024"]
+
+
+@pytest.mark.parametrize("qcfg", CODEBOOKS, ids=CODEBOOK_IDS)
+@pytest.mark.parametrize("kernel", ["axllm_matmul", "reuse_matmul"])
+def test_quant_gemm_codebook_kernel(card, kernel, qcfg):
+    """The codebook route of the tensor-core kernel, from the threshold M
+    to a prefill wave, ragged K and M included, and scale rows longer than
+    a partial sum's span (groups of 320 and 1024 rows): one launch of its
+    wgmma entry point, within 1e-5 of the output scale of its plain version
+    and of its emulation, the same bits on a second launch, a bf16 output
+    equal to the f32 output rounded once, and (reuse) the Result Cache's
+    count."""
+    g = torch.Generator(device=card).manual_seed(11)
+    plain = ref.axllm_matmul_ref if kernel == "axllm_matmul" else \
+        ref.reuse_matmul_ref
+    ran = 0
+    for m, k, n in ((17, 256, 128), (300, 200, 256), (300, 640, 256),
+                    (1000, 768, 512), (4096, 2048, 768)):
+        fields = _fit_group(qcfg, k)
+        if fields.granularity == "per_group" and fields.group_size % 64:
+            continue        # 8-row groups take the tile kernels
+        ran += 1
+        qt = quantize(torch.randn(k, n, generator=g, device=card)
+                      * k ** -0.5, fields)
+        x = torch.randn(m, k, generator=g, device=card).to(torch.bfloat16)
+        assert tensor_core_path(m, x.dtype, qt)
+        before = dict(_build.LAUNCHES)
+        y, mults = _gemv_call(kernel, x, qt, torch.float32, True)
+        torch.cuda.synchronize()
+        case = f"M{m} K{k} N{n}"
+        assert _build.LAUNCHES[f"{kernel}.wgmma"] == before.get(
+            f"{kernel}.wgmma", 0) + 1, case
+        assert _rel_err(y, plain(x, qt)) < 1e-5, case
+        assert _rel_err(y, ref.quant_gemm_ref(x, qt)) < 1e-5, case
+        if mults is not None:
+            assert int(mults) == ref.reuse_mult_count(qt, segment(n)), case
+        again, _ = _gemv_call(kernel, x, qt, torch.float32)
+        assert torch.equal(again, y), case
+        y16, _ = _gemv_call(kernel, x, qt, torch.bfloat16)
+        assert torch.equal(y16, y.to(torch.bfloat16)), case
+    assert ran > 0
+
+
 @pytest.mark.parametrize("mode", ["dense", "paged-reuse"])
 def test_engine_kernel_path_matches_plain_path(card, mode):
     cfg = CONFIG.reduced(dtype="float32", remat=False)
@@ -555,6 +609,11 @@ def test_quant_gemv_is_one_launch_a_call(card, kernel):
     x = torch.randn(8, 768, generator=g, device=card).to(torch.bfloat16)
     _gemv_call(kernel, x, qt, torch.bfloat16)      # plan, scratch, build
     torch.cuda.synchronize()
+    # a first trace of the process may record no device events while the
+    # tracer starts up: trace one call, and read a second trace
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _gemv_call(kernel, x, qt, torch.bfloat16)
+        torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -582,12 +641,13 @@ def test_quant_gemv_takes_the_tile_kernel_for_unaligned_codes(card):
         assert _rel_err(y, ref.axllm_matmul_ref(x, qt)) < 1e-5
 
 
-@pytest.mark.parametrize("mode", ["dense", "paged-reuse"])
+@pytest.mark.parametrize("mode", ["dense", "paged-reuse", "nf4-reuse"])
 def test_engine_tokens_pass_the_token_gate(card, mode):
     """A bf16 reduced model served through the kernels: every greedy
     token's plain-path logit (teacher-forced on the kernel path's own
     prefix) lies within twice the logits tolerance of the plain maximum;
-    the decode steps ran the split-K kernels."""
+    the decode steps ran the split-K kernels, and the NF4 engine's
+    prefill waves the codebook route of the tensor cores."""
     cfg = CONFIG.reduced(remat=False)
     assert cfg.dtype == "bfloat16"
     params = get_model(cfg).init(seed=0, device=card)
@@ -601,11 +661,19 @@ def test_engine_tokens_pass_the_token_gate(card, mode):
     if mode == "paged-reuse":
         kw, impl, plain, gemv = (dict(paged=True, kv_block_size=8), "reuse",
                                  "reuse_ref", "reuse_matmul.gemv")
+    if mode == "nf4-reuse":
+        kw, impl, plain, gemv = (dict(quant_bits=4, quant_mode="codebook"),
+                                 "reuse", "reuse_ref", "reuse_matmul.gemv")
     eng = ServeEngine(cfg, params, n_slots=4, max_len=64, quantize=True,
                       decode_chunk=8, impl=impl, device=card, **kw)
     _build.reset_launches()
     toks = eng.generate(prompts, max_new=24)
     assert _build.LAUNCHES[gemv] > 0
+    if mode == "nf4-reuse":     # every matmul launch on wgmma or gemv
+        launches = dict(_build.LAUNCHES)
+        assert launches["reuse_matmul.wgmma"] > 0
+        assert launches["reuse_matmul"] == launches["reuse_matmul.wgmma"] \
+            + launches["reuse_matmul.gemv"]
     gate = token_gate(cfg, eng.params, prompts, toks, impl=plain,
                       tol_rel=5e-2, device=card)
     assert gate.positions == 24 * len(prompts)

@@ -1,18 +1,23 @@
 """The tensor-core path of the two quantized matmuls
 (``csrc/quant_gemm_sm90.cuh``) on the CPU: its arithmetic, emulated step
 by step in plain PyTorch (``ref.quant_gemm_ref``: bf16 x times the codes
-cast to bf16, f32 sums per 64-row K tile, each group's sum scaled at its
-boundary), against the JAX package on the same numpy inputs; the choice,
-made before a launch, of which calls take that path; and what the
-wrappers and the build do around it.
+cast to bf16, or times the three bf16 terms of each codebook level, f32
+sums per 64-row K tile, each group's sum scaled at its boundary), against
+the JAX package on the same numpy inputs; the exactness of the codebook
+term split; the choice, made before a launch, of which calls take that
+path; and what the wrappers and the build do around it.
 
-Tolerances: with bf16-valued activations every product is exact in f32,
-so the emulation differs from JAX's reuse kernel (interpret mode) and
+Tolerances: with bf16-valued activations every product is exact in f32
+(a codebook level is the exact sum of its three bf16 terms), so the
+emulation differs from JAX's reuse and axllm kernels (interpret mode) and
 multiply-path oracle only in the order of f32 additions and in where the
 scale is applied: within 1e-5 of the output scale. In the dyadic regime
 (integer activations, dyadic scales) every sum is exact in f32, so all
 three must equal the int64 product bit for bit.
 """
+
+import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +29,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import quantization as TQ
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.axllm_matmul import (TC_MIN_M, axllm_matmul_cuda,
+from repro_torch.kernels.axllm_matmul import (TC_AFFINE, TC_BK,
+                                              TC_IDENTITY8, TC_MIN_M, TC_NF4,
+                                              axllm_matmul_cuda, tc_alphabet,
                                               tensor_core_path)
 from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda
 
@@ -39,6 +46,18 @@ AFFINE = [
 ]
 AFFINE_IDS = ["int8", "int4", "int4-unpacked", "int8-group64",
               "int8-group128", "int4-group64"]
+# NF4 (packed and not) and identity-8, per-channel and per-group
+CODEBOOK = [
+    dict(bits=4, mode="codebook"),
+    dict(bits=4, mode="codebook", pack=False),
+    dict(bits=8, mode="codebook"),
+    dict(bits=4, mode="codebook", granularity="per_group", group_size=128),
+    dict(bits=4, mode="codebook", pack=False, granularity="per_group",
+         group_size=64),
+    dict(bits=8, mode="codebook", granularity="per_group", group_size=128),
+]
+CODEBOOK_IDS = ["nf4", "nf4-unpacked", "cb8", "nf4-group128",
+                "nf4-unpacked-group64", "cb8-group128"]
 
 
 def _bf16_valued(rng, shape):
@@ -120,11 +139,140 @@ def test_emulation_bit_exact_in_dyadic_regime(bits, packed, group_rows):
         got.numpy(), ref.reuse_matmul_ref(torch.from_numpy(x), tq).numpy())
 
 
+@pytest.mark.parametrize("fields", CODEBOOK, ids=CODEBOOK_IDS)
+@pytest.mark.parametrize("m", [40, 300])
+def test_codebook_emulation_matches_jax(m, fields):
+    """The codebook route's emulation (three bf16 terms of each level,
+    three passes over each K tile) against JAX's reuse and axllm kernels
+    in interpret mode, its multiply-path oracle and the port's plain
+    versions, within 1e-5 of the output scale."""
+    rng = np.random.default_rng(m + 3 * fields["bits"])
+    x = _bf16_valued(rng, (m, K))
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    jq, tq = _qpair(w, **fields)
+    got = ref.quant_gemm_ref(torch.from_numpy(x).to(torch.bfloat16), tq)
+    assert got.dtype == torch.float32
+    y_reuse, _ = jops.reuse_matmul(jnp.asarray(x), jq, impl="reuse_interpret")
+    _within_scale(got.numpy(), y_reuse)
+    if "granularity" not in fields:
+        # the JAX axllm kernel cannot take a codebook with per-group scales
+        # (_dequant_tile multiplies the [G, bn] scale tile into [bk, bn]
+        # weights unbroadcast: a fault of the reference, ROADMAP section 3);
+        # its oracle below covers those cases
+        _within_scale(got.numpy(), jops.axllm_matmul(
+            jnp.asarray(x), jq, impl="pallas_interpret"))
+    _within_scale(got.numpy(), jref.axllm_matmul_ref(jnp.asarray(x), jq))
+    _within_scale(got.numpy(), ref.reuse_matmul_ref(torch.from_numpy(x), tq))
+    _within_scale(got.numpy(), ref.axllm_matmul_ref(torch.from_numpy(x), tq))
+
+
+@pytest.mark.parametrize("k,fields", [
+    (640, dict(bits=4, mode="codebook", granularity="per_group",
+               group_size=320)),
+    (2048, dict(bits=4, mode="codebook", granularity="per_group",
+                group_size=1024)),
+    (640, dict(bits=8, mode="codebook")),
+], ids=["nf4-group320", "nf4-group1024", "cb8-k640"])
+def test_codebook_long_partials_match_jax(k, fields):
+    """Scale rows longer than ``CODEBOOK_SUM_ROWS``: the emulation's
+    partial sums restart within each row (a group of 320 rows as 256 + 64,
+    one of 1024 as four of 256) and still match JAX's reuse kernel in
+    interpret mode and its oracle within 1e-5 of the output scale."""
+    assert max(k, fields.get("group_size", 0)) > ref.CODEBOOK_SUM_ROWS
+    rng = np.random.default_rng(k + fields["bits"])
+    x = _bf16_valued(rng, (40, k))
+    w = rng.standard_normal((k, N)).astype(np.float32)
+    jq, tq = _qpair(w, **fields)
+    got = ref.quant_gemm_ref(torch.from_numpy(x).to(torch.bfloat16), tq)
+    y_reuse, _ = jops.reuse_matmul(jnp.asarray(x), jq, impl="reuse_interpret")
+    _within_scale(got.numpy(), y_reuse)
+    _within_scale(got.numpy(), jref.axllm_matmul_ref(jnp.asarray(x), jq))
+    _within_scale(got.numpy(), ref.reuse_matmul_ref(torch.from_numpy(x), tq))
+
+
+@pytest.mark.parametrize("fields,want", [
+    (dict(bits=8), (TC_AFFINE, 0)),
+    (dict(bits=4, pack=True), (TC_AFFINE, 0)),
+    (dict(bits=4, mode="codebook"), (TC_NF4, ref.CODEBOOK_SUM_ROWS)),
+    (dict(bits=4, mode="codebook", pack=False),
+     (TC_NF4, ref.CODEBOOK_SUM_ROWS)),
+    (dict(bits=8, mode="codebook", granularity="per_group", group_size=128),
+     (TC_IDENTITY8, ref.CODEBOOK_SUM_ROWS)),
+], ids=["int8", "int4", "nf4", "nf4-unpacked", "cb8-group128"])
+def test_tensor_core_alphabet_is_named(fields, want):
+    """The wrappers name the alphabet to the kernel (the kernel does not
+    guess it from a table's length), and a codebook's partial-sum span is
+    the emulation's own constant, a whole number of K tiles."""
+    assert tc_alphabet(_qt(k=256, n=128, **fields)) == want
+    assert ref.CODEBOOK_SUM_ROWS % TC_BK == 0
+
+
+def test_entry_point_signatures_match_the_sources():
+    """Each entry point's ctypes signature has as many arguments as its
+    ``extern "C"`` prototype in ``csrc/<library>.cu``."""
+    protos = {}
+    for p in _build.CSRC.glob("*.cu"):
+        for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                   p.read_text()):
+            protos[fn] = len(args.split(","))
+    for name, (fn, argtypes) in _build.SIGNATURES.items():
+        assert protos[fn] == len(argtypes), name
+
+
+@pytest.mark.parametrize("bits", [4, 8], ids=["nf4", "cb8"])
+def test_level_terms_are_exact(bits):
+    """hi + mid + lo equals every codebook level exactly in f32, and each
+    term is a bf16 value: the products x * term are exact."""
+    levels = TQ.nf4_codebook() if bits == 4 else TQ.identity_codebook(8)
+    terms = ref.level_terms(levels)
+    assert terms.shape == (3, levels.numel())
+    assert torch.equal(terms.to(torch.bfloat16).to(torch.float32), terms)
+    assert torch.equal((terms[0] + terms[1]) + terms[2], levels)
+    assert torch.equal(terms[0] + (terms[1] + terms[2]), levels)
+    # two terms would not do: some level needs its third
+    assert bool((terms[2] != 0).any())
+
+
+def _rn32(v: Fraction) -> Fraction:
+    """The rational ``v`` rounded to the nearest f32, ties to even."""
+    c = np.float32(float(v))
+    near = (np.nextafter(c, np.float32(-np.inf)), c,
+            np.nextafter(c, np.float32(np.inf)))
+    return min((abs(Fraction(float(f)) - v),
+                int(np.asarray(f).view(np.uint32)) & 1, Fraction(float(f)))
+               for f in near)[2]
+
+
+def test_identity8_level_formula_is_exact():
+    """The kernel computes identity-8 levels from the code (identity8_level
+    in ``csrc/quant_gemm_sm90.cuh``): q = c * inv, with inv = f32(1/127)
+    (bits 0x3C010204), then fma(fma(-q, 127, c), inv, q). In exact
+    rational arithmetic, each step rounded once to f32, that is the
+    codebook's c / 127 for all 256 codes."""
+    inv = _rn32(Fraction(1, 127))
+    assert np.float32(float(inv)).view(np.uint32) == 0x3C010204
+    levels = TQ.identity_codebook(8).numpy()
+    for c in range(-128, 128):
+        q = _rn32(c * inv)
+        r = _rn32(c - 127 * q)
+        level = _rn32(r * inv + q)
+        assert np.float32(float(level)) == levels[c + 128], c
+
+
 def test_emulation_rejects_codebooks():
-    w = torch.randn(64, 32)
-    with pytest.raises(ValueError):
-        ref.quant_gemm_ref(w[:4].to(torch.bfloat16),
-                           TQ.quantize(w, TQ.QuantConfig(4, "codebook")))
+    """The emulation once refused codebooks; it takes them now (above) and
+    refuses what the route still does not take: f32 x, and scale groups
+    that the 64-row K tile does not divide."""
+    w, x = torch.randn(64, 32), torch.randn(4, 64)
+    for fields in (dict(bits=4, mode="codebook"), dict(bits=8)):
+        qt = TQ.quantize(w, TQ.QuantConfig(**fields))
+        assert ref.quant_gemm_ref(x.to(torch.bfloat16), qt).shape == (4, 32)
+        with pytest.raises(ValueError):
+            ref.quant_gemm_ref(x, qt)
+        grouped = TQ.quantize(w, TQ.QuantConfig(
+            **fields, granularity="per_group", group_size=32))
+        with pytest.raises(ValueError):
+            ref.quant_gemm_ref(x.to(torch.bfloat16), grouped)
 
 
 def _qt(k=768, n=2048, **fields):
@@ -147,18 +295,30 @@ BF16, F32 = torch.bfloat16, torch.float32
     (4096, BF16, dict(bits=8, granularity="per_group", group_size=128), True),
     (4096, BF16, dict(bits=8, granularity="per_group", group_size=32), False),
     (4096, BF16, dict(bits=8, granularity="per_group", group_size=96), False),
-    (4096, BF16, dict(bits=4, mode="codebook"), False),    # NF4
-    (4096, BF16, dict(bits=8, mode="codebook"), False),    # identity-8
+    (4096, BF16, dict(bits=4, mode="codebook"), True),     # NF4
+    (4096, BF16, dict(bits=8, mode="codebook"), True),     # identity-8
     (4096, BF16, dict(k=200, bits=8), True),               # ragged K, TMA rows
     (4096, BF16, dict(k=196, bits=8), False),              # rows not 16 B
     (4096, BF16, dict(n=80, bits=8), True),
     (4096, BF16, dict(n=88, bits=8), False),
     (4096, BF16, dict(n=80, bits=4, pack=True), False),    # 40-byte rows
     (4096, BF16, dict(n=96, bits=4, pack=True), True),
+    (4096, BF16, dict(bits=4, mode="codebook", pack=False), True),
+    (TC_MIN_M, BF16, dict(bits=4, mode="codebook"), True),
+    (TC_MIN_M - 1, BF16, dict(bits=4, mode="codebook"), False),
+    (4096, F32, dict(bits=4, mode="codebook"), False),
+    (4096, F32, dict(bits=8, mode="codebook"), False),
+    (4096, BF16, dict(bits=4, mode="codebook", granularity="per_group",
+                      group_size=128), True),
+    (4096, BF16, dict(bits=8, mode="codebook", granularity="per_group",
+                      group_size=32), False),
+    (4096, BF16, dict(n=80, bits=4, mode="codebook"), False),
 ], ids=["prefill", "threshold", "below-threshold", "decode", "f32", "int4",
         "int4-unpacked", "per-tensor", "group64", "group128", "group32",
         "group96", "nf4", "cb8", "k200", "k196", "n80", "n88",
-        "n80-packed", "n96-packed"])
+        "n80-packed", "n96-packed", "nf4-unpacked", "nf4-threshold",
+        "nf4-below-threshold", "nf4-f32", "cb8-f32", "nf4-group128",
+        "cb8-group32", "nf4-n80-packed"])
 def test_tensor_core_path_choice(m, dtype, qt_fields, want):
     assert tensor_core_path(m, dtype, _qt(**qt_fields)) is want
 

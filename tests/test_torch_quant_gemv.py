@@ -231,7 +231,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (1, BF16, dict(bits=8), "gemv"),
     (GEMV_MAX_M, BF16, dict(bits=8), "gemv"),
     (GEMV_MAX_M + 1, F32, dict(bits=8), "tile"),
-    (GEMV_MAX_M + 1, BF16, dict(bits=4, mode="codebook"), "tile"),
+    (GEMV_MAX_M + 1, BF16, dict(bits=4, mode="codebook"), "wgmma"),
     (TC_MIN_M, BF16, dict(bits=8), "wgmma"),             # prefill
     (0, BF16, dict(bits=8), "tile"),                     # count only
     (8, F32, dict(bits=8), "gemv"),                      # fp32 engine
@@ -243,7 +243,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (8, BF16, dict(bits=8, granularity="per_group", group_size=96), "gemv"),
     (8, BF16, dict(bits=4, mode="codebook"), "gemv"),    # NF4
     (8, BF16, dict(bits=8, mode="codebook"), "gemv"),    # identity-8
-    (4096, BF16, dict(bits=4, mode="codebook"), "tile"),  # NF4 prefill
+    (4096, BF16, dict(bits=4, mode="codebook"), "wgmma"),  # NF4 prefill
     (8, BF16, dict(n=80, bits=8), "gemv"),               # 80-byte rows
     (8, BF16, dict(n=88, bits=8), "tile"),               # rows not 16 B
     (8, BF16, dict(n=80, bits=4, pack=True), "tile"),    # 40-byte rows
