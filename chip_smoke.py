@@ -29,7 +29,12 @@ NVIDIA GPU.
    same function (a yardstick the port never calls). The reuse matmul's
    multiply count is held against ``reuse_mult_count``. The quantization
    kernel's codes and scales must equal its plain version's, at five
-   shapes, bf16 and f32, 8 and 4 bits, and then in a deploy pass through
+   shapes, bf16 and f32, 8 and 4 bits (each timed beside the strip
+   kernel it replaced, built from
+   ``src/repro_torch/baseline/quantize_strip.cu`` as a library of its
+   own, and the launch floor, with its plan printed), on every route of
+   its plan at 2 to 8 bits (K65536, ragged N in stacks), on columns
+   holding a NaN, an inf or only zeros, and then in a deploy pass through
    ``ops.quantize_channels`` over every projection leaf of full-width
    repro-100m (84 matrices, one launch per stacked leaf), its path. The
    codebook route of the tensor-core path (NF4 and identity-8, per
@@ -687,33 +692,93 @@ def sass_hgmma(lib: str) -> int:
     return sum("HGMMA" in line for line in sass.splitlines())
 
 
-def quantize_kernel_phase(dev, flush):
+# the strip kernel that csrc/quantize.cu replaced, built as its own library
+# only to time it beside the cluster kernel ("was"); no path calls it
+STRIP_SOURCE = ROOT / "src/repro_torch/baseline/quantize_strip.cu"
+# the quantization kernel's shapes: the table's (timed), then the routes of
+# its plan (held bit-equal only): K beyond what a cluster holds, ragged N
+# (not a multiple of 16, 8 or 4) in stacks
+QUANT_TIMED = ((768, 768), (768, 256), (768, 2048), (2048, 768),
+               (8192, 2048))
+QUANT_ROUTES = ((65536, 96), (3, 300, 130), (2, 300, 100), (2, 70, 37),
+                (8192, 130))
+
+
+def start_strip_build():
+    """Start nvcc on the strip kernel (in parallel with the port's build)."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR / "quantize_strip.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+           str(STRIP_SOURCE)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def strip_kernel(proc_out):
+    """The strip kernel as a function w, bits -> (codes, scale)."""
+    import ctypes
+    import torch
+    proc, out = proc_out
+    log = proc.communicate()[0]
+    check(proc.returncode == 0, f"nvcc failed for the strip kernel:\n{log}")
+    fn = ctypes.CDLL(str(out)).quantize_strip_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(w, bits=8):
+        *lead, k, n = w.shape
+        codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((*lead, 1, n), dtype=torch.float32,
+                            device=w.device)
+        err = fn(w.data_ptr(), int(w.dtype == torch.bfloat16),
+                 codes.data_ptr(), scale.data_ptr(), w.numel() // (k * n), k,
+                 n, bits, torch.cuda.current_stream(w.device).cuda_stream)
+        check(err == 0, f"strip kernel launch failed: cudaError_t {err}")
+        return codes, scale
+    return run
+
+
+def quantize_kernel_phase(dev, flush, strip):
     """The quantization kernel against its plain version: codes and scales
-    equal at every shape, type and width, with times at 8 bits; then the
-    deploy pass through ``ops.quantize_channels`` (the kernel's path)
-    over every projection leaf of full-width repro-100m, with the launch
-    count set to 0 just before it and read just after. Returns (rows, the
-    pass's metrics)."""
+    equal at every shape, type and width (8 and 4 bits at the timed
+    shapes, 2 to 8 bits on every route of the plan: K beyond what a
+    cluster holds, ragged N, stacks), and on columns that hold a NaN, an
+    inf or only zeros, with times at 8 bits beside the strip kernel it
+    replaced (``strip``, "was") and the launch floor (a kernel that does
+    nothing, timed the same way); then the deploy pass through
+    ``ops.quantize_channels`` (the kernel's path) over every projection
+    leaf of full-width repro-100m, with the launch count set to 0 just
+    before it and read just after. Returns (rows, the pass's metrics)."""
     import torch
     from repro_torch.configs.repro_100m import CONFIG
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.quantize import quantize_cuda
+    from repro_torch.kernels.quantize import quantize_cuda, quantize_plan
     from repro_torch.models.model import get_model
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
 
+    def plan_of(w):
+        *lead, k, n = w.shape
+        return quantize_plan(w.numel() // (k * n), k, n, w.dtype,
+                             _build.sm_count(w.device))
+
     def held(w, codes, scale, bits, what):
         want_codes, want_scale = ref.quantize_ref(w, bits)
         n_codes = int((codes != want_codes).sum())
-        n_scales = int((scale != want_scale).sum())
+        n_scales = int(((scale != want_scale)
+                        & ~(scale.isnan() & want_scale.isnan())).sum())
         check(n_codes == 0 and n_scales == 0,
               f"quantize {what}: {n_codes} codes and {n_scales} scales "
               "differ from the plain version")
         return float((codes.int() - want_codes.int()).abs().max())
 
-    for k, n in ((768, 768), (768, 256), (768, 2048), (2048, 768),
-                 (8192, 2048)):
+    floor = time_ms(lambda: torch.cuda._sleep(0), flush)
+    print(f"quantize launch floor (a kernel that does nothing, timed the "
+          f"same way): {floor:.4f} ms", flush=True)
+    for k, n in QUANT_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             w = (torch.randn(k, n, generator=g, device=dev)
                  * k ** -0.5).to(dtype)
@@ -724,9 +789,60 @@ def quantize_kernel_phase(dev, flush):
                 err = held(w, codes, scale, bits, shape)
                 ms = time_ms(lambda: quantize_cuda(w, bits), flush)
                 plain = time_ms(lambda: ref.quantize_ref(w, bits), flush)
-                rows.append(case_row("quantize", shape, err, 0.0, ms, plain,
-                                     None, nbytes(w, codes, scale),
-                                     5.0 * k * n, "float32"))
+                row = case_row("quantize", shape, err, 0.0, ms, plain,
+                               None, nbytes(w, codes, scale), 5.0 * k * n,
+                               "float32", "cluster")
+                was = time_ms(lambda: strip(w, bits), flush)
+                print(f"kernel quantize {shape}: plan {plan_of(w).describe()}"
+                      f"; was (strip kernel) {was:.4f} ms; launch floor "
+                      f"{floor:.4f} ms", flush=True)
+                rows.append(dict(row, was_ms=was, launch_floor_ms=floor,
+                                 plan=plan_of(w).describe()))
+
+    routes = []
+    for shape in QUANT_ROUTES:
+        for dtype in (torch.bfloat16, torch.float32):
+            w = (torch.randn(shape, generator=g, device=dev)
+                 * 0.05).to(dtype)
+            w[..., 1, 3] = 0.0          # a tie column: absmax 127 * 2^-7
+            w[..., 0, 3] = 127 * 2.0 ** -7
+            w[..., 2, 3] = 2.5 * 2.0 ** -7
+            for bits in (8, 7, 4, 3, 2):
+                codes, scale = quantize_cuda(w, bits)
+                torch.cuda.synchronize()
+                held(w, codes, scale, bits, f"{shape} {dtype} {bits}b")
+            routes.append(dict(shape=list(shape), dtype=str(dtype)[6:],
+                               plan=plan_of(w).describe()))
+            print(f"quantize {shape} {str(dtype)[6:]}, bits 8/7/4/3/2: codes "
+                  f"and scales equal to the plain version; plan "
+                  f"{plan_of(w).describe()}", flush=True)
+    special = []
+    for shape in ((768, 2048), (3, 300, 130), (65536, 96)):
+        for dtype in (torch.bfloat16, torch.float32):
+            w = (torch.randn(shape, generator=g, device=dev)
+                 * 0.05).to(dtype)
+            w[..., 5, 0] = float("nan")
+            w[..., 0, 1] = float("inf")
+            w[..., 7, 2] = float("-inf")
+            w[..., :, 4] = 0.0
+            codes, scale = quantize_cuda(w, 8)
+            torch.cuda.synchronize()
+            held(w, codes, scale, 8, f"NaN/inf/zero columns {shape}")
+            check(bool(scale[..., 0].isnan().all()
+                       & scale[..., 1].isinf().all())
+                  and not codes[..., [0, 1, 2, 4]].any(),
+                  f"NaN/inf/zero columns {shape}: wrong scale or codes")
+            old_codes, old_scale = strip(w, 8)
+            want_codes, want_scale = ref.quantize_ref(w, 8)
+            torch.cuda.synchronize()
+            old_bad = int((old_codes != want_codes).sum())
+            special.append(dict(shape=list(shape), dtype=str(dtype)[6:],
+                                strip_kernel_codes_off=old_bad))
+            print(f"quantize NaN/inf/zero columns {shape} "
+                  f"{str(dtype)[6:]}: codes and scales equal to the plain "
+                  f"version (NaN scale, inf scale, codes 0); the strip "
+                  f"kernel it replaced gets {old_bad} codes wrong",
+                  flush=True)
 
     params = get_model(CONFIG).init(seed=0, device=dev)
     layers = params["layers"]
@@ -749,12 +865,17 @@ def quantize_kernel_phase(dev, flush):
     ms = time_ms(lambda: [quantize_cuda(w) for w in leaves], flush, iters=10)
     plain = time_ms(lambda: [ref.quantize_ref(w) for w in leaves], flush,
                     iters=10)
+    was = time_ms(lambda: [strip(w) for w in leaves], flush, iters=10)
+    plans = {f"{tuple(w.shape)}": plan_of(w).describe() for w in leaves}
     print(f"quantize deploy pass: {n_mat} matrices ({n_w} weights, "
           f"{nb / 1e6:.1f} MB) in {launches['quantize']} launches, codes and "
           f"scales equal to the plain version; {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), was (strip "
+          f"kernel) {was:.4f} ms; plans {plans}", flush=True)
     deploy = dict(matrices=n_mat, weights=n_w, bytes=nb, launches=launches,
-                  ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+                  ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                  was_ms=was, launch_floor_ms=floor, plans=plans,
+                  routes=routes, nan_inf_zero=special)
     return rows, deploy
 
 
@@ -1262,7 +1383,9 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     t0 = time.perf_counter()
+    strip_build = start_strip_build()
     logs = _build.build()
+    strip = strip_kernel(strip_build)
     print(f"built {len(_build.LIBRARIES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s ({len(logs)} compiled)",
           flush=True)
@@ -1279,7 +1402,7 @@ def main() -> int:
     rows = kernel_phase(dev, flush) + reuse_paged_kernel_phase(dev, flush)
     rows += codebook_kernel_phase(dev, flush)
     sweep = tensor_core_phase(dev, flush)
-    q_rows, deploy = quantize_kernel_phase(dev, flush)
+    q_rows, deploy = quantize_kernel_phase(dev, flush, strip)
     rows += q_rows
     small_input_check(dev)
     e2e = {"dense": end_to_end(dev, card),
@@ -1341,6 +1464,16 @@ def main() -> int:
                 path="wgmma", hgmma_instructions=hgmma[name],
                 wgmma_launches=e2e[run]["launches"][f"{name}.wgmma"],
                 simt={key: simt[key] for key in ROW_KEYS})
+        if name == "quantize":
+            # the cluster kernel; beside it the strip kernel it replaced
+            # and the deploy pass (its path)
+            dep = e2e["deploy"]
+            kernels[-1].update(
+                path="cluster", plan=row["plan"],
+                launch_floor_ms=row["launch_floor_ms"],
+                was=dict(path="strip", ms=row["was_ms"]),
+                deploy_pass={key: dep[key] for key in (
+                    "matrices", "ms", "plain_ms", "bound_ms", "was_ms")})
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
              e2e=e2e), indent=1))

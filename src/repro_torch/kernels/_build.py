@@ -61,7 +61,7 @@ SIGNATURES = {
                           + [_P]),
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_P] * 10 + [_I] * 11 + [_F, _P]),
-    "quantize": ("quantize_launch", [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "quantize": ("quantize_launch", [_P, _I, _P, _P] + [_I] * 10 + [_P]),
 }
 
 # the CUDA sources, one shared library each

@@ -560,3 +560,29 @@ def quantize_ref(w: torch.Tensor, bits: int = 8):
         float(qmax), dtype=torch.float32, device=w.device)
     codes = torch.clamp(torch.round(wf / scale), -qmax, qmax)
     return codes.to(torch.int8), scale
+
+
+# the distance from an integer below which a product rounds as the
+# quotient does (csrc/quantize.cu)
+RCP_DECIDED = 0.5 - 2.0 ** -16
+
+
+def quantize_rcp_ref(w: torch.Tensor, scale: torch.Tensor, bits: int = 8):
+    """The CUDA kernel's rounding of w [..., K, N] by its scale [..., 1, N]
+    (``csrc/quantize.cu``): the exact product y = w * r with r = 1 / s in
+    float32 (the kernel's fma(w, r, 1.5 * 2^23), whose sum rounds y half to
+    even), taken where t = y - rint(y), rounded once to float32 (the
+    kernel's second fma), lies within ``RCP_DECIDED`` of 0; elsewhere (near
+    a half, or NaN) the division ``clip(round(w / s))``. The product of two
+    float32 values is exact in float64. Returns (codes int8, decided
+    bool): the codes equal ``quantize_ref``'s wherever s is w's own
+    scale."""
+    qmax = (1 << (bits - 1)) - 1
+    wf = w.to(torch.float32)
+    y = wf.to(torch.float64) * torch.reciprocal(scale).to(torch.float64)
+    near = torch.round(y)
+    t = (y - near).to(torch.float32)
+    decided = (t.abs() < RCP_DECIDED) & (y.abs() < 2.0 ** 22)
+    divided = torch.clamp(torch.round(wf / scale), -qmax, qmax)
+    return torch.where(decided, near.to(torch.float32),
+                       divided).to(torch.int8), decided

@@ -27,8 +27,10 @@ reuse kernel's multiply count is an integer and must equal
 or not, and identity-8, each level three bf16 terms) is held to its plain
 version and its emulation (``ref.quant_gemm_ref``) within 1e-5 of the
 output scale. The engines' greedy tokens on a bf16 model are held
-to the teacher-forced token gate (``serve/token_gate.py``). The quantization kernel's codes and scales must
-equal its plain version's exactly.
+to the teacher-forced token gate (``serve/token_gate.py``). The
+quantization kernel's codes and scales must equal its plain version's
+exactly, on every route of its plan and on columns that hold a NaN, an
+inf or only zeros.
 """
 
 import dataclasses
@@ -363,11 +365,16 @@ def test_paged_decode_attention_split_kernel(card, quant, dtype, heads):
         q, kp, vp, clamped, length, ks, vs)) < _tol(dtype)
 
 
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 7, 3, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(768, 2048), (2, 300, 100), (3, 9, 64),
-                                   (8192, 130)])
+                                   (8192, 130), (8192, 2048), (65536, 96),
+                                   (3, 300, 130), (2, 70, 37)])
 def test_quantize_kernel(card, shape, dtype, bits):
+    """Every route of the plan: held slices (clusters of 1 to 16 blocks),
+    K beyond what a cluster holds (K65536: the streamed route), N ragged
+    against 16, 8 and 4 columns (N130, N100, N37; stacked), bits 2 to 8;
+    codes and scales equal to the plain version's on the card."""
     g = torch.Generator(device=card).manual_seed(len(shape) + shape[-1])
     w = (torch.randn(shape, generator=g, device=card) * 0.05).to(dtype)
     w[..., 1, 3] = 0.0                  # a tie column: absmax 127 * 2^-7
@@ -386,6 +393,39 @@ def test_quantize_kernel(card, shape, dtype, bits):
     assert torch.equal(codes, want_codes)
     if bits == 8:
         assert int(codes[..., 2, 3].flatten()[0]) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(768, 2048), (3, 300, 130), (2, 70, 37),
+                                   (65536, 96)])
+def test_quantize_kernel_nan_inf_zero_columns(card, shape, dtype):
+    """A NaN anywhere in a column gives it a NaN scale and codes 0, an inf
+    an inf scale (finite weights round to 0, the inf itself is inf / inf:
+    code 0), a column of zeros the 1e-8 floor and codes 0: the plain
+    version's answer on the card and on the CPU (where
+    tests/test_torch_quantize.py holds it to JAX's)."""
+    g = torch.Generator(device=card).manual_seed(shape[-1])
+    w = (torch.randn(shape, generator=g, device=card) * 0.05).to(dtype)
+    w[..., 5, 0] = float("nan")
+    w[..., 0, 1] = float("inf")
+    w[..., 7, 2] = float("-inf")
+    w[..., 3, 5] = float("nan")
+    w[..., 9, 5] = float("inf")
+    w[..., :, 4] = 0.0
+    codes, scale = quantize_cuda(w, 8)
+    torch.cuda.synchronize()
+    want_codes, want_scale = ref.quantize_ref(w, 8)
+    cpu_codes, cpu_scale = ref.quantize_ref(w.cpu(), 8)
+    assert torch.equal(want_codes.cpu(), cpu_codes)
+    torch.testing.assert_close(want_scale.cpu(), cpu_scale, rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(codes, want_codes)
+    torch.testing.assert_close(scale, want_scale, rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool(scale[..., 0].isnan().all() & scale[..., 5].isnan().all())
+    assert bool(scale[..., 1].isinf().all() & scale[..., 2].isinf().all())
+    assert not codes[..., [0, 1, 2, 4, 5]].any()
+    assert bool((scale[..., 4] == np.float32(1e-8) / np.float32(127)).all())
 
 
 def test_wrappers_reject_what_kernels_do_not_take(card):

@@ -114,3 +114,93 @@ def test_dispatch():
             ops.quantize_channels(w, bits=bits)
     c, s = ops.quantize_channels(w, impl="reuse")
     assert torch.equal(c, ref.quantize_ref(w)[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nan_inf_zero_columns_match_jax(dtype):
+    """A NaN anywhere in a column gives a NaN scale and codes 0, an inf (or
+    -inf) an inf scale and codes 0 (finite / inf is 0, inf / inf is NaN),
+    a column of zeros the 1e-8 floor and codes 0: the port's plain version
+    and JAX's oracle alike (the card tests hold the kernel to the former)."""
+    w = np.random.default_rng(4).standard_normal((64, 8)).astype(np.float32)
+    w[5, 0] = np.nan
+    w[0, 1] = np.inf
+    w[7, 2] = -np.inf
+    w[3, 5] = np.nan
+    w[9, 5] = np.inf
+    w[:, 4] = 0.0
+    if dtype == "bfloat16":
+        w = w.astype(ml_dtypes.bfloat16).astype(np.float32)
+        jw, tw = jnp.asarray(w, jnp.bfloat16), torch.from_numpy(w).to(
+            torch.bfloat16)
+    else:
+        jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    for bits in (8, 4):
+        tc, ts = ops.quantize_channels(tw, bits=bits)
+        jc, js = jops.quantize_channels(jw, bits=bits, impl="ref")
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        assert np.isnan(ts[0, [0, 5]].numpy()).all()
+        assert np.isposinf(ts[0, [1, 2]].numpy()).all()
+        assert float(ts[0, 4]) == np.float32(1e-8) / np.float32(
+            (1 << (bits - 1)) - 1)
+        assert not tc[:, [0, 1, 2, 4, 5]].any()
+        assert tc[:, [3, 6, 7]].abs().max() == (1 << (bits - 1)) - 1
+
+
+def _all_bf16() -> torch.Tensor:
+    """Every finite bfloat16 value, as float32."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    v = bits.view(torch.bfloat16).to(torch.float32)
+    return v[torch.isfinite(v)]
+
+
+@pytest.mark.parametrize("bits", [8, 7, 4, 3, 2])
+def test_rcp_rounding_equals_division_on_every_bf16(bits):
+    """The kernel's codes (``ref.quantize_rcp_ref``: a product by the
+    reciprocal where it decides the rounding, the division elsewhere) equal
+    the division's for every finite bfloat16 weight under column maxima
+    that make many quotients land on halves (a power of two times qmax),
+    on thirds and sevenths, at the 1e-8 floor and near the float32 top."""
+    x = _all_bf16()
+    qmax = (1 << (bits - 1)) - 1
+    maxima = [qmax * 2.0 ** e for e in (-7, 0, 3)] + [
+        0.0, 3e-9, 1e-8, 7 * 2.0 ** -9, 3 * 2.0 ** -5, 1.0, 0.7, 6.5e4,
+        3e38]
+    maxima += list(np.random.default_rng(bits).standard_normal(8) * 0.05)
+    cols = []
+    for a in maxima:
+        a = float(torch.tensor(abs(a)).to(torch.bfloat16))
+        cols.append(torch.cat([torch.tensor([a]),
+                               torch.where(x.abs() <= a, x, 0.0)]))
+    w = torch.stack(cols, 1)
+    codes, scale = ref.quantize_ref(w, bits)
+    got, decided = ref.quantize_rcp_ref(w, scale, bits)
+    assert torch.equal(got, codes)
+    assert bool(decided.float().mean() > 0.9)   # the division is rare
+    assert not bool(decided.all())              # and it is taken
+
+
+def test_rcp_rounding_equals_division_near_halves():
+    """float32 weights placed on and one or two ulps either side of
+    (k + 1/2) s for every k: the kernel's rounding (product where decided,
+    division elsewhere) still equals the division's."""
+    rng = np.random.default_rng(8)
+    for bits in (8, 4, 2):
+        qmax = (1 << (bits - 1)) - 1
+        for a in rng.uniform(1e-3, 10.0, 6).astype(np.float32):
+            s = np.float32(a) / np.float32(qmax)
+            ks = np.arange(-qmax, qmax, dtype=np.float32) + np.float32(0.5)
+            base = (ks * s).astype(np.float32)
+            vals = [base]
+            for step in (1, 2):
+                vals.append(np.nextafter(base, np.float32(np.inf)))
+                vals.append(np.nextafter(base, np.float32(-np.inf)))
+                base = vals[-2]
+            col = np.concatenate([[a]] + vals).astype(np.float32)
+            col = np.clip(col, -a, a)
+            w = torch.from_numpy(col[:, None].copy())
+            codes, scale = ref.quantize_ref(w, bits)
+            got, decided = ref.quantize_rcp_ref(w, scale, bits)
+            assert torch.equal(got, codes)
+            assert not bool(decided.all())
