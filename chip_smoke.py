@@ -71,12 +71,31 @@ NVIDIA GPU.
       tensor-core path, one launch per projection and wave; decode on
       ``.gemv``, one per projection and step), decode_attention,
       flash_attention.
-   Each requires its matmul's and flash attention's tensor-core paths
-   (``<kernel>.wgmma``) to have launched in its prefill waves (every
-   flash launch on the tensor cores) and its matmul's decode kernel
-   (``<kernel>.gemv``) in its decode steps (every matmul launch one of
-   the two), holds its first wave's logits against the plain path, holds
-   every generated token to the token gate (``serve/token_gate.py``: the
+   e. overload + chunked prefill: the run-a engine with ``paged=True,
+      kv_block_size=16, prefill_budget=1024`` and 111 usable pool blocks
+      (the pager takes no pool below 514 blocks here, so the rest is held
+      outside the engine for the whole run) serves 24 requests on run a's
+      prompt cycle, 20 up front and 4 at priority 1 after the second step;
+      request 1 streams through ``on_token``, request 4 raises
+      ``StopStream`` after 10 tokens, request 19 is cancelled while
+      queued. It requires every request to finish once as planned,
+      preemptions for priority and for the pool with as many restores,
+      each fast restore's KV bit-equal to its KV at swap-out, more
+      chunks than waves with a continuation, no step above the budget,
+      the pager consistent after every step and empty at the end, every
+      ``axllm_matmul`` launch on ``.wgmma`` or ``.gemv``,
+      ``paged_decode_attention`` and ``flash_attention.wgmma``, and the
+      token gate on every generated token. It prints TTFT p50 / p99 and
+      the largest step beside an unloaded engine of the same kernels
+      (default pool, no budget) and the greedy-token agreement with it,
+      and profiles a step that holds a continuation chunk (the plain
+      ``prefix_attention``'s device share, annotated and replayed).
+   Runs a to d each require its matmul's and flash attention's
+   tensor-core paths (``<kernel>.wgmma``) to have launched in its prefill
+   waves (every flash launch on the tensor cores) and its matmul's decode
+   kernel (``<kernel>.gemv``) in its decode steps (every matmul launch
+   one of the two), holds its first wave's logits against the plain path,
+   holds every generated token to the token gate (``serve/token_gate.py``: the
    plain path's teacher-forced logit of the token within 2 x the logits
    tolerance of the plain maximum, at every position), profiles 4
    decode chunks for the device's idle share and its first wave's
@@ -90,7 +109,12 @@ NVIDIA GPU.
    ``reuse_mult_count``). Run c also
    requires each adapter row's first-wave logits to differ from the same
    prompt's base logits by more than the tolerance.
-6. Prints the ``kernels`` JSON line, then the result line.
+6. Chaos phase: ``repro_torch.serve.chaos.run(smoke=True, device="cuda")``,
+   the seven scenarios on the harness's own f32 model through the kernels:
+   no request lost, no block or pin leaked, the pager consistent after
+   every step, and a request whose tokens differ from the card's own
+   fault-free run printed and held to the token gate.
+7. Prints the ``kernels`` JSON line, then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -128,6 +152,15 @@ FLASH_CASES = ((N_SLOTS, 512, 512, True, 64), (2, 256, 1024, True, 64),
                (2, 256, 1024, False, 64), (N_SLOTS, 512, 512, True, 128))
 LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
+# run e (overload + chunked prefill): 24 requests on run a's prompt cycle,
+# the last 4 at priority 1 after the second step; 111 usable pool blocks
+# against the 147 eight seated requests hold by their last step (the pager
+# takes no pool below 8 x 64 + 2 = 514 blocks, so the engine gets that and
+# the rest is held outside it for the whole run, as the chaos harness's
+# BlockThief holds blocks); a prefill budget a step; request 1 streams,
+# request 4 hangs up after 10 tokens, request 19 is cancelled while queued
+E_REQUESTS, E_LATE, E_USABLE, E_BUDGET = 24, 4, 111, 1024
+E_STREAM, E_HANGUP, E_HANGUP_AFTER, E_CANCEL = 1, 4, 10, 19
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1186,12 +1219,7 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
 def run_a_prompts() -> list:
     """Run a's 16 prompts (64/200/511 tokens, numpy seed 0), which runs c
     and d serve too."""
-    import numpy as np
-    from repro_torch.configs.repro_100m import CONFIG
-    rng = np.random.default_rng(0)
-    return [rng.integers(0, CONFIG.vocab_size,
-                         size=PROMPT_LENS[i % len(PROMPT_LENS)])
-            .astype(np.int32) for i in range(N_REQUESTS)]
+    return prompt_cycle(N_REQUESTS)
 
 
 def end_to_end(dev, card):
@@ -1334,6 +1362,377 @@ def end_to_end_nf4(dev, card):
     return e2e
 
 
+def prompt_cycle(n: int) -> list:
+    """``n`` prompts on run a's cycle of lengths (64/200/511 tokens, numpy
+    seed 0): the first 16 are run a's."""
+    import numpy as np
+    from repro_torch.configs.repro_100m import CONFIG
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, CONFIG.vocab_size,
+                         size=PROMPT_LENS[i % len(PROMPT_LENS)])
+            .astype(np.int32) for i in range(n)]
+
+
+def check_fast_restores(eng) -> dict:
+    """Wrap a paged engine's swap-out and fast restore so that each fast
+    restore is held to the KV its slot had at swap-out, bit for bit (the
+    full blocks through the radix index, the tail through the host copy).
+    Returns the running tally."""
+    import torch
+    tally, kv_at_swap = dict(checked=0), {}
+    preempt, restore = eng._preempt_slot, eng._try_fast_restore
+
+    def slot_kv(slot, n):
+        idx = torch.tensor(eng.pager.slot_blocks(slot), device=eng.device)
+        return {name: eng.cache[name][:, idx].flatten(1, 2)[:, :n].clone()
+                for name in eng._pool_leaves}
+
+    def preempt_slot(i):
+        r = eng.slots[i]
+        if not r.prefilling:
+            kv_at_swap[r.rid] = slot_kv(i, len(eng._kv_seq(r)))
+        preempt(i)
+
+    def try_fast_restore(r, slot):
+        if not restore(r, slot):
+            return False
+        want = kv_at_swap.pop(r.rid)
+        got = slot_kv(slot, next(iter(want.values())).shape[1])
+        for name in want:
+            check(torch.equal(got[name], want[name]), f"fast restore of "
+                  f"request {r.rid}: {name} differs from its KV at swap-out")
+        tally["checked"] += 1
+        return True
+
+    eng._preempt_slot, eng._try_fast_restore = preempt_slot, try_fast_restore
+    return tally
+
+
+def percentiles(xs) -> tuple:
+    import numpy as np
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 99))
+
+
+def end_to_end_overload(dev, card):
+    """Run e: run a's prompt cycle on a paged int8 engine whose pool cannot
+    hold eight seated requests to their end, under a prefill budget, with
+    priority arrivals, two streams (one hanging up) and a cancel while
+    queued; beside it the same prompts on an unloaded engine of the same
+    kernels, and a profiled step that holds a continuation chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeEngine, StopStream
+    from repro_torch.serve.token_gate import token_gate
+
+    cfg = CONFIG
+    params = get_model(cfg).init(seed=0, device=dev)
+    prompts = prompt_cycle(E_REQUESTS)
+    tag = f"e2e overload+chunked [{card}]"
+    smallest_pool = N_SLOTS * -(-MAX_LEN // KV_BLOCK) + 2
+
+    def engine(squeeze=False, **kw):
+        """An engine of run e's kernels; ``squeeze``: run e's budget and a
+        pool of E_USABLE free blocks (the rest held in ``eng.held``)."""
+        if squeeze:
+            kw.update(prefill_budget=E_BUDGET, num_blocks=smallest_pool)
+        eng = ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          quantize=True, decode_chunk=DECODE_CHUNK,
+                          paged=True, kv_block_size=KV_BLOCK, device=dev,
+                          **kw)
+        eng.held = [eng.pager.alloc() for _ in range(
+            len(eng.pager._free) - E_USABLE)] if squeeze else []
+        return eng
+
+    def serve(eng, late_after=None):
+        """Step ``eng`` to the end; the late requests go in after step
+        ``late_after``. Returns per-step (wall s, prefill tokens, whether
+        a slot was mid-prefill when the step began)."""
+        steps = []
+        while True:
+            st = eng.stats
+            before = st.prefill_tokens
+            cont = any(s is not None and s.prefilling for s in eng.slots)
+            t0 = time.perf_counter()
+            more = eng.step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          st.prefill_tokens - before, cont))
+            eng.pager.check_consistency(external=eng.held)
+            if not more:
+                return steps
+            if len(steps) == late_after:
+                free = sum(s is None for s in eng.slots)
+                check(free < E_LATE, f"run e: {free} free slots take all "
+                      "the priority arrivals")
+                for i in range(E_REQUESTS - E_LATE, E_REQUESTS):
+                    eng.submit(prompts[i], max_new=MAX_NEW, priority=1)
+
+    engine(squeeze=True).generate(prompts[:2], max_new=8)     # warm-up
+    eng = engine(squeeze=True)
+    restores = check_fast_restores(eng)
+    by_priority, priority_preempt = [0], eng._priority_preempt
+
+    def counted_priority_preempt():
+        before = eng.stats.preempted
+        priority_preempt()
+        by_priority[0] += eng.stats.preempted - before
+
+    eng._priority_preempt = counted_priority_preempt
+    streamed = {}
+
+    def tap(req, tok):
+        streamed.setdefault(req.rid, []).append(tok)
+
+    def hang_up(req, tok):
+        tap(req, tok)
+        if len(streamed[req.rid]) == E_HANGUP_AFTER:
+            raise StopStream()
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(E_REQUESTS - E_LATE):
+        eng.submit(prompts[i], max_new=MAX_NEW,
+                   on_token={E_STREAM: tap, E_HANGUP: hang_up}.get(i))
+    check(eng.cancel(E_CANCEL), "run e: the queued cancel found nothing")
+    steps = serve(eng, late_after=2)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+
+    st = eng.stats
+    done = {r.rid: r for r in eng.finished}
+    check(len(eng.finished) == len(done) == E_REQUESTS
+          and sorted(done) == list(range(E_REQUESTS)),
+          f"run e: {len(eng.finished)} finishes of {len(done)} requests")
+    for rid, r in done.items():
+        want = {E_CANCEL: ("cancelled", 0), E_HANGUP: (
+            "cancelled", E_HANGUP_AFTER)}.get(rid, ("max_new", MAX_NEW))
+        check((r.finish_reason, len(r.tokens)) == want, f"run e: request "
+              f"{rid} ended {r.finish_reason} with {len(r.tokens)} tokens")
+    for rid in (E_STREAM, E_HANGUP):
+        check(streamed.get(rid) == done[rid].tokens, f"run e: request {rid} "
+              "streamed other tokens than it holds")
+    check(by_priority[0] > 0 and st.preempted > by_priority[0]
+          and st.restored == st.preempted, f"run e: {st.preempted} "
+          f"preemptions ({by_priority[0]} for priority), {st.restored} "
+          "restores")
+    check(restores["checked"] == st.fast_restores, "run e: a fast restore "
+          "went unchecked")
+    most = max(p for _, p, _ in steps)
+    continuation_steps = sum(c for *_, c in steps)
+    check(st.prefill_chunks > st.prefill_waves and continuation_steps > 0
+          and most <= E_BUDGET, f"run e: {st.prefill_chunks} chunks in "
+          f"{st.prefill_waves} waves, {continuation_steps} steps with a "
+          f"continuation, at most {most} prefill tokens a step")
+    check(not eng.queue and all(s is None for s in eng.slots)
+          and eng.registry is None, "run e: the engine did not drain")
+    for b in eng.held:
+        eng.pager._release_block(b)
+    eng.pager.evict_prefixes()
+    check(eng.pager.blocks_in_use == 0, f"run e: {eng.pager.blocks_in_use} "
+          "pool blocks held after the drain")
+    check(launches.get("axllm_matmul", 0) == launches.get(
+        "axllm_matmul.wgmma", 0) + launches.get("axllm_matmul.gemv", 0),
+        f"run e: axllm_matmul launches {launches} are not wgmma + gemv")
+    for name in ("axllm_matmul.wgmma", "axllm_matmul.gemv",
+                 "paged_decode_attention", "flash_attention.wgmma"):
+        check(launches.get(name, 0) > 0, f"run e: {name} never launched")
+    check(launches.get("flash_attention") == launches.get(
+        "flash_attention.wgmma"), f"run e: flash launches {launches}")
+    generated = sum(len(r.tokens) for r in done.values())
+    ttft = [r.t_first - r.t_submit for r in done.values()
+            if r.t_first is not None]
+    p50, p99 = percentiles(ttft)
+    step_max = max(w for w, *_ in steps)
+    print(f"{tag}: {generated} tokens in {wall:.3f} s = {generated / wall:.1f}"
+          f" tok/s; {len(steps)} steps; preempted {st.preempted} (for "
+          f"priority {by_priority[0]}, mid-prefill {st.preempted_prefill}), "
+          f"restored {st.restored} (fast {st.fast_restores}, each bit-exact "
+          f"to its KV at swap-out), cancelled {st.cancelled}; prefill "
+          f"{st.prefill_chunks} chunks in {st.prefill_waves} waves, "
+          f"{continuation_steps} steps with a "
+          f"continuation, at most {most} prompt tokens a step (budget "
+          f"{E_BUDGET}), {st.prefill_tokens} tokens, prefix-hit tokens "
+          f"{st.prefix_hit_tokens}; pool {E_USABLE} usable blocks", flush=True)
+    print(f"{tag}: launches {launches}", flush=True)
+    gate = token_gate(cfg, eng.params, prompts,
+                      [done[i].tokens for i in range(E_REQUESTS)],
+                      impl="ref", tol_rel=LOGIT_TOL, device=dev)
+    print(f"{tag}: token gate: {gate.positions} generated positions checked "
+          f"against the plain path's teacher-forced logits; {gate.differ} "
+          f"where the token is not the plain path's argmax; smallest slack "
+          f"{gate.min_slack:.4e}; {len(gate.failures)} positions more than "
+          f"2 x tol below the plain maximum", flush=True)
+    check(gate.ok, f"run e: token gate failed at (request, position, slack) "
+                   f"{gate.failures[:5]}")
+
+    # the same prompts on an unloaded engine of the same kernels: default
+    # pool, no budget, all at priority 0
+    calm = engine()
+    c0 = time.perf_counter()
+    for p in prompts:
+        calm.submit(p, max_new=MAX_NEW)
+    calm_steps = serve(calm)
+    calm_wall = time.perf_counter() - c0
+    calm_done = {r.rid: r for r in calm.finished}
+    c50, c99 = percentiles([r.t_first - r.t_submit
+                            for r in calm_done.values()])
+    served = [i for i in range(E_REQUESTS) if i not in (E_CANCEL, E_HANGUP)]
+    same = sum(done[i].tokens == calm_done[i].tokens for i in served)
+    agree = float(np.mean([np.mean(np.equal(done[i].tokens,
+                                            calm_done[i].tokens))
+                           for i in served]))
+    calm_max = max(w for w, *_ in calm_steps)
+    print(f"{tag}: TTFT p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms, "
+          f"largest step {step_max * 1e3:.1f} ms; unloaded engine: TTFT p50 "
+          f"{c50 * 1e3:.1f} ms, p99 {c99 * 1e3:.1f} ms, largest step "
+          f"{calm_max * 1e3:.1f} ms, {len(calm_steps)} steps, "
+          f"{calm_wall:.3f} s", flush=True)
+    print(f"{tag}: greedy tokens vs the unloaded engine: {same}/{len(served)}"
+          f" requests identical, {agree:.3f} of positions equal (not "
+          "required: budgeted chunks and recompute restores run other "
+          "shapes)", flush=True)
+
+    # where a continuation step's time goes: a fresh loaded engine, its
+    # second step (the first leaves a slot mid-prefill), profiled, with the
+    # plain prefix attention's share (annotated, and its calls replayed)
+    prof_eng = engine(squeeze=True)
+    for p in prompts[:E_REQUESTS - E_LATE]:
+        prof_eng.submit(p, max_new=MAX_NEW)
+    prof_eng.step()
+    check(any(s is not None and s.prefilling for s in prof_eng.slots),
+          "run e: no slot is mid-prefill after the first step")
+    calls, prefix_attention = [], ops.prefix_attention
+
+    def annotated(*args, **kw):
+        calls.append(args)
+        with torch.profiler.record_function("prefix_attention"):
+            return prefix_attention(*args, **kw)
+
+    ops.prefix_attention = annotated
+    try:
+        p_wall, p_busy, p_top, p_prefix = profile_step(
+            prof_eng.step, "prefix_attention")
+    finally:
+        ops.prefix_attention = prefix_attention
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    replayed = sum(time_ms(lambda a=a: plain.prefix_attention_ref(*a), flush)
+                   for a in calls)
+    rows = {tuple(a[0].shape[:2]) + (a[1].shape[1],) for a in calls}
+    print(f"{tag}: one step with a continuation chunk ({len(calls)} prefix "
+          f"attention calls, q B x S and prefix P {sorted(rows)}): wall "
+          f"{p_wall:.2f} ms, device busy {p_busy:.2f} ms, idle share "
+          f"{1.0 - p_busy / p_wall:.3f}; plain prefix_attention "
+          f"{p_prefix:.3f} ms device ({p_prefix / p_busy:.3f} of busy); its "
+          f"calls replayed alone (L2 flushed) {replayed:.3f} ms", flush=True)
+    for name, ms in p_top[:8]:
+        print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
+    return dict(tokens=generated, wall_s=wall, tok_per_s=generated / wall,
+                steps=len(steps), launches=launches, stats=st.as_dict(),
+                priority_preemptions=by_priority[0],
+                max_prefill_tokens_a_step=most,
+                continuation_steps=continuation_steps,
+                fast_restores_checked=restores["checked"],
+                ttft_p50_s=p50, ttft_p99_s=p99, max_step_s=step_max,
+                gate=dict(positions=gate.positions, differ=gate.differ,
+                          min_slack=gate.min_slack,
+                          failures=len(gate.failures)),
+                unloaded=dict(ttft_p50_s=c50, ttft_p99_s=c99,
+                              max_step_s=calm_max, steps=len(calm_steps),
+                              wall_s=calm_wall, requests_identical=same,
+                              position_agree=agree),
+                continuation_profile=dict(
+                    wall_ms=p_wall, busy_ms=p_busy,
+                    prefix_attention_ms=p_prefix,
+                    prefix_attention_share=p_prefix / p_busy,
+                    prefix_attention_replayed_ms=replayed, calls=len(calls),
+                    top=p_top[:8]))
+
+
+def profile_step(fn, annotation: str) -> tuple:
+    """``device_busy_ms`` of ``fn`` plus the device ms of the kernels
+    launched inside ``record_function(annotation)`` ranges. The range also
+    shows on the device's timeline (first kernel to last, idle gaps
+    included); it is no kernel and counts in neither sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, marked = {}, 0.0
+    for e in prof.events():
+        if e.name == annotation:
+            if e.device_type == DeviceType.CPU:
+                marked += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return wall, sum(by_name.values()), top, marked
+
+
+def chaos_phase(dev, card) -> dict:
+    """The seven chaos scenarios (smoke mode) on the harness's own f32
+    model through the kernels: no request lost, no block or pin leaked,
+    the pager consistent after every step (checked inside the harness),
+    and every request whose tokens differ from the card's own fault-free
+    run held to the token gate."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import chaos
+    from repro_torch.serve.adapters import make_synthetic_adapters
+    from repro_torch.serve.token_gate import token_gate
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reports = chaos.run(smoke=True, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    out = {}
+    for rep in reports:
+        tag = f"chaos {rep.scenario} [{card}]"
+        check(rep.lost == 0 and not rep.errors,
+              f"{tag}: lost {rep.lost}, errors {rep.errors}")
+        for m in rep.mismatches:
+            registry = None
+            if m["adapter"] is not None:   # the scenario evicted its own
+                registry, _ = make_synthetic_adapters(chaos.CFG, 2,
+                                                      device=dev)
+            gate = token_gate(chaos.CFG, rep.engine.params, [m["prompt"]],
+                              [m["tokens"]], impl="ref", tol_rel=LOGIT_TOL,
+                              device=dev, registry=registry,
+                              names=[m["adapter"]])
+            print(f"{tag}: request {m['rid']} ({m['finish_reason']}, "
+                  f"preempted {m['preemptions']}x) tokens {m['tokens']} "
+                  f"differ from the fault-free run's {m['reference']}; "
+                  f"token gate smallest slack {gate.min_slack:.4e}",
+                  flush=True)
+            check(gate.ok, f"{tag}: request {m['rid']} fails the token gate "
+                           f"at {gate.failures[:5]}")
+        print(f"{tag}: {rep.submitted} submitted, {rep.finished} finished, "
+              f"rejected {rep.rejected}, expired {rep.expired}, cancelled "
+              f"{rep.cancelled}, preempted {rep.preempted} (mid-prefill "
+              f"{rep.preempted_prefill}), restored {rep.restored} (fast "
+              f"{rep.fast_restores}), faults {rep.faults_injected}, retries "
+              f"{rep.step_retries}, lost 0, {rep.mismatched} differing from "
+              "the fault-free run (each within the token gate)", flush=True)
+        out[rep.scenario] = rep.as_dict()
+    for name in ("axllm_matmul", "decode_attention", "paged_decode_attention",
+                 "flash_attention"):
+        check(launches.get(name, 0) > 0, f"chaos: {name} never launched")
+    print(f"chaos [{card}]: {len(reports)} scenarios in {wall:.1f} s; "
+          f"launches {launches}", flush=True)
+    return dict(scenarios=out, wall_s=wall, launches=launches)
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -1409,7 +1808,9 @@ def main() -> int:
            "reuse+paged": end_to_end_reuse_paged(dev, card),
            "lora+reuse+fused": end_to_end_lora(dev, card),
            "nf4+reuse": end_to_end_nf4(dev, card),
+           "overload+chunked": end_to_end_overload(dev, card),
            "deploy": deploy}
+    chaos = chaos_phase(dev, card)
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
@@ -1476,7 +1877,7 @@ def main() -> int:
                     "matrices", "ms", "plain_ms", "bound_ms", "was_ms")})
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
-             e2e=e2e), indent=1))
+             e2e=e2e, chaos=chaos), indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run used one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

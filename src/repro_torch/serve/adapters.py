@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.axllm_linear import LoRAConfig
@@ -215,3 +216,33 @@ class AdapterRegistry:
 
     def refcount(self, name: str) -> int:
         return self._refs[self.index_of(name)]
+
+
+def make_synthetic_adapters(cfg, n: int, rank: int = 8, alpha: float = 16.0,
+                            targets=("wq", "wv"), max_loras=None, seed=0,
+                            device="cuda"):
+    """An :class:`AdapterRegistry` on ``device`` holding ``n`` random
+    adapters (non-zero B), named ``adapter0`` ... Stands in for trained
+    adapters in the chaos harness: small random B moves the outputs
+    without wrecking the base distribution. The values are those of the
+    JAX package's ``launch.serve.make_synthetic_adapters`` for the same
+    arguments (one numpy generator, float32). Returns (registry, names).
+    """
+    lcfg = LoRAConfig(rank=rank, alpha=alpha, targets=tuple(targets))
+    reg = AdapterRegistry(cfg, lcfg, max_loras=max_loras or max(4, n),
+                          device=device)
+    rng = np.random.default_rng(seed)
+    names = []
+    for i in range(n):
+        ad = {}
+        for t in lcfg.targets:
+            n_in, n_out = target_dims(cfg, t)
+            ad[t] = {
+                "lora_a": (rng.normal(size=(cfg.n_layers, n_in, rank))
+                           / np.sqrt(rank)).astype(np.float32),
+                "lora_b": (rng.normal(size=(cfg.n_layers, rank, n_out))
+                           * 0.05).astype(np.float32)}
+        name = f"adapter{i}"
+        reg.add(name, ad)
+        names.append(name)
+    return reg, names

@@ -174,6 +174,20 @@ class PagedKVCache:
         """Whether ``n`` fresh blocks can be produced (free + evictable)."""
         return len(self._free) + self.evictable_blocks() >= n
 
+    def evict_prefixes(self, n: Optional[int] = None) -> int:
+        """Force-evict up to ``n`` cached prefix blocks (all when None).
+
+        Returns the number evicted. Used by the chaos harness's
+        eviction-storm fault and by operators that want to drop the
+        index wholesale (for example after a model hot-swap)."""
+        done = 0
+        while n is None or done < n:
+            if self.evictable_blocks() == 0:
+                break
+            self._evict_one()
+            done += 1
+        return done
+
     # -- radix prefix index --------------------------------------------------
     def _chunks(self, tokens: Sequence[int]):
         bs = self.block_size
@@ -203,6 +217,26 @@ class PagedKVCache:
             hit.append(child.block)
             node = child
         return hit, len(hit) * self.block_size
+
+    def lookup(self, tokens: Sequence[int]) -> List[int]:
+        """Uncapped full-chunk walk: block ids covering every complete
+        ``block_size`` chunk of ``tokens`` still present in the index.
+
+        Unlike :meth:`match` there is no ``len - 1`` cap: this is the
+        swap-in path's query (are all of a preempted request's full
+        blocks still cached?), not a prefill plan. Stops at the first
+        missing chunk; touches LRU clocks as a match does."""
+        if not self.prefix_cache:
+            return []
+        node, hit = self._root, []
+        for chunk in self._chunks(tokens):
+            child = node.children.get(chunk)
+            if child is None:
+                break
+            child.last_used = next(self._clock)
+            hit.append(child.block)
+            node = child
+        return hit
 
     def insert(self, tokens: Sequence[int], block_ids: Sequence[int]) -> int:
         """Publish ``tokens``' full blocks (backed by ``block_ids``, one
@@ -355,7 +389,32 @@ class PagedKVCache:
                 self._release_block(bid)
         return cow
 
-    # -- invariants (tests) -------------------------------------------------
+    def truncate(self, slot: int, new_len: int) -> int:
+        """Shrink ``slot``'s table to cover ``new_len`` tokens, releasing
+        whole trailing blocks back to the pool. Returns the number of
+        blocks released.
+
+        The engine calls it to roll a failed chunked-prefill continuation
+        back to the slot's cursor (the blocks the chunk extended by go
+        back to the pool), and speculative decoding will call it to drop
+        the KV of rejected draft positions. Only trailing whole blocks
+        are released, and released means refcount-decremented: a block
+        the radix index also holds survives with its published prefix
+        intact. A boundary block's stale tail is overwritten by the next
+        write and never published, since :meth:`insert` only indexes
+        full chunks of the actual token sequence.
+        """
+        keep = -(-new_len // self.block_size)          # ceil-div
+        n = int(self._slot_len[slot])
+        if keep >= n:
+            return 0
+        for j in range(keep, n):
+            self._release_block(int(self.tables[slot, j]))
+            self.tables[slot, j] = TRASH_BLOCK
+        self._slot_len[slot] = keep
+        return n - keep
+
+    # -- invariants (tests, chaos harness) ----------------------------------
     def check_consistency(self, external: Sequence[int] = ()) -> None:
         """Assert the allocator's books balance; raises AssertionError.
 

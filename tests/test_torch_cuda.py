@@ -27,7 +27,9 @@ reuse kernel's multiply count is an integer and must equal
 or not, and identity-8, each level three bf16 terms) is held to its plain
 version and its emulation (``ref.quant_gemm_ref``) within 1e-5 of the
 output scale. The engines' greedy tokens on a bf16 model are held
-to the teacher-forced token gate (``serve/token_gate.py``). The
+to the teacher-forced token gate (``serve/token_gate.py``), also under
+overload (preemption, chunked prefill), and the chaos scenarios run
+through the kernels. The
 quantization kernel's codes and scales must equal its plain version's
 exactly, on every route of its plan and on columns that hold a NaN, an
 inf or only zeros.
@@ -718,3 +720,56 @@ def test_engine_tokens_pass_the_token_gate(card, mode):
                       tol_rel=5e-2, device=card)
     assert gate.positions == 24 * len(prompts)
     assert gate.ok, gate.failures[:5]
+
+
+def test_overload_engine_tokens_pass_the_token_gate(card):
+    """A bf16 reduced paged engine under a prefill budget, with all but 12
+    free pool blocks held outside it: it preempts, restores as often,
+    chunks its prefill, keeps its books after every step, launches the
+    paged decode kernel, and every generated token passes the token
+    gate."""
+    cfg = CONFIG.reduced(remat=False)
+    params = get_model(cfg).init(seed=0, device=card)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (8, 12, 31, 5, 20, 31, 9, 16)]
+    eng = ServeEngine(cfg, params, n_slots=4, max_len=64, quantize=True,
+                      decode_chunk=4, paged=True, kv_block_size=8,
+                      prefill_budget=16, device=card)
+    held = [eng.pager.alloc() for _ in range(len(eng.pager._free) - 12)]
+    for p in prompts:
+        eng.submit(p, max_new=24)
+    _build.reset_launches()
+    while eng.step():
+        eng.pager.check_consistency(external=held)
+    st = eng.stats
+    assert st.preempted > 0 and st.restored == st.preempted
+    assert st.prefill_chunks > st.prefill_waves
+    assert _build.LAUNCHES["paged_decode_attention"] > 0
+    done = {r.rid: r for r in eng.finished}
+    assert [done[i].finish_reason for i in range(len(prompts))] == \
+        ["max_new"] * len(prompts)
+    gate = token_gate(cfg, eng.params, prompts,
+                      [done[i].tokens for i in range(len(prompts))],
+                      impl="ref", tol_rel=5e-2, device=card)
+    assert gate.positions == 24 * len(prompts)
+    assert gate.ok, gate.failures[:5]
+
+
+def test_chaos_scenarios_on_the_card(card):
+    """The seven chaos scenarios through the kernels: no request lost, no
+    block or pin leaked, the pager consistent after every step (the
+    harness checks it), and any request whose tokens differ from the
+    card's own fault-free run within the token gate."""
+    from repro_torch.serve import chaos
+    from repro_torch.serve.adapters import make_synthetic_adapters
+    for rep in chaos.run(smoke=True, device=card):
+        assert rep.lost == 0 and not rep.errors, (rep.scenario, rep.errors)
+        for m in rep.mismatches:
+            registry = None if m["adapter"] is None else \
+                make_synthetic_adapters(chaos.CFG, 2, device=card)[0]
+            gate = token_gate(chaos.CFG, rep.engine.params, [m["prompt"]],
+                              [m["tokens"]], impl="ref", tol_rel=5e-2,
+                              device=card, registry=registry,
+                              names=[m["adapter"]])
+            assert gate.ok, (rep.scenario, m["rid"], gate.failures[:5])

@@ -117,17 +117,25 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 
 def test_unported_options_raise(weights):
+    """Tensor parallelism and speculation are not ported: asking for them
+    raises and names the ROADMAP item. The overload options (a bounded
+    queue, a prefill budget, priorities, streaming, deadlines) are
+    ported and take the JAX engine's checks instead."""
     _, _, tcfg, tparams = weights
-    for kw in (dict(mesh=object()),
-               dict(speculate=True), dict(prefill_budget=64),
-               dict(max_queue=4)):
+    for kw in (dict(mesh=object()), dict(speculate=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(tcfg, tparams, device="cpu", **kw)
-    eng = ServeEngine(tcfg, tparams, device="cpu")
+    eng = ServeEngine(tcfg, tparams, device="cpu", max_queue=4,
+                      admission="reject")
     for kw in (dict(on_token=print), dict(deadline_s=1.0),
-               dict(priority=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit([1, 2, 3], **kw)
+               dict(priority=1), dict(ttft_deadline_s=1.0),
+               dict(itl_deadline_s=1.0)):
+        eng.submit([1, 2, 3], **kw)
+    assert len(eng.queue) == 4
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(tcfg, tparams, device="cpu", prefill_budget=64)
+    with pytest.raises(ValueError, match="admission"):
+        ServeEngine(tcfg, tparams, device="cpu", admission="drop")
 
 
 def test_pow2_bucket():

@@ -270,15 +270,33 @@ def _steal_free_blocks(pager):
 
 
 def test_pool_pressure_raises_where_jax_would_preempt(weights):
-    _, _, tcfg, tparams = weights
-    eng = ServeEngine(tcfg, tparams, n_slots=2, max_len=64, paged=True,
-                      kv_block_size=8, device="cpu")
-    for p in (np.arange(8), np.arange(8) + 30):
-        eng.submit(p, max_new=6)
-    eng._admit()                     # both seated, each in one full block
-    _steal_free_blocks(eng.pager)    # the next decode window needs two
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    """Where the pool cannot cover the next decode window the port no
+    longer raises: it preempts, exactly where the JAX engine does, and
+    both engines end with the same tokens, counters and tables."""
+    jcfg, jparams, tcfg, tparams = weights
+    engines = []
+    for cls, cfg, params, kw in (
+            (JServeEngine, jcfg, jparams, {}),
+            (ServeEngine, tcfg, tparams, dict(device="cpu"))):
+        eng = cls(cfg, params, n_slots=2, max_len=64, paged=True,
+                  kv_block_size=8, **kw)
+        for p in (np.arange(8), np.arange(8) + 30):
+            eng.submit(p, max_new=6)
+        eng._admit()                 # both seated, each in one full block
+        _steal_free_blocks(eng.pager)   # the next decode window needs two
         eng.step()
+        assert eng.stats.preempted == 1 and eng.queue
+        eng.run()
+        engines.append(eng)
+    jeng, teng = engines
+    want = {r.rid: (r.tokens, r.finish_reason) for r in jeng.finished}
+    assert {r.rid: (r.tokens, r.finish_reason)
+            for r in teng.finished} == want
+    assert [len(t) for t, _ in want.values()] == [6, 6]
+    for name in STATS + ("preempted", "restored", "fast_restores"):
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    assert teng.pager.tables.tolist() == jeng.pager.tables.tolist()
+    assert teng.pager.evictions == jeng.pager.evictions
 
 
 def test_admission_stalls_loudly_when_nothing_fits(weights):
