@@ -90,6 +90,24 @@ NVIDIA GPU.
       (default pool, no budget) and the greedy-token agreement with it,
       and profiles a step that holds a continuation chunk (the plain
       ``prefix_attention``'s device share, annotated and replayed).
+   f. speculative dense: run a's engine and prompts with ``speculate=True,
+      spec_k=4, draft_bits=4, draft_mode="affine"`` (a packed-int4 draft
+      derived from the raw weights, its decode on ``axllm_matmul.gemv``):
+      axllm_matmul, decode_attention, flash_attention.
+   g. speculative paged reuse: run b's engine and prompts with
+      ``speculate=True, spec_k=8, draft_bits=8, draft_mode="shiftadd"``
+      (the shift-add reparameterization, dense float32: its projections
+      are plain products; its host seconds are printed): reuse_matmul,
+      paged_decode_attention (verify), decode_attention (the draft's
+      dense cache), flash_attention.
+   Runs f and g require each request's tokens to equal run a's (run b's)
+   from this call, exactly, every emitted token past the prefill's to
+   have come from a round, every quantized-matmul launch on ``.wgmma`` or
+   ``.gemv``; run g also the pager's books after every step and only the
+   published prefixes in use at drain. Each prints tok/s, the acceptance
+   rate, accepted tokens per step, rounds, launches per entry point and
+   the device-busy and idle share of 4 profiled rounds, split into the
+   draft and verify halves.
    Runs a to d each require its matmul's and flash attention's
    tensor-core paths (``<kernel>.wgmma``) to have launched in its prefill
    waves (every flash launch on the tensor cores) and its matmul's decode
@@ -109,12 +127,21 @@ NVIDIA GPU.
    ``reuse_mult_count``). Run c also
    requires each adapter row's first-wave logits to differ from the same
    prompt's base logits by more than the tolerance.
-6. Chaos phase: ``repro_torch.serve.chaos.run(smoke=True, device="cuda")``,
-   the seven scenarios on the harness's own f32 model through the kernels:
+6. Simulator phase: the paper's cycle model (``core.simulator``) on run
+   b's served int8 codes, 84 matrices: each one's multiply count from the
+   reuse kernel (M 8, segment 256) must equal ``simulate_matrix(codes,
+   SimConfig(), tokens=8).mults``; prints the computation reduction,
+   simulated speedup and ``energy.power_report`` reduction, the cycle
+   model's figures for the paper's accelerator, not card time.
+7. Chaos phase: ``repro_torch.serve.chaos.run(smoke=True, device="cuda")``,
+   the eight scenarios on the harness's own f32 model through the kernels:
    no request lost, no block or pin leaked, the pager consistent after
    every step, and a request whose tokens differ from the card's own
-   fault-free run printed and held to the token gate.
-7. Prints the ``kernels`` JSON line, then the result line.
+   fault-free run printed and held to the token gate; speculation_storm
+   must inject faults, preempt a speculating slot, restore none fast and
+   give every request the fault-free target-only run's tokens.
+8. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
+   g beside its main run's), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1222,11 +1249,19 @@ def run_a_prompts() -> list:
     return prompt_cycle(N_REQUESTS)
 
 
+def served_tokens(eng) -> list:
+    """Each request's tokens, in rid order."""
+    done = {r.rid: r.tokens for r in eng.finished}
+    return [done[i] for i in sorted(done)]
+
+
 def end_to_end(dev, card):
-    return serve_run(dev, card, "dense", run_a_prompts(), (
+    """Run a; returns (metrics, its requests' tokens)."""
+    e2e, eng = serve_run(dev, card, "dense", run_a_prompts(), (
         "axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
         "decode_attention",
-        "flash_attention", "flash_attention.wgmma"))[0]
+        "flash_attention", "flash_attention.wgmma"))
+    return e2e, served_tokens(eng)
 
 
 def layer0_reuse_rates(eng, label, card, rows=(N_SLOTS,)) -> dict:
@@ -1266,19 +1301,25 @@ def layer0_reuse_rates(eng, label, card, rows=(N_SLOTS,)) -> dict:
     return dict(reuse_rate_layer0=rates, reuse_rate_predicted=predicted)
 
 
-def end_to_end_reuse_paged(dev, card):
-    """Run b, and the reuse rate the kernel achieves on layer 0's seven
-    projections of the served weights."""
+def run_b_prompts() -> list:
+    """Run b's 16 prompts: a shared 256-token head and tails of
+    64/200/255 tokens (numpy seed 1), which run g serves too."""
     import numpy as np
     from repro_torch.configs.repro_100m import CONFIG
 
     rng = np.random.default_rng(1)
     vocab = CONFIG.vocab_size
     head = rng.integers(0, vocab, size=SHARED_PREFIX).astype(np.int32)
-    prompts = [np.concatenate([head, rng.integers(
+    return [np.concatenate([head, rng.integers(
         0, vocab, size=TAIL_LENS[i % len(TAIL_LENS)]).astype(np.int32)])
         for i in range(N_REQUESTS)]
-    e2e, eng = serve_run(dev, card, "reuse+paged", prompts, (
+
+
+def end_to_end_reuse_paged(dev, card):
+    """Run b, and the reuse rate the kernel achieves on layer 0's seven
+    projections of the served weights. Returns (metrics, its requests'
+    tokens, its engine)."""
+    e2e, eng = serve_run(dev, card, "reuse+paged", run_b_prompts(), (
         "reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
         "paged_decode_attention",
         "flash_attention", "flash_attention.wgmma"),
@@ -1286,7 +1327,7 @@ def end_to_end_reuse_paged(dev, card):
     check(e2e["prefix_hit_tokens"] >= N_SLOTS * SHARED_PREFIX,
           f"reuse+paged: only {e2e['prefix_hit_tokens']} prefix-hit tokens")
     e2e.update(layer0_reuse_rates(eng, "reuse+paged", card))
-    return e2e
+    return e2e, served_tokens(eng), eng
 
 
 def end_to_end_lora(dev, card):
@@ -1360,6 +1401,328 @@ def end_to_end_nf4(dev, card):
     e2e.update(layer0_reuse_rates(eng, "nf4+reuse", card,
                                   rows=(N_SLOTS, 512)))
     return e2e
+
+
+def profile_rounds(eng, rounds: int = 4) -> dict:
+    """torch.profiler over ``rounds`` speculative rounds of ``eng`` (one
+    step each, no admission), split into the draft and the verify halves.
+    Each half runs inside a ``record_function`` range that ends with a
+    synchronize, so its kernels run inside the range's wall time; a kernel
+    counts for the half whose range holds its start (the ctypes launches
+    of the port's kernels are no torch ops, so the ranges' own device
+    totals miss them). Per half: wall ms (the ranges' host time),
+    device-busy ms, idle share; and the same over the whole window, whose
+    busy time outside both halves is the round's own bookkeeping."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    make = eng._spec_fns
+    names = ("spec.draft", "spec.verify")
+
+    def annotated():
+        halves = dict(zip(names, make()))
+
+        def wrap(name):
+            def fn(*args):
+                with record_function(name):
+                    out = halves[name](*args)
+                    torch.cuda.synchronize()
+                return out
+            return fn
+        return wrap(names[0]), wrap(names[1])
+
+    eng._spec_fns = annotated
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng._spec_fns = make
+    ranges = {name: [] for name in names}
+    kernels = []
+    for e in prof.events():
+        if e.name in ranges:
+            if e.device_type == DeviceType.CPU:
+                ranges[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CUDA:
+            kernels.append((e.time_range.start, e.time_range.elapsed_us()))
+    out = {name: dict(wall_ms=sum(b - a for a, b in spans) / 1e3,
+                      busy_ms=0.0, ranges=len(spans))
+           for name, spans in ranges.items()}
+    busy = 0.0
+    for start, us in kernels:
+        busy += us / 1e3
+        for name, spans in ranges.items():
+            if any(a <= start < b for a, b in spans):
+                out[name]["busy_ms"] += us / 1e3
+    for half in out.values():
+        half["idle_share"] = 1.0 - half["busy_ms"] / half["wall_ms"]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1.0 - busy / wall,
+                outside_ms=busy - sum(h["busy_ms"] for h in out.values()),
+                draft=out[names[0]], verify=out[names[1]])
+
+
+def timed_drafts():
+    """Wrap the engine module's ``derive_draft_params`` so that each
+    derivation's host seconds are recorded and the engines of one run share
+    one draft (the warm-up engine and the measured one derive the same
+    tree from the same weights). Returns (the record, a function that
+    restores the original)."""
+    from repro_torch.serve import engine as engine_mod
+    derive = engine_mod.derive_draft_params
+    record = dict(seconds=[], cache={})
+
+    def timed(params, *, bits, mode):
+        key = (bits, mode)
+        if key not in record["cache"]:
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            record["cache"][key] = derive(params, bits=bits, mode=mode)
+            torch.cuda.synchronize()
+            record["seconds"].append(time.perf_counter() - t0)
+        return record["cache"][key]
+
+    engine_mod.derive_draft_params = timed
+
+    def restore():
+        engine_mod.derive_draft_params = derive
+    return record, restore
+
+
+def spec_run(dev, card, label, prompts, ref_tokens, kernels, **engine_kw):
+    """One speculative end-to-end run on full-width repro-100m: ``prompts``
+    through ``ServeEngine(quantize=True, n_slots=8, max_len=1024,
+    decode_chunk=8, speculate=True, **engine_kw)``, every launch count set
+    to 0 just before and read just after, each of ``kernels`` required to
+    have launched, the pager's books checked after every step. Each
+    request's tokens must equal ``ref_tokens`` (the target-only run of the
+    same engine, earlier in this call), and every emitted token beyond the
+    prefill's must have come from a round. Returns (metrics, the
+    engine)."""
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = CONFIG
+    params = get_model(cfg).init(seed=0, device=dev)
+    tag = f"e2e {label} [{card}]"
+    drafts, restore = timed_drafts()
+    try:
+        def engine():
+            return ServeEngine(cfg, params, n_slots=N_SLOTS,
+                               max_len=MAX_LEN, quantize=True,
+                               decode_chunk=DECODE_CHUNK, speculate=True,
+                               device=dev, **engine_kw)
+
+        engine().generate(prompts[:2], max_new=8)     # warm-up
+        eng = engine()
+        prof_eng = engine()
+    finally:
+        restore()
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.step():
+        steps += 1
+        if eng.paged:
+            eng.pager.check_consistency()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    got = served_tokens(eng)
+    check(len(got) == len(prompts), f"{label}: only {len(got)} of "
+          f"{len(prompts)} requests finished")
+    same = [i for i, (a, b) in enumerate(zip(got, ref_tokens)) if a == b]
+    for i, (a, b) in enumerate(zip(got, ref_tokens)):
+        if a != b:
+            first = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            print(f"{tag}: request {i} differs from the target-only run at "
+                  f"token {first}: {a[first:first + 4]} against "
+                  f"{b[first:first + 4]}", flush=True)
+    check(len(same) == len(prompts), f"{label}: {len(prompts) - len(same)} "
+          "requests' tokens differ from the target-only run's")
+    st = eng.stats
+    generated = sum(len(t) for t in got)
+    check(st.spec_emitted_tokens == generated - len(prompts),
+          f"{label}: {st.spec_emitted_tokens} tokens from rounds, "
+          f"{generated} generated for {len(prompts)} requests")
+    for name in kernels:
+        check(launches.get(name, 0) > 0, f"{label}: {name} never launched "
+                                         "on the main path")
+    for lib in ("axllm_matmul", "reuse_matmul"):
+        check(launches.get(lib, 0) == launches.get(f"{lib}.wgmma", 0)
+              + launches.get(f"{lib}.gemv", 0), f"{label}: {lib} launches "
+              f"{launches.get(lib, 0)} are not wgmma "
+              f"{launches.get(f'{lib}.wgmma', 0)} + gemv "
+              f"{launches.get(f'{lib}.gemv', 0)}: the tile kernel ran")
+    check(launches.get("flash_attention.wgmma") ==
+          launches.get("flash_attention"), f"{label}: flash launches "
+          f"{launches.get('flash_attention')} of which "
+          f"{launches.get('flash_attention.wgmma')} on the tensor cores")
+    if eng.paged:
+        # at drain the pool holds the published prefixes alone
+        check(all(not eng.pager.slot_blocks(i) for i in range(N_SLOTS)),
+              f"{label}: a slot holds blocks at drain")
+        check(eng.pager.blocks_in_use == eng.pager.evictable_blocks(),
+              f"{label}: {eng.pager.blocks_in_use} blocks in use at drain, "
+              f"{eng.pager.evictable_blocks()} of them published prefixes")
+    print(f"{tag}: {generated} tokens in {wall:.3f} s = "
+          f"{generated / wall:.1f} tok/s; {len(same)}/{len(prompts)} "
+          f"requests identical to the target-only run; {st.spec_rounds} "
+          f"rounds ({steps} engine steps), {st.steps} target steps, "
+          f"drafted {st.drafted_tokens}, accepted "
+          f"{st.accepted_draft_tokens}: acceptance rate "
+          f"{st.acceptance_rate:.4f}, accepted tokens per step "
+          f"{st.accepted_tokens_per_step:.4f}; prefill {st.prefill_waves} "
+          f"waves, {st.prefill_tokens} tokens, {st.prefill_wall_s:.3f} s; "
+          f"prefix-hit tokens {st.prefix_hit_tokens}; peak memory "
+          f"{peak / 2**30:.3f} GiB"
+          + "".join(f"; draft derived in {x:.3f} s on the host"
+                    for x in drafts["seconds"]), flush=True)
+    print(f"{tag}: launches {launches}", flush=True)
+
+    # where a round's time goes: 4 rounds of 8 full slots, profiled
+    for p in prompts[:N_SLOTS]:
+        prof_eng.submit(p, max_new=MAX_NEW)
+    prof_eng.step()                             # prefill + first round
+    prof = profile_rounds(prof_eng)
+    print(f"{tag}: 4 rounds (8 slots): wall {prof['wall_ms']:.2f} ms, "
+          f"device busy {prof['busy_ms']:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f}; draft half wall "
+          f"{prof['draft']['wall_ms']:.2f} ms, busy "
+          f"{prof['draft']['busy_ms']:.2f} ms, idle "
+          f"{prof['draft']['idle_share']:.3f}; verify half wall "
+          f"{prof['verify']['wall_ms']:.2f} ms, busy "
+          f"{prof['verify']['busy_ms']:.2f} ms, idle "
+          f"{prof['verify']['idle_share']:.3f}; busy outside both "
+          f"{prof['outside_ms']:.2f} ms", flush=True)
+    return dict(tokens=generated, wall_s=wall, tok_per_s=generated / wall,
+                spec_rounds=st.spec_rounds, engine_steps=steps,
+                steps=st.steps, drafted_tokens=st.drafted_tokens,
+                accepted_draft_tokens=st.accepted_draft_tokens,
+                acceptance_rate=st.acceptance_rate,
+                accepted_tokens_per_step=st.accepted_tokens_per_step,
+                spec_emitted_tokens=st.spec_emitted_tokens,
+                prefill_wall_s=st.prefill_wall_s,
+                prefill_waves=st.prefill_waves,
+                prefix_hit_tokens=st.prefix_hit_tokens, peak_bytes=peak,
+                requests_identical=len(same), launches=launches,
+                draft_seconds=drafts["seconds"], round_profile=prof), eng
+
+
+def end_to_end_spec_dense(dev, card, ref_tokens):
+    """Run f: run a's engine and prompts with an int4 affine draft, four
+    proposals a round; tokens held to run a's."""
+    return spec_run(dev, card, "spec dense (int4 draft)", run_a_prompts(),
+                    ref_tokens, (
+                        "axllm_matmul", "axllm_matmul.wgmma",
+                        "axllm_matmul.gemv", "decode_attention",
+                        "flash_attention", "flash_attention.wgmma"),
+                    spec_k=4, draft_bits=4, draft_mode="affine")[0]
+
+
+def end_to_end_spec_paged(dev, card, ref_tokens):
+    """Run g: run b's engine and prompts with an 8-plane shift-add draft
+    (dense float32 weights: their projections are plain products), eight
+    proposals a round; tokens held to run b's. The draft's cache is dense:
+    its steps run ``decode_attention``, the target's verify steps the paged
+    kernel."""
+    return spec_run(dev, card, "spec reuse+paged (shift-add draft)",
+                    run_b_prompts(), ref_tokens, (
+                        "reuse_matmul", "reuse_matmul.wgmma",
+                        "reuse_matmul.gemv", "paged_decode_attention",
+                        "decode_attention", "flash_attention",
+                        "flash_attention.wgmma"),
+                    impl="reuse", paged=True, kv_block_size=KV_BLOCK,
+                    spec_k=8, draft_bits=8, draft_mode="shiftadd")[0]
+
+
+def simulator_phase(eng, card) -> dict:
+    """The paper's cycle model on the int8 codes run b serves (84 matrices,
+    full width): each matrix's multiply count from the reuse kernel
+    (``reuse_matmul_cuda(with_stats=True)`` at M = 8, its counting segment
+    256 for every N here; the port's wrapper counts per activation row, so
+    times 8) must equal ``simulate_matrix(codes, SimConfig(),
+    tokens=8).mults`` (segments of ``SimConfig.buf`` = 256 columns, sign
+    folded: the kernel's definition). Hazards are not measured (their
+    penalty is 0, so no cycle count moves). Prints the model's computation
+    reduction, simulated speedup and power reduction: figures of the cycle
+    model for the paper's accelerator, not of the card."""
+    import torch
+    from repro_torch.core.energy import power_report
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.core.simulator import SimConfig, SimReport, \
+        simulate_matrix
+    from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda, segment
+    from repro_torch.models.transformer import layer_slice
+
+    sim = SimConfig()
+    total = SimReport(0.0, 0.0, 0, 0, 0, 0)
+    tag = f"simulator [{card}]"
+    per = {}
+    t0 = time.perf_counter()
+    for layer in range(eng.cfg.n_layers):
+        lp = layer_slice(eng.params["layers"], layer)
+        for group in ("attn", "ffn"):
+            for name, qt in lp[group].items():
+                if not isinstance(qt, QTensor):
+                    continue
+                k, n = qt.shape
+                check((qt.bits, qt.mode) == (8, "affine") and
+                      segment(n) == sim.buf, f"simulator: {name} is "
+                      f"{qt.bits}b-{qt.mode} N{n}")
+                x = torch.ones((N_SLOTS, k), dtype=torch.bfloat16,
+                               device=qt.codes.device)
+                _, mults = reuse_matmul_cuda(x, qt, with_stats=True)
+                kernel = int(mults) * N_SLOTS
+                rep = simulate_matrix(qt, sim, tokens=N_SLOTS,
+                                      measure_hazards=False)
+                check(kernel == rep.mults, f"simulator: layer {layer} {name}"
+                      f": kernel counted {kernel}, the cycle model "
+                      f"{rep.mults}")
+                total = total.merge(rep)
+                per.setdefault(name, []).append(
+                    dict(kernel_mults=kernel, model_mults=rep.mults,
+                         total_ops=rep.total_ops,
+                         speedup=rep.speedup))
+    wall = time.perf_counter() - t0
+    matrices = sum(len(v) for v in per.values())
+    check(matrices == 84, f"simulator: {matrices} matrices, not 84")
+    pr = power_report(total)
+    reduction = 1.0 - total.mults / total.total_ops
+    print(f"{tag}: {matrices} int8 matrices of run b's served model: each "
+          f"reuse kernel multiply count (M {N_SLOTS}, segment {sim.buf}) "
+          f"equals simulate_matrix(tokens={N_SLOTS}).mults; "
+          f"{wall:.1f} s", flush=True)
+    print(f"{tag}: the cycle model's figures for the paper's accelerator "
+          f"(not card time): computation reduction 1 - mults/total_ops = "
+          f"{reduction:.4f} ({total.mults} of {total.total_ops}); simulated "
+          f"speedup {total.speedup:.4f} ({total.cycles_baseline:.0f} / "
+          f"{total.cycles_axllm:.0f} cycles); power reduction "
+          f"{pr['power_reduction']:.4f}, energy reduction "
+          f"{pr['energy_reduction']:.4f} (energy.power_report)",
+          flush=True)
+    return dict(matrices=matrices, mults=total.mults,
+                total_ops=total.total_ops, computation_reduction=reduction,
+                cycles_axllm=total.cycles_axllm,
+                cycles_baseline=total.cycles_baseline,
+                simulated_speedup=total.speedup, power=pr, wall_s=wall,
+                per_matrix=per)
 
 
 def prompt_cycle(n: int) -> list:
@@ -1681,11 +2044,12 @@ def profile_step(fn, annotation: str) -> tuple:
 
 
 def chaos_phase(dev, card) -> dict:
-    """The seven chaos scenarios (smoke mode) on the harness's own f32
+    """The eight chaos scenarios (smoke mode) on the harness's own f32
     model through the kernels: no request lost, no block or pin leaked,
     the pager consistent after every step (checked inside the harness),
     and every request whose tokens differ from the card's own fault-free
-    run held to the token gate."""
+    run held to the token gate; speculation_storm's tokens must equal the
+    fault-free target-only run's."""
     from repro_torch.kernels import _build
     from repro_torch.serve import chaos
     from repro_torch.serve.adapters import make_synthetic_adapters
@@ -1724,6 +2088,19 @@ def chaos_phase(dev, card) -> dict:
               f"{rep.fast_restores}), faults {rep.faults_injected}, retries "
               f"{rep.step_retries}, lost 0, {rep.mismatched} differing from "
               "the fault-free run (each within the token gate)", flush=True)
+        if rep.scenario == "speculation_storm":
+            # faults at the draft and verify dispatches, a speculating slot
+            # preempted and restored by recompute, and every token the
+            # fault-free target-only run's
+            check(rep.faults_injected > 0 and rep.preempted > 0
+                  and rep.fast_restores == 0 and not rep.mismatches,
+                  f"{tag}: faults {rep.faults_injected}, preempted "
+                  f"{rep.preempted}, fast restores {rep.fast_restores}, "
+                  f"{rep.mismatched} requests off the target-only run")
+            st = rep.engine.stats
+            print(f"{tag}: {st.spec_rounds} rounds, acceptance rate "
+                  f"{st.acceptance_rate:.4f}; every request's tokens those "
+                  "of the fault-free target-only run", flush=True)
         out[rep.scenario] = rep.as_dict()
     for name in ("axllm_matmul", "decode_attention", "paged_decode_attention",
                  "flash_attention"):
@@ -1758,6 +2135,7 @@ MAIN_PATH = {"flash_attention": "wgmma", "axllm_matmul": "gemv",
              "reuse_matmul": "gemv"}
 ROW_KEYS = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+SPEC_RUNS = ("spec dense", "spec reuse+paged")     # runs f and g
 
 
 def main() -> int:
@@ -1804,12 +2182,19 @@ def main() -> int:
     q_rows, deploy = quantize_kernel_phase(dev, flush, strip)
     rows += q_rows
     small_input_check(dev)
-    e2e = {"dense": end_to_end(dev, card),
-           "reuse+paged": end_to_end_reuse_paged(dev, card),
+    dense, dense_tokens = end_to_end(dev, card)
+    reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
+        end_to_end_reuse_paged(dev, card)
+    e2e = {"dense": dense, "reuse+paged": reuse_paged,
            "lora+reuse+fused": end_to_end_lora(dev, card),
            "nf4+reuse": end_to_end_nf4(dev, card),
            "overload+chunked": end_to_end_overload(dev, card),
+           "spec dense": end_to_end_spec_dense(dev, card, dense_tokens),
+           "spec reuse+paged": end_to_end_spec_paged(dev, card,
+                                                     reuse_paged_tokens),
            "deploy": deploy}
+    simulator = simulator_phase(reuse_paged_eng, card)
+    del reuse_paged_eng
     chaos = chaos_phase(dev, card)
 
     kernels = []
@@ -1821,7 +2206,10 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=replaces, launches=e2e[run]["launches"][name],
             **{key: row[key] for key in ROW_KEYS},
-            shape=main_shape, launches_from=run))
+            shape=main_shape, launches_from=run,
+            # the speculative runs f and g that serve it, and its launches
+            launches_spec={r: e2e[r]["launches"][name] for r in SPEC_RUNS
+                           if e2e[r]["launches"].get(name)}))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the main row is the decode kernel; beside it the tile kernel
             # at the same shape (for axllm_matmul the path the row took
@@ -1877,7 +2265,8 @@ def main() -> int:
                     "matrices", "ms", "plain_ms", "bound_ms", "was_ms")})
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
-             e2e=e2e, chaos=chaos), indent=1, default=str))
+             e2e=e2e, simulator=simulator, chaos=chaos), indent=1,
+        default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run used one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

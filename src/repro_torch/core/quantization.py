@@ -344,3 +344,52 @@ def quantize_tree(params, cfg: QuantConfig, predicate=_is_weight_matrix):
         return node
 
     return walk("", params)
+
+
+def derive_draft_params(params, *, bits: int = 4, mode: str = "affine",
+                        predicate=_is_weight_matrix):
+    """A low-precision *draft* model, derived from the raw (pre-quantization)
+    parameters, for self-speculative decoding.
+
+    The draft is the same model at a cheaper precision: same tokenizer,
+    same cache layout, no training. Correctness never depends on it (the
+    target verifies every token). Modes:
+
+    - ``"affine"`` / ``"codebook"``: :func:`quantize_tree` at ``bits``
+      (int4 is the intended draft point; int8 a sharper one for bf16
+      targets).
+    - ``"shiftadd"``: the ShiftAddLLM reparameterization (binary planes
+      times power-of-two scales, ``core.shiftadd``), reconstructed in
+      float64 numpy and returned as dense float32 on each weight's device
+      (bit-equal to the JAX package's); ``bits`` is the number of binary
+      planes.
+
+    Feed it the ORIGINAL float parameters: a draft derived from quantized
+    weights would compound two quantization errors."""
+    if mode in ("affine", "codebook"):
+        return quantize_tree(
+            params, QuantConfig(bits=bits, mode=mode), predicate=predicate)
+    if mode != "shiftadd":
+        raise ValueError(f"unknown draft mode {mode!r} "
+                         "(expected affine | codebook | shiftadd)")
+    # function-local import: shiftadd pulls in the cycle simulator, which
+    # imports this module
+    from repro_torch.core.shiftadd import binarize, reconstruct
+
+    def reparam(x: torch.Tensor) -> torch.Tensor:
+        w = x.detach().to("cpu", torch.float64).numpy()
+        flat = w.reshape((-1,) + w.shape[-2:])   # binarize() is 2-D only
+        out = np.empty_like(flat)
+        for i in range(flat.shape[0]):
+            out[i] = reconstruct(*binarize(flat[i], q=bits))
+        return torch.from_numpy(out.reshape(w.shape).astype(np.float32)).to(
+            x.device)
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            return {k: walk(f"{prefix}/{k}", v) for k, v in node.items()}
+        if predicate(prefix, node):
+            return reparam(node)
+        return node
+
+    return walk("", params)

@@ -4,7 +4,8 @@
 Each scenario drives a :class:`~repro_torch.serve.engine.ServeEngine`
 through one failure mode (pool exhaustion, prefix-eviction storms,
 injected dispatch faults, bursts of priority arrivals against a bounded
-queue, adapter evictions racing in-flight LoRA requests, long prompts
+queue, adapter evictions racing in-flight LoRA requests, faults and pool
+pressure under speculative decoding, long prompts
 under a chunked-prefill budget, cancellation storms against streaming
 clients) and then audits the engine against two invariants:
 
@@ -36,8 +37,9 @@ Faults are injected three ways, all deterministic:
   mixed priorities and deadlines against a small ``max_queue``, and
   ``AdapterRegistry.evict`` racing pinned LoRA requests.
 
-``speculation_storm``, the JAX harness's eighth scenario, needs
-speculative decoding (ROADMAP queue 1 item 9) and raises until it lands.
+``speculation_storm`` injects its faults at the speculative engine's
+"draft" and "verify" dispatches and holds the result to a fault-free
+target-only run.
 
 Run ``python -m repro_torch.serve.chaos --smoke --device cpu`` (or
 ``--device cuda``, the default); ``--scenario NAME`` runs one scenario.
@@ -59,6 +61,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import get_model
 from repro_torch.serve.adapters import make_synthetic_adapters
 from repro_torch.serve.engine import ServeEngine, StopStream
+from repro_torch.serve.scheduler import pick_victim
 
 #: the JAX harness's model but for its head dim: 32, the smallest the
 #: card's attention kernels take (16 there)
@@ -80,8 +83,9 @@ class ServeFailureInjector:
     """Engine ``fault_hook`` raising at chosen dispatch ordinals.
 
     ``fail_at`` counts calls across the selected ``phases`` ("prefill" /
-    "decode"); each listed ordinal raises once, before the dispatch,
-    where the engine guarantees rollback."""
+    "decode", or "draft" / "verify" under speculation); each listed
+    ordinal raises once, before the dispatch, where the engine guarantees
+    rollback."""
 
     def __init__(self, fail_at=(), phases=("prefill", "decode")):
         self.remaining = set(fail_at)
@@ -440,6 +444,59 @@ def scenario_adapter_race(params, smoke: bool, device) -> ChaosReport:
     return report
 
 
+def scenario_speculation_storm(params, smoke: bool, device) -> ChaosReport:
+    """Speculative decoding under fire: faults injected right before the
+    draft and verify dispatches, and a thief forcing preemption of
+    speculating slots mid-flight (or, where every window still fits, the
+    storm preempting one itself). A retried round must replay bit for bit
+    (the draft steps are deterministic and both caches' cursors are set
+    from the host every round), rollback must return every rejected tail
+    block, and the tokens must equal a fault-free TARGET-ONLY run, which
+    also shows that speculation changes nothing."""
+    report = ChaosReport("speculation_storm")
+    prompts = WORKLOAD[:6] if smoke else WORKLOAD
+    reference = _reference(params, prompts, device)   # target-only
+    inj = ServeFailureInjector(fail_at=(1, 3, 4, 7),
+                               phases=("draft", "verify"))
+    eng = _paged_engine(params, device, fault_hook=inj, speculate=True,
+                        spec_k=4)
+    thief = BlockThief(steal=10_000, hold_steps=4, start_step=2)
+
+    def storm(e):
+        thief.on_step(e)
+        # whether a verify window crosses a block boundary while the pool
+        # is held depends on how much the draft's tokens are accepted,
+        # which depends on the weights: one step into the theft, a storm
+        # that has not preempted yet preempts a speculating slot itself,
+        # as the pool's pressure would have (with the JAX harness's
+        # weights the pressure has preempted by then, and this is a no-op)
+        if thief.step == thief.start_step + 1 and e.stats.preempted == 0:
+            victim = pick_victim(e.slots)
+            if victim is not None:
+                e._preempt_slot(victim)
+
+    rid_to_prompt = _submit_all(eng, prompts, report)
+    try:
+        _drive(eng, report, post_step=storm, thief=thief)
+    finally:
+        thief.release(eng)
+    _drive(eng, report)
+    report.faults_injected = inj.raised
+    _audit(eng, rid_to_prompt, prompts, reference, report)
+    if inj.raised == 0:
+        report.errors.append("no draft/verify fault was ever injected")
+    if report.preempted == 0 and report.errors == []:
+        report.errors.append("the thief never preempted a speculating "
+                             "slot")
+    if report.fast_restores:
+        report.errors.append("fast restore must be off under speculation "
+                             "(stale draft KV)")
+    if eng.stats.accepted_draft_tokens == 0 and report.errors == []:
+        report.errors.append("speculation never accepted a draft token "
+                             "(draft hopelessly misaligned?)")
+    return report
+
+
 def scenario_long_prompt_storm(params, smoke: bool, device) -> ChaosReport:
     """Long prompts under a chunked-prefill budget while a thief drains
     the pool: no step may prefill more than the budget, the mid-prefill
@@ -558,23 +615,17 @@ SCENARIOS = {
     "dispatch_faults": scenario_dispatch_faults,
     "burst_arrivals": scenario_burst_arrivals,
     "adapter_race": scenario_adapter_race,
+    "speculation_storm": scenario_speculation_storm,
     "long_prompt_storm": scenario_long_prompt_storm,
     "cancel_storm": scenario_cancel_storm,
 }
-#: the JAX harness's scenarios this port does not run yet, and why
-NOT_PORTED = {"speculation_storm": "speculative decoding is not ported yet "
-                                   "(ROADMAP queue 1 item 9)"}
 
 
 def run(scenarios=None, smoke: bool = False, device="cuda",
         params=None) -> List[ChaosReport]:
-    """Run ``scenarios`` (default: all ported ones) on ``device``, with
-    the harness's own seeded weights unless ``params`` are given."""
+    """Run ``scenarios`` (default: all) on ``device``, with the harness's
+    own seeded weights unless ``params`` are given."""
     names = list(scenarios or SCENARIOS)
-    for name in names:
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"chaos scenario {name!r}: "
-                                      f"{NOT_PORTED[name]}")
     if params is None:
         params = _params(device)
     return [SCENARIOS[name](params, smoke, device) for name in names]
@@ -582,7 +633,7 @@ def run(scenarios=None, smoke: bool = False, device="cuda",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=sorted([*SCENARIOS, *NOT_PORTED]),
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS),
                     default=None, help="run one scenario (default: all)")
     ap.add_argument("--smoke", action="store_true",
                     help="smaller workloads (CI lane)")

@@ -15,6 +15,9 @@ A stopped slot keeps riding through the loop: its row computes values
 that are masked out, and its cursor keeps advancing (a write past the
 cache end is dropped). ``valid`` is a per-slot prefix, so harvesting is
 "append tokens until the first False".
+
+:func:`verify_steps` is the speculative engine's target half: the same
+step body fed the draft's proposals instead of its own samples.
 """
 
 from __future__ import annotations
@@ -44,6 +47,39 @@ def sample_tokens(logits, gen: Optional[torch.Generator], *, greedy: bool,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def verify_steps(decode_fn, params, last, drafts, cache, *,
+                 vocab_size: int):
+    """Teacher-forced steps for speculative verification: feed ``[last,
+    d_1, ..., d_k]`` through the target model and return its greedy token
+    after each input.
+
+    Where :func:`decode_steps` feeds each step the token it sampled, this
+    feeds the draft's proposals. ``targets[i]`` is the target's greedy
+    choice after consuming input ``i``, so the host's accept-longest-prefix
+    rule (``serve.speculative``) compares ``targets[:k]`` with the drafts
+    and always has ``targets[m]`` as the correction (or bonus) token.
+
+    No stop machinery: EOS, budget and cache-full are re-derived on the
+    host while the accepted tokens are appended (a stop may land inside an
+    acceptance), and KV written for rejected positions is rolled back by
+    the engine (cursor reset or ``PagedKVCache.truncate``), never read.
+
+    decode_fn: ``(params, token [B], cache) -> (logits [B, V], cache)``.
+    last: [B] int32 last accepted token per slot. drafts: [k, B] int32
+    proposals (k == 0 is one plain greedy decode step).
+    Returns ``(targets [k+1, B] int32, cache)``, the cache advanced by
+    k+1 positions in place.
+    """
+    inputs = torch.cat([last.to(torch.int32)[None, :],
+                        drafts.to(torch.int32)], dim=0)
+    targets = []
+    for tok in inputs:
+        logits, cache = decode_fn(params, tok, cache)
+        targets.append(sample_tokens(logits, None, greedy=True,
+                                     vocab_size=vocab_size))
+    return torch.stack(targets), cache
 
 
 def decode_steps(decode_fn, params, last, cache, gen_rng, stop_mask, gen,

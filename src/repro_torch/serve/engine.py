@@ -98,8 +98,27 @@ scheduler keeps ``n_slots`` request slots full:
   (injectable; every time stamp comes from it): a request past either
   finishes ``"expired"`` with its partial tokens.
 
-Tensor parallelism and speculative decoding are not ported yet: asking
-for them raises ``NotImplementedError`` naming the ROADMAP item.
+- **Speculative decoding (``speculate=True``).** The quantization ladder
+  doubles as a draft model: ``core.quantization.derive_draft_params``
+  derives it once from the raw weights (``draft_bits`` affine or codebook
+  codes, or the shift-add reparameterization with
+  ``draft_mode="shiftadd"``, dense float32), fused when the target is.
+  Each round the draft proposes up to ``spec_k`` greedy tokens from its
+  own dense cache (dense even when the target pages), the target checks
+  all of them in one teacher-forced pass (``serve.decode.verify_steps``),
+  and the engine appends the longest agreeing prefix plus the target's
+  correction token (``serve.speculative``). Greedy output equals
+  target-only decode token for token: acceptance only moves throughput.
+  The KV written for rejected positions is rolled back by a host cursor
+  reset (dense) or ``PagedKVCache.truncate`` (paged: whole tail blocks
+  back to the pool, published prefixes untouched). Requires
+  ``greedy=True``; a preempted speculating slot restores by recompute
+  (a fast restore would resume on stale draft KV). Stats:
+  ``drafted_tokens``, ``accepted_draft_tokens``, ``acceptance_rate``,
+  ``accepted_tokens_per_step``.
+
+Tensor parallelism is not ported yet: asking for it raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 
@@ -114,17 +133,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.axllm_linear import deploy_quantize
-from repro_torch.core.quantization import QuantConfig
+from repro_torch.core.quantization import QuantConfig, derive_draft_params
 from repro_torch.kernels import ops
 from repro_torch.models.model import ModelAPI, get_model
 from repro_torch.serve.adapters import AdapterRegistry, target_dims
-from repro_torch.serve.decode import decode_steps, sample_tokens
+from repro_torch.serve.decode import decode_steps, sample_tokens, verify_steps
 from repro_torch.serve.paged_cache import TRASH_BLOCK, PagedKVCache
 from repro_torch.serve.scheduler import WaitQueue, pick_victim, prefill_chunk
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
+from repro_torch.serve.speculative import accept_length, round_k
 
 
 class StopStream(Exception):
@@ -217,6 +233,12 @@ class EngineStats:
     cancelled: int = 0                # torn down by cancel() / StopStream
     prefill_chunks: int = 0           # budgeted prefill chunks executed
     preempted_prefill: int = 0        # preemptions of mid-prefill slots
+    # speculative decoding (speculate=True): draft/verify round outcomes
+    spec_rounds: int = 0              # engine-level draft + verify rounds
+    spec_slot_rounds: int = 0         # sum over rounds of speculating slots
+    drafted_tokens: int = 0           # draft proposals checked by the target
+    accepted_draft_tokens: int = 0    # proposals the target agreed with
+    spec_emitted_tokens: int = 0      # tokens appended by spec rounds
 
     @property
     def mean_occupancy(self) -> float:
@@ -226,10 +248,26 @@ class EngineStats:
     def tokens_per_step(self) -> float:
         return self.decode_tokens / self.steps if self.steps else 0.0
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target confirmed."""
+        return (self.accepted_draft_tokens / self.drafted_tokens
+                if self.drafted_tokens else 0.0)
+
+    @property
+    def accepted_tokens_per_step(self) -> float:
+        """Tokens emitted per slot-round (one draft + verify round of one
+        slot): at least 1 when rounds ran (each emits the target's own
+        token), above 1 iff speculation accepted anything."""
+        return (self.spec_emitted_tokens / self.spec_slot_rounds
+                if self.spec_slot_rounds else 0.0)
+
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d["mean_occupancy"] = self.mean_occupancy
         d["tokens_per_step"] = self.tokens_per_step
+        d["acceptance_rate"] = self.acceptance_rate
+        d["accepted_tokens_per_step"] = self.accepted_tokens_per_step
         return d
 
 
@@ -280,9 +318,15 @@ class ServeEngine:
     Overload: ``max_queue`` bounds the wait queue and ``admission``
     ("block", "reject", "evict") says what a full queue does; ``clock``
     (default ``time.monotonic``) stamps and checks every deadline;
-    ``fault_hook(phase)`` is called with "prefill" or "decode" right
-    before each dispatch; ``prefill_budget`` (paged only, at least one
-    block) caps the prompt tokens each ``step()`` prefills.
+    ``fault_hook(phase)`` is called with "prefill" or "decode" (under
+    speculation "draft" and "verify") right before each dispatch;
+    ``prefill_budget`` (paged only, at least one block) caps the prompt
+    tokens each ``step()`` prefills.
+
+    ``speculate=True`` (greedy only) drafts up to ``spec_k`` tokens a round
+    with a draft derived from the raw weights (``draft_bits``,
+    ``draft_mode``: "affine", "codebook" or "shiftadd") and verifies them
+    with the target (see the module docstring).
 
     Serve with ``submit`` + ``step()`` / ``run()``, ``stream()``, or the
     one-shot ``generate(prompts)``; ``cancel(rid)`` ends a request.
@@ -300,7 +344,8 @@ class ServeEngine:
                  prefix_cache: bool = True, mesh=None,
                  max_queue: Optional[int] = None, admission: str = "block",
                  clock=None, fault_hook=None,
-                 speculate: bool = False,
+                 speculate: bool = False, spec_k: int = 4,
+                 draft_bits: int = 4, draft_mode: str = "affine",
                  prefill_budget: Optional[int] = None, device="cuda"):
         if prefill_budget is not None:
             if not paged:
@@ -320,12 +365,24 @@ class ServeEngine:
                     f"(kv_block_size={kv_block_size}): a non-final chunk is "
                     "floored to whole blocks, so no chunk could ever make "
                     "progress")
-        for on, what, item in (
-                (mesh is not None, "tensor-parallel serving",
-                 "ROADMAP queue 1 item 12"),
-                (speculate, "speculative decoding", "ROADMAP queue 1 item 9")):
-            if on:
-                raise _not_ported(what, item)
+        if mesh is not None:
+            raise NotImplementedError("tensor-parallel serving is not "
+                                      "ported yet (ROADMAP queue 1 item 12)")
+        if speculate:
+            if not greedy:
+                raise ValueError(
+                    "speculate=True requires greedy=True: the accept rule "
+                    "compares the target's deterministic argmax with the "
+                    "draft's (sampled verification needs rejection "
+                    "sampling, which this engine does not implement)")
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"family {cfg.family!r} has no speculative path: "
+                    "rollback needs position-addressable KV (a cursor or a "
+                    "block table to truncate); recurrent state cannot "
+                    "rewind rejected positions")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if long_prompt not in ("truncate", "reject"):
             raise ValueError(f"long_prompt must be 'truncate' or 'reject', "
                              f"got {long_prompt!r}")
@@ -337,15 +394,32 @@ class ServeEngine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.api: ModelAPI = get_model(cfg, impl=impl)
-        params = _params_to(params, self.device)
+        params = raw_params = _params_to(params, self.device)
         if quantize:
             bits = cfg.quant_bits if quant_bits is None else quant_bits
             params = deploy_quantize(
                 params, QuantConfig(bits=bits, mode=quant_mode,
                                     granularity="per_channel"))
-        if cfg.fuse_qkv if fuse_qkv is None else fuse_qkv:
+        fuse = cfg.fuse_qkv if fuse_qkv is None else fuse_qkv
+        if fuse:
             params = self.api.fuse_params(params)
         self.params = params
+        self.speculate = speculate
+        self.spec_k = spec_k
+        self.draft_bits = draft_bits
+        self.draft_mode = draft_mode
+        self.draft_params = self.draft_cache = None
+        if speculate:
+            # from the raw weights: a draft of quantized target weights
+            # would compound two quantization errors
+            draft = derive_draft_params(raw_params, bits=draft_bits,
+                                        mode=draft_mode)
+            self.draft_params = self.api.fuse_params(draft) if fuse \
+                else draft
+            # always dense, even when the target pages: draft KV is private
+            # scratch (never shared, published or swapped)
+            self.draft_cache = self.api.init_cache(n_slots, max_len,
+                                                   self.device)
         self.n_slots = n_slots
         self.max_len = max_len
         self.greedy = greedy
@@ -572,6 +646,11 @@ class ServeEngine:
         anything was evicted meanwhile."""
         sw = r._swap
         if sw is None or not self.paged:
+            return False
+        if self.speculate:
+            # the draft cache is not swapped out, so a fast restore would
+            # resume on stale draft KV; the recompute path rebuilds the
+            # target's and the draft's KV token-identically
             return False
         if r.adapter is not None and sw.full_blocks:
             return False               # LoRA KV is never in the index
@@ -824,7 +903,18 @@ class ServeEngine:
             src.append(i)
             dst.append(slot)
         if src:
-            self._write_wave(wave_cache, src, dst)
+            self._write_wave(self.cache, wave_cache, src, dst)
+            if self.speculate:
+                # the draft prefills the same wave (its logits are unused:
+                # the first token is the target's), so seated slots start
+                # each round with draft KV covering the target's positions
+                dwave = self.api.init_cache(wb, pl, self.device)
+                _, dwave = self.api.prefill(
+                    self.draft_params,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    dwave, lengths=torch.from_numpy(lengths).to(self.device),
+                    **self._lora_kw(aidx))
+                self._write_wave(self.draft_cache, dwave, src, dst)
         self.stats.prefill_waves += 1
 
     def _prefill_group_paged(self, group: List[Request], free: List[int]):
@@ -938,8 +1028,40 @@ class ServeEngine:
                 free.append(slot)
                 continue
             self._seat(r, slot, aidx[i])
+        if self.speculate:
+            self._draft_prefill_paged(admitted, slots_for, seqs)
         self.stats.prefill_waves += 1
         self.stats.blocks_in_use = pgr.blocks_in_use
+
+    def _draft_prefill_paged(self, admitted, slots_for, seqs):
+        """The draft's side of a paged admission wave. The draft cache is
+        dense, so it cannot take the suffix-only paged prefill: the whole
+        sequence of every request the wave seated prefills through the
+        plain dense path (a prefix hit saves target work only; the draft
+        is the cheap model). Runs after the target wave committed, so a
+        request deferred or finished at prefill never gets here."""
+        keep = [(i, slot) for i, (r, slot) in enumerate(zip(admitted,
+                                                            slots_for))
+                if self.slots[slot] is r]
+        if not keep:
+            return
+        wb = _pow2_bucket(len(keep), 1, self.n_slots)
+        pl = _pow2_bucket(max(len(seqs[i]) for i, _ in keep),
+                          min(8, self.max_len), self.max_len)
+        toks = np.zeros((wb, pl), np.int32)
+        lengths = np.ones((wb,), np.int32)
+        aidx = np.full((wb,), -1, np.int32)
+        for j, (i, slot) in enumerate(keep):
+            toks[j, :len(seqs[i])] = seqs[i]
+            lengths[j] = len(seqs[i])
+            aidx[j] = self.adapter_slots[slot]
+        dev = self.device
+        _, dwave = self.api.prefill(
+            self.draft_params, {"tokens": torch.from_numpy(toks).to(dev)},
+            self.api.init_cache(wb, pl, dev),
+            lengths=torch.from_numpy(lengths).to(dev), **self._lora_kw(aidx))
+        self._write_wave(self.draft_cache, dwave, list(range(len(keep))),
+                         [slot for _, slot in keep])
 
     def _max_chunk(self) -> int:
         """The longest padded chunk a paged wave may take: the context
@@ -1091,15 +1213,16 @@ class ServeEngine:
         for name in self._pool_leaves:
             self.cache[name][:, dst] = self.cache[name][:, src]
 
-    def _write_wave(self, wave_cache, src, dst):
-        """Copy wave rows ``src`` into engine slots ``dst`` on each leaf's
-        batch axis (``api.cache_spec``). The wave cache covers the padded
-        length only; slot entries past it are never read before decode
-        overwrites them."""
+    def _write_wave(self, cache, wave_cache, src, dst):
+        """Copy wave rows ``src`` into the slots ``dst`` of the dense
+        ``cache`` (the target's or the draft's) on each leaf's batch axis
+        (``api.cache_spec``). The wave cache covers the padded length only;
+        slot entries past it are never read before decode overwrites
+        them."""
         s = torch.tensor(src, device=self.device)
         d = torch.tensor(dst, device=self.device)
         for name, ax in self.api.cache_spec.items():
-            full, one = self.cache[name], wave_cache[name]
+            full, one = cache[name], wave_cache[name]
             if ax == 0:
                 full[d] = one[s].to(full.dtype)
             else:
@@ -1212,6 +1335,8 @@ class ServeEngine:
                 self._preempt_slot(victim)
                 return True
             return False
+        if self.speculate:
+            return self._spec_step(decode_active, max_n)
         n = self._chunk_len(decode_active, max_n)
         if self.paged:
             # plan -> commit: reserve the whole write window's blocks before
@@ -1319,6 +1444,162 @@ class ServeEngine:
                 self._finish(r, reason)
                 self.slots[i] = None
                 self.adapter_slots[i] = -1
+        if self.paged:
+            self.stats.blocks_in_use = self.pager.blocks_in_use
+        return True
+
+    # -- speculative decode ---------------------------------------------------
+    def _spec_fns(self):
+        """The round's two halves over the slots' adapter rows: the draft's
+        k+1 stop-free greedy steps (``decode_steps`` with no EOS, an
+        unlimited budget and a position bound that cannot fire, so a
+        retried round replays bit for bit; the (k+1)-th step puts draft KV
+        at the same ``pos .. pos+k`` the verify pass writes) and the
+        target's teacher-forced verify pass."""
+        lora = self._lora_kw(self.adapter_slots)
+        vocab = self.cfg.vocab_size
+        b = self.n_slots
+
+        def decode(p, t, c):
+            return self.api.decode(p, t, c, **lora)
+
+        def draft_fn(last, stop, k):
+            zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            return decode_steps(
+                decode, self.draft_params, last, self.draft_cache, self.rng,
+                stop, zeros, torch.full_like(zeros, 1 << 30), n=k + 1,
+                vocab_size=vocab, max_len=self.max_len + 2, eos_id=None,
+                greedy=True)
+
+        def verify_fn(last, drafts):
+            return verify_steps(decode, self.params, last, drafts, self.cache,
+                                vocab_size=vocab)
+
+        return draft_fn, verify_fn
+
+    def _spec_step(self, active, max_n: Optional[int]) -> bool:
+        """One speculative round over the active slots: the draft proposes
+        k tokens, the target verifies them in one pass, each slot appends
+        the longest agreeing prefix plus the target's correction token, and
+        the KV written for rejected positions is rolled back (a cursor
+        reset, or block truncation when paged). Every appended token is the
+        target's own argmax, so the output equals target-only decode.
+
+        Retry after a fault: both caches' cursors are set from the host at
+        the top of every round and the draft steps are deterministic, so a
+        round that faults at the "draft" or "verify" hook reruns the same,
+        rewriting the positions a partial round wrote with the same
+        values."""
+        positions = {i: len(self.slots[i].prompt)
+                     + len(self.slots[i].tokens) - 1 for i in active}
+
+        def pick_k():
+            return round_k(
+                self.spec_k, max_len=self.max_len,
+                positions=[positions[i] for i in active],
+                budgets=[self.slots[i].max_new - len(self.slots[i].tokens)
+                         for i in active],
+                max_n=max_n)
+
+        k = pick_k()
+        dev = self.device
+        if self.paged:
+            # plan -> commit over the whole k+1 verify window, preempting
+            # while it cannot fit (one slot always fits: k is clamped to
+            # its own room)
+            while len(active) > 1:
+                need = 0
+                for i in active:
+                    a, c = self.pager.plan_decode(i, positions[i], k + 1)
+                    need += a + c
+                if self.pager.can_allocate(need):
+                    break
+                self._preempt_slot(pick_victim(self.slots))
+                active = self._decoding()
+                k = pick_k()
+            cow = []
+            for i in active:
+                cow += self.pager.prepare_decode(i, positions[i], k + 1)
+            if cow:
+                self._copy_blocks(cow)
+                self.stats.cow_copies += len(cow)
+            self.cache["block_tables"] = torch.from_numpy(
+                self.pager.tables.copy()).to(dev)
+            self.stats.blocks_in_use = self.pager.blocks_in_use
+        # both cursors from the host: the dense rollback is this reset (the
+        # last round's verify pass left the cursor at pos + k + 1; the stale
+        # tail is dead weight the next window overwrites)
+        pos_host = np.zeros((self.n_slots,), np.int32)
+        last = np.zeros((self.n_slots,), np.int32)
+        stop = np.ones((self.n_slots,), bool)
+        for i in active:
+            pos_host[i] = positions[i]
+            last[i] = self.slots[i].tokens[-1]
+            stop[i] = False
+        self.cache["pos"] = torch.from_numpy(pos_host).to(dev)
+        self.draft_cache["pos"] = torch.from_numpy(pos_host.copy()).to(dev)
+        last_dev = torch.from_numpy(last).to(dev)
+        draft_fn, verify_fn = self._spec_fns()
+        if k:
+            if self.fault_hook is not None:
+                self.fault_hook("draft")
+            dout = draft_fn(last_dev, torch.from_numpy(stop).to(dev), k)
+            self.draft_cache = dout.cache
+            drafts_dev = dout.tokens[:k]
+            drafts = drafts_dev.cpu().numpy()
+        else:
+            drafts_dev = torch.zeros((0, self.n_slots), dtype=torch.int32,
+                                     device=dev)
+            drafts = np.zeros((0, self.n_slots), np.int32)
+        if self.fault_hook is not None:
+            self.fault_hook("verify")
+        targets_dev, self.cache = verify_fn(last_dev, drafts_dev)
+        targets = targets_dev.cpu().numpy()         # [k+1, B]
+        now = self._now()
+        emitted = 0
+        for i in active:
+            r = self.slots[i]
+            m = accept_length(drafts[:, i], targets[:, i])
+            got = 0
+            reason = None
+            for t in range(m + 1):
+                # a stop is re-derived per appended token: an EOS, budget or
+                # cache-full inside the acceptance drops the rest
+                r.tokens.append(int(targets[t, i]))
+                got += 1
+                reason = self._stop_reason(r)
+                if reason is not None:
+                    break
+            r.t_last = now
+            emitted += got
+            self.stats.spec_slot_rounds += 1
+            self.stats.drafted_tokens += k
+            # of the kept tokens all but a final correction (or bonus) token
+            # were draft proposals
+            self.stats.accepted_draft_tokens += min(got, m)
+            if self.paged:
+                # rollback: keep exactly the KV the kept tokens stand on
+                # (prompt ++ tokens[:-1]); whole tail blocks written for
+                # rejected positions go back to the pool
+                self.pager.truncate(i, positions[i] + got)
+            want_cancel = self._emit(r, now)
+            if reason is None and want_cancel:
+                reason = "cancelled"
+            if reason is not None:
+                if self.paged:
+                    if r.adapter is None:
+                        self.pager.insert(self._kv_seq(r),
+                                          self.pager.slot_blocks(i))
+                    self.pager.release_slot(i)
+                self._finish(r, reason)
+                self.slots[i] = None
+                self.adapter_slots[i] = -1
+        self.stats.spec_rounds += 1
+        self.stats.spec_emitted_tokens += emitted
+        self.stats.decode_tokens += emitted
+        self.stats.steps += k + 1                  # target decode steps
+        self.stats.decode_chunks += 2 if k else 1  # dispatches this round
+        self.stats.occupancy_sum += (k + 1) * len(active) / self.n_slots
         if self.paged:
             self.stats.blocks_in_use = self.pager.blocks_in_use
         return True

@@ -396,7 +396,7 @@ class PagedKVCache:
 
         The engine calls it to roll a failed chunked-prefill continuation
         back to the slot's cursor (the blocks the chunk extended by go
-        back to the pool), and speculative decoding will call it to drop
+        back to the pool), and speculative decoding calls it to drop
         the KV of rejected draft positions. Only trailing whole blocks
         are released, and released means refcount-decremented: a block
         the radix index also holds survives with its published prefix

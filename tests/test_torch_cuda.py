@@ -29,7 +29,8 @@ version and its emulation (``ref.quant_gemm_ref``) within 1e-5 of the
 output scale. The engines' greedy tokens on a bf16 model are held
 to the teacher-forced token gate (``serve/token_gate.py``), also under
 overload (preemption, chunked prefill), and the chaos scenarios run
-through the kernels. The
+through the kernels. The speculative engine (an int4 draft, dense and
+paged) must give the target-only engine's tokens on the card, exactly. The
 quantization kernel's codes and scales must equal its plain version's
 exactly, on every route of its plan and on columns that hold a NaN, an
 inf or only zeros.
@@ -757,7 +758,7 @@ def test_overload_engine_tokens_pass_the_token_gate(card):
 
 
 def test_chaos_scenarios_on_the_card(card):
-    """The seven chaos scenarios through the kernels: no request lost, no
+    """The eight chaos scenarios through the kernels: no request lost, no
     block or pin leaked, the pager consistent after every step (the
     harness checks it), and any request whose tokens differ from the
     card's own fault-free run within the token gate."""
@@ -773,3 +774,41 @@ def test_chaos_scenarios_on_the_card(card):
                               device=card, registry=registry,
                               names=[m["adapter"]])
             assert gate.ok, (rep.scenario, m["rid"], gate.failures[:5])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_speculative_engine_matches_target_only_on_the_card(card, paged):
+    """A bf16 reduced int8 engine with a packed-int4 draft, dense and
+    paged: its greedy tokens equal the target-only engine's on the card,
+    every emitted token past the prefill's came from a round, the draft's
+    decode took the split-K kernel on int4 codes, and (paged) the pager's
+    books hold after every step."""
+    cfg = CONFIG.reduced(remat=False)
+    params = get_model(cfg).init(seed=0, device=card)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (8, 12, 31, 5, 20, 16)]
+    kw = dict(n_slots=4, max_len=64, quantize=True, decode_chunk=8,
+              device=card)
+    if paged:
+        kw.update(paged=True, kv_block_size=8)
+    want = ServeEngine(cfg, params, **kw).generate(prompts, max_new=24)
+    eng = ServeEngine(cfg, params, speculate=True, spec_k=4, draft_bits=4,
+                      **kw)
+    assert eng.draft_params["layers"]["attn"]["wq"].packed
+    for p in prompts:
+        eng.submit(p, max_new=24)
+    _build.reset_launches()
+    while eng.step():
+        if paged:
+            eng.pager.check_consistency()
+    done = {r.rid: r.tokens for r in eng.finished}
+    assert [done[i] for i in range(len(prompts))] == want
+    assert eng.stats.spec_emitted_tokens == \
+        sum(len(t) for t in want) - len(prompts)
+    launches = dict(_build.LAUNCHES)
+    assert launches["axllm_matmul.gemv"] > 0
+    assert launches["decode_attention"] > 0
+    if paged:
+        assert launches["paged_decode_attention"] > 0
+        assert eng.pager.blocks_in_use == eng.pager.evictable_blocks()

@@ -117,14 +117,15 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 
 def test_unported_options_raise(weights):
-    """Tensor parallelism and speculation are not ported: asking for them
-    raises and names the ROADMAP item. The overload options (a bounded
-    queue, a prefill budget, priorities, streaming, deadlines) are
-    ported and take the JAX engine's checks instead."""
+    """Tensor parallelism is not ported: asking for it raises and names
+    the ROADMAP item. Speculation and the overload options (a bounded
+    queue, a prefill budget, priorities, streaming, deadlines) are ported
+    and take the JAX engine's checks instead."""
     _, _, tcfg, tparams = weights
-    for kw in (dict(mesh=object()), dict(speculate=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tcfg, tparams, device="cpu", mesh=object())
+    spec = ServeEngine(tcfg, tparams, device="cpu", speculate=True)
+    assert spec.draft_cache is not None and spec.spec_k == 4
     eng = ServeEngine(tcfg, tparams, device="cpu", max_queue=4,
                       admission="reject")
     for kw in (dict(on_token=print), dict(deadline_s=1.0),

@@ -2,8 +2,7 @@
 token emission (``on_token``, ``stream()``), cancellation at every point
 of a request's life, and TTFT / inter-token deadlines under an injected
 clock, against the JAX engine on the same weights (the cases of
-``tests/test_streaming.py`` but its speculative and ``adopt_compiled``
-ones).
+``tests/test_streaming.py`` but its ``adopt_compiled`` ones).
 
 Each case runs the same script on both engines (the port's on the CPU):
 greedy tokens, finish reasons and counters must be equal, and the JAX
@@ -253,6 +252,31 @@ def test_cancel_mid_decode_leaves_prefix_and_survivors_identical(
     assert got[keep][0] == reference[1]
     teng.pager.evict_prefixes()
     assert teng.pager.blocks_in_use == 0
+
+
+def test_cancel_mid_speculative_round(sides, reference):
+    """Cancelling a speculating slot releases its target blocks and its
+    draft row; the survivor stays equal to the target-only reference."""
+    def script(s):
+        eng = _paged(s, speculate=True, spec_k=4)
+        victim = eng.submit(MIXED[0], max_new=MAX_NEW)
+        keep = eng.submit(MIXED[1], max_new=MAX_NEW)
+        eng.step()                           # prefill + first spec round
+        if any(r is not None and r.rid == victim for r in eng.slots):
+            assert eng.cancel(victim) is True
+        return _drain(eng), victim, keep
+
+    (teng, victim, keep), _ = mirror(sides, script)
+    got = outcomes(teng)
+    toks, reason = got[victim]
+    assert reason == "cancelled" and 0 < len(toks) < MAX_NEW
+    assert toks == reference[0][:len(toks)]
+    assert got[keep][0] == reference[1]
+    assert teng.stats.spec_rounds > 0
+    assert all(r is None for r in teng.slots)
+    teng.pager.evict_prefixes()
+    assert teng.pager.blocks_in_use == 0
+    teng.pager.check_consistency()
 
 
 def test_stop_stream_from_callback_cancels(sides, reference):
