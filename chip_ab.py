@@ -66,6 +66,8 @@ for name, fn in (("dense-cold", cs.end_to_end), ("dense", cs.end_to_end),
                  ("reuse+paged", cs.end_to_end_reuse_paged),
                  ("lora+reuse+fused", cs.end_to_end_lora)):
     r = fn(dev, card)
+    if isinstance(r, tuple):      # (metrics, its tokens[, its engine])
+        r = r[0]
     dp = r["decode_profile"]
     out[name] = dict(prefill_wall_s=r["prefill_wall_s"],
                      tok_per_s=r["tok_per_s"],

@@ -44,7 +44,13 @@ NVIDIA GPU.
    replaced timed beside it. The kernels of both quantized matmuls are
    timed from M1 to M4096 at N256 and N2048, int8 and NF4 (the decode
    kernels up to M16, the tensor-core ones from M16), where ``TC_MIN_M``
-   and ``GEMV_MAX_M`` pick the path.
+   and ``GEMV_MAX_M`` pick the path. At the shapes of runs h and i: both
+   quantized matmuls at qwen2-moe-a2.7b's and chameleon-34b's K x N (M8
+   and M4096; their untied heads at M8, held within 8 sqrt(K) f32 ulps of
+   the output scale), both decode kernels at 16/16, 64/8, 32/2 (two
+   query-head groups) and 4/2 heads (head dims 128 and 16; length-0 rows
+   exactly 0, each against its split emulation), flash at 16/16 and 64/8
+   heads (d128, both paths) and at f32 head dim 16 (SIMT).
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -140,8 +146,18 @@ NVIDIA GPU.
    fault-free run printed and held to the token gate; speculation_storm
    must inject faults, preempt a speculating slot, restore none fast and
    give every request the fault-free target-only run's tokens.
-8. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
-   g beside its main run's), then the result line.
+8. Runs h (moe) and i (vlm): qwen2-moe-a2.7b and chameleon-34b at full
+   width, each cut to 12 layers (the cut printed), serve run a's requests
+   as run a does (its checks: launches on ``.wgmma`` / ``.gemv``, the
+   token gate, first-wave logits, greedy agreement, profiles split into
+   attention, quantized matmul, expert products and the rest, peak
+   memory at init and beside a quantized copy). Run h's gate replays the
+   serving schedule with the served expert choices, recorded from a
+   second serving that must repeat the first bit for bit, and holds each
+   choice to the routing gate; it also prints the share of layer 0's
+   (token, choice) pairs its first wave dropped at capacity.
+9. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
+   g, and in runs h and i, beside its main run's), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -742,6 +758,213 @@ def tensor_core_phase(dev, flush):
     return sweep
 
 
+# the moe and vlm families' kernel shapes (runs h and i): qwen2-moe-a2.7b's
+# projections (wq/wk/wv/wo K2048 N2048, the 4 shared experts' gate/up K2048
+# N5632 and down K5632 N2048) and chameleon-34b's (wq/wo K8192 N8192, wk/wv
+# K8192 N1024, gate/up K8192 N22016, down K22016 N8192), at decode M8 and a
+# prefill wave's M4096; their untied heads at M8 only
+FAMILY_MATMULS = ((2048, 2048), (2048, 5632), (5632, 2048), (8192, 8192),
+                  (8192, 1024), (8192, 22016), (22016, 8192))
+FAMILY_HEADS = ((2048, 152064), (8192, 65536))
+# decode attention (H, Hk, d) at B8 S1024: qwen2-moe, chameleon, glm4-9b
+# (16 query heads a KV head: two groups) and the chaos harness's d16
+FAMILY_DECODE = ((16, 16, 128), (64, 8, 128), (32, 2, 128), (4, 2, 16))
+# flash at B8 Sq = Sk = 512: (H, Hk, d, dtype)
+FAMILY_FLASH = ((16, 16, 128, "bfloat16"), (64, 8, 128, "bfloat16"),
+                (4, 2, 16, "float32"))
+
+
+def matmul_case(kernel, m, k, n, g, dev, flush) -> dict:
+    """One quantized-matmul case (int8 affine per channel, bf16 x) of
+    ``kernel`` ("axllm_matmul" or "reuse_matmul") against its plain
+    version, timed beside it and ``torch.matmul`` on the dequantized
+    weight; a decode-path case also against its split emulation."""
+    import torch
+    from repro_torch.core.quantization import QuantConfig, dequantize, \
+        quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
+    from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda
+    bf16 = torch.bfloat16
+    reuse = kernel == "reuse_matmul"
+    x = torch.randn(m, k, generator=g, device=dev).to(bf16)
+    qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
+                  QuantConfig(8))
+    plain_fn = ref.reuse_matmul_ref if reuse else ref.axllm_matmul_ref
+
+    def call(dt=torch.float32):
+        return (reuse_matmul_cuda(x, qt, out_dtype=dt)[0] if reuse
+                else axllm_matmul_cuda(x, qt, dt))
+
+    want = plain_fn(x, qt)
+    got = call()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # two f32 sums of K products in other orders (the scale applied after
+    # the sum or to each weight) differ by about sqrt(K) units in the last
+    # place of a typical output: 8 sqrt(K) ulps of the output scale (2.2e-5
+    # at K2048, 7.1e-5 at K22016), never below the small shapes' 1e-5
+    tol = max(1e-5, 8 * 2.0 ** -24 * k ** 0.5) * max(
+        1.0, float(want.abs().max()))
+    del want
+    w_deq = dequantize(qt, bf16)
+    ms = time_ms(call, flush)
+    plain = time_ms(lambda: plain_fn(x, qt), flush, iters=5)
+    lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
+    shape = f"M{m} K{k} N{n} 8b-affine-per_channel"
+    path = path_of(m, x, qt)
+    row = case_row(kernel, shape, err, tol, ms, plain, lib,
+                   nbytes(x, qt.codes, qt.kernel_scale, got),
+                   2.0 * m * k * n, "bfloat16", path)
+    if path == "gemv":
+        row.update(gemv_checks(kernel, x, qt, got, call, reuse))
+    return row
+
+
+def decode_case(paged, h, hk, d, quant, g, dev, flush) -> dict:
+    """One decode step of the 8 slots at S = 1024 (dense cache) or through
+    shuffled, shared 16-key block tables (paged), lengths 0 to past the
+    end, against the plain version and the split emulation."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, \
+        plan_rows, split_plan
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+    bf16 = torch.bfloat16
+    b, s, bs = N_SLOTS, MAX_LEN, KV_BLOCK
+    mb = s // bs
+    n_rows = 2 * N_SLOTS * mb + 2 if paged else b   # pool blocks or rows
+    inner = (bs,) if paged else (s,)
+    length = torch.tensor([0, 64, 200, 511, 700, 1000, s, s + 300],
+                          dtype=torch.int32, device=dev)
+    valid = torch.clamp(length, 0, s)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(bf16)
+    shape_kv = (n_rows, *inner, hk, d)
+    if quant:
+        kc = torch.randint(-127, 128, shape_kv, generator=g, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, shape_kv, generator=g, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(*shape_kv[:-1], 1, generator=g, device=dev) * 0.02
+        vs = torch.rand(*shape_kv[:-1], 1, generator=g, device=dev) * 0.02
+        per_key = hk * (2 * d + 2 * 4)
+    else:
+        kc = torch.randn(*shape_kv, generator=g, device=dev).to(bf16)
+        vc = torch.randn(*shape_kv, generator=g, device=dev).to(bf16)
+        ks = vs = None
+        per_key = hk * 2 * d * 2
+    sms = _build.sm_count(dev)
+    rows = plan_rows(b, h, hk)
+    if paged:
+        bt = (1 + torch.randperm(n_rows - 1, generator=g,
+                                 device=dev)[:b * mb])
+        bt = bt.reshape(b, mb).to(torch.int32)
+        bt[1:, :SHARED_PREFIX // bs] = bt[0, :SHARED_PREFIX // bs]
+        args = (q, kc, vc, bt, length, ks, vs)
+        fn, plain_fn = paged_decode_attention_cuda, \
+            ref.paged_decode_attention_ref
+        emu = ref.paged_decode_attention_split_ref(
+            q.float(), *args[1:], *split_plan(s, rows, sms, bs))
+        pos = torch.arange(s, device=dev)
+        entry = bt.long()[:, pos // bs] * bs + pos % bs
+        n_entries = int(torch.unique(
+            entry[pos[None, :] < valid[:, None]]).numel())
+        extra = int(((valid + bs - 1) // bs).sum()) * 4
+        name = "paged_decode_attention"
+    else:
+        args = (q, kc, vc, length, ks, vs)
+        fn, plain_fn = decode_attention_cuda, ref.decode_attention_ref
+        emu = ref.decode_attention_split_ref(q.float(), *args[1:],
+                                             *split_plan(s, rows, sms))
+        n_entries, extra = int(valid.sum()), 0
+        name = "decode_attention"
+    want = plain_fn(*args)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    check(int(torch.count_nonzero(got[0])) == 0,
+          f"{name}: a length-0 row is not exactly 0 (H{h} Hk{hk} d{d})")
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    split_err(got, emu, f"{name} H{h} Hk{hk} d{d}")
+    ms = time_ms(lambda: fn(*args), flush)
+    plain = time_ms(lambda: plain_fn(*args), flush)
+    lib = None
+    if not quant and not paged:     # one library call computes it
+        mask = (torch.arange(s, device=dev)[None, :]
+                < valid[:, None])[:, None, None]
+        qs, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+    shape = (f"B{b} H{h} Hk{hk} d{d} bs{bs} MB{mb}" if paged
+             else f"B{b} S{s} H{h} Hk{hk} d{d}") + \
+        f" {'int8' if quant else 'bf16'}-kv"
+    return case_row(name, shape, err, tol, ms, plain, lib,
+                    nbytes(q, length, got) + n_entries * per_key + extra,
+                    4.0 * int(valid.sum()) * h * d, "bfloat16")
+
+
+def flash_case(h, hk, d, dtype_name, g, dev, flush) -> list:
+    """Causal flash attention of a prefill wave (8 x 512) at this head
+    layout: the wrapper's path and, for bf16, the SIMT kernel beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    b, sq = N_SLOTS, 512
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
+    want = ref.attention_ref(q, k, v, True)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * scale
+    amask = (torch.arange(sq, device=dev)[:, None]
+             >= torch.arange(sq, device=dev)[None, :])
+    qt_, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt_, kt, vt, attn_mask=amask, enable_gqa=True), flush)
+    plain = time_ms(lambda: ref.attention_ref(q, k, v, True), flush)
+    pairs = sq * (sq + 1) // 2
+    shape = f"B{b} Sq{sq} Sk{sq} H{h} Hk{hk} d{d} causal {dtype_name}"
+    calls = [("simt", lambda: fa.launch(q, k, v, True, False))]
+    if fa.tensor_core_path(q):
+        calls.insert(0, ("wgmma", lambda: fa.flash_attention_cuda(q, k, v)))
+    rows = []
+    for path, call in calls:
+        got = call()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rows.append(case_row("flash_attention", shape, err, tol,
+                             time_ms(call, flush), plain, lib,
+                             nbytes(q, k, v, got), 4.0 * b * h * d * pairs,
+                             dtype_name, path))
+    return rows
+
+
+def family_kernel_phase(dev, flush):
+    """Kernels 1 to 5 at the shapes of runs h and i (qwen2-moe-a2.7b and
+    chameleon-34b at full width), each against its plain version."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for kernel in ("axllm_matmul", "reuse_matmul"):
+        for m in (N_SLOTS, 4096):
+            for k, n in FAMILY_MATMULS:
+                rows.append(matmul_case(kernel, m, k, n, g, dev, flush))
+        for k, n in FAMILY_HEADS:
+            rows.append(matmul_case(kernel, N_SLOTS, k, n, g, dev, flush))
+    for paged in (False, True):
+        for h, hk, d in FAMILY_DECODE:
+            for quant in (False, True):
+                rows.append(decode_case(paged, h, hk, d, quant, g, dev,
+                                        flush))
+    for h, hk, d, dt in FAMILY_FLASH:
+        rows += flash_case(h, hk, d, dt, g, dev, flush)
+    return rows
+
+
 def sass_hgmma(lib: str) -> int:
     """The number of HGMMA (wgmma) instructions in a built library."""
     from repro_torch.kernels import _build
@@ -985,6 +1208,54 @@ def small_input_check(dev):
           flush=True)
 
 
+def record_routes(eng):
+    """(routes, wave_lens): a :class:`Routes` that, within its
+    ``record()`` block, records the expert choices of ``eng``'s moe
+    layers by (rid, layer, position), and each request's wave's padded
+    prompt length by rid. The engine's dense prefill and decode are
+    wrapped to say what each call's batch rows hold (a wave's requests at
+    positions 0 .. len - 1, a decode step's slots at their cursors)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.serve.token_gate import Routes
+    routes, pending, wave_lens = Routes(), [], {}
+    group_fn, api = eng._prefill_group, eng.api
+
+    def group(g, free):
+        pending[:] = [r.rid for r in g]
+        return group_fn(g, free)
+
+    def prefill(p, b, c, lengths=None, **kw):
+        n = lengths.cpu().numpy()
+        ar = np.arange(b["tokens"].shape[1])
+        wave_lens.update((rid, len(ar)) for rid in pending)
+        routes.at(pending + [None] * (len(n) - len(pending)),
+                  np.where(ar[None] < n[:, None], ar[None], -1))
+        return api.prefill(p, b, c, lengths=lengths, **kw)
+
+    def decode(p, t, c, **kw):
+        routes.at([None if r is None else r.rid for r in eng.slots],
+                  c["pos"].cpu().numpy()[:, None])
+        return api.decode(p, t, c, **kw)
+
+    eng._prefill_group = group
+    eng.api = dataclasses.replace(api, prefill=prefill, decode=decode)
+    return routes, wave_lens
+
+
+def print_routes(tag, what, routes) -> dict:
+    """Print and return the routing gate's account of ``routes``."""
+    print(f"{tag}: {what}: routing gate: {routes.tokens} (token, layer) "
+          f"routings of the served path taken, {routes.differ} of them not "
+          f"the plain router's top-k, smallest slack {routes.min_slack:.4e};"
+          f" {len(routes.failures)} choices more than 2 x tol below the "
+          f"plain k-th logit, {routes.missing} tokens without a record",
+          flush=True)
+    return dict(tokens=routes.tokens, differ=routes.differ,
+                min_slack=routes.min_slack, failures=len(routes.failures),
+                missing=routes.missing)
+
+
 def record_hit_wave(eng) -> dict:
     """Wrap a paged engine's prefill so that it records its first wave with
     a prefix hit: the rows' whole prompts and the first-token logits the
@@ -1012,13 +1283,37 @@ def record_hit_wave(eng) -> dict:
     return rec
 
 
+def split_by_kind(top) -> dict:
+    """Device ms of a profile's kernels (``top``: (name, ms) pairs) split
+    into attention (the decode and flash kernels), the quantized matmuls
+    (both libraries), the expert products (every other GEMM: cuBLAS's
+    batched expert products and the router's product) and the rest (the
+    expert banks' dequantization among it)."""
+    out = dict(attention=0.0, quantized_matmul=0.0, expert_products=0.0,
+               rest=0.0)
+    for name, ms in top:
+        n = name.lower()
+        if "attention" in n or "paged_decode" in n or "flash" in n:
+            out["attention"] += ms
+        elif "axllm" in n or "reuse_" in n or "quant_gemm" in n:
+            out["quantized_matmul"] += ms
+        elif any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                  "bmm")):
+            out["expert_products"] += ms
+        else:
+            out["rest"] += ms
+    return out
+
+
 def serve_run(dev, card, label, prompts, kernels, names=None,
-              registry=None, **engine_kw):
-    """One end-to-end run on full-width repro-100m: ``prompts`` through
-    ``ServeEngine(quantize=True, n_slots=8, max_len=1024, decode_chunk=8,
-    adapters=registry, **engine_kw)``, request i with adapter
-    ``names[i]``, with every launch count set to 0 just before and read
-    just after, each of ``kernels`` required to have launched. Returns
+              registry=None, cfg=None, after=None, **engine_kw):
+    """One end-to-end run, on full-width repro-100m unless ``cfg`` says
+    otherwise: ``prompts`` through ``ServeEngine(quantize=True, n_slots=8,
+    max_len=1024, decode_chunk=8, adapters=registry, **engine_kw)``,
+    request i with adapter ``names[i]``, with every launch count set to 0
+    just before and read just after, each of ``kernels`` required to have
+    launched. ``after(prefill, wave)`` adds its metrics: ``prefill()``
+    runs the first wave (``wave``, its prompts) again as served. Returns
     (metrics, the engine)."""
     import numpy as np
     import torch
@@ -1026,10 +1321,13 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine, _pow2_bucket
-    from repro_torch.serve.token_gate import token_gate
+    from repro_torch.serve.token_gate import Routes, token_gate
 
-    cfg = CONFIG
+    cfg = cfg or CONFIG
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     params = get_model(cfg).init(seed=0, device=dev)
+    init_peak = torch.cuda.max_memory_allocated()
     impl = engine_kw.pop("impl", "auto")
     plain_impl = "reuse_ref" if impl == "reuse" else "ref"
     tag = f"e2e {label} [{card}]"
@@ -1041,8 +1339,12 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                            impl=impl, adapters=registry, device=dev,
                            **engine_kw)
 
-    engine(impl).generate(prompts[:2], max_new=8,     # warm-up (cuBLAS, etc.)
-                          adapters=names[:2])
+    torch.cuda.reset_peak_memory_stats()
+    warm = engine(impl)         # its deploy_quantize: the peak beside init
+    deploy_peak = torch.cuda.max_memory_allocated()
+    warm.generate(prompts[:2], max_new=8,     # warm-up (cuBLAS, etc.)
+                  adapters=names[:2])
+    del warm
     eng = engine(impl)
     hit_wave = record_hit_wave(eng) if eng.paged else None
     for p, name in zip(prompts, names):
@@ -1091,26 +1393,52 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
           f"{st.prefill_tokens} tokens, {st.prefill_wall_s:.3f} s; "
           f"prefix-hit tokens {st.prefix_hit_tokens}; LoRA requests "
           f"{st.lora_requests}; peak memory "
-          f"{peak / 2**30:.3f} GiB", flush=True)
+          f"{peak / 2**30:.3f} GiB (init {init_peak / 2**30:.3f}, with a "
+          f"quantized copy {deploy_peak / 2**30:.3f})", flush=True)
     print(f"{tag}: launches {launches}", flush=True)
 
     # the token gate: each request's tokens, teacher-forced through the
-    # plain path on the kernel path's own prefix
+    # plain path on the kernel path's own prefix; a moe model's (whose
+    # output depends on its wave's padded length, the capacity) on the
+    # served schedule with the served expert choices, recorded from a
+    # second serving of the same requests (which must repeat the first
+    # bit for bit), each choice held to the routing gate
+    routes = wave_lens = None
+    if cfg.family == "moe":
+        rec_eng = engine(impl)
+        routes, wave_lens = record_routes(rec_eng)
+        with routes.record():
+            again = rec_eng.generate(prompts, max_new=MAX_NEW)
+        del rec_eng
+        same = sum(a == done[i].tokens for i, a in enumerate(again))
+        print(f"{tag}: a second serving of the same requests: {same}/"
+              f"{len(prompts)} requests' tokens identical", flush=True)
+        check(same == len(prompts), f"{label}: serving did not repeat")
     gate = token_gate(cfg, eng.params, prompts,
                       [done[i].tokens for i in range(len(prompts))],
                       impl=plain_impl, tol_rel=LOGIT_TOL, device=dev,
-                      registry=registry, names=names)
+                      registry=registry, names=names,
+                      prefill_lens=None if wave_lens is None else
+                      [wave_lens[i] for i in range(len(prompts))],
+                      routes=routes)
     print(f"{tag}: token gate: {gate.positions} generated positions checked "
-          f"against the plain path's teacher-forced logits; {gate.differ} "
-          f"where the token is not the plain path's argmax; smallest slack "
-          f"{gate.min_slack:.4e} (request {gate.worst[0]}, position "
-          f"{gate.worst[1]}); {len(gate.failures)} positions more than "
-          f"2 x tol below the plain maximum", flush=True)
+          f"against the plain path's teacher-forced logits"
+          + ("" if routes is None else " (the served schedule replayed, "
+             "the served expert choices taken)") +
+          f"; {gate.differ} where the token is not the plain path's "
+          f"argmax; smallest slack {gate.min_slack:.4e} (request "
+          f"{gate.worst[0]}, position {gate.worst[1]}); "
+          f"{len(gate.failures)} positions more than 2 x tol below the "
+          f"plain maximum", flush=True)
+    route_gate = {}
+    if routes is not None:
+        route_gate = print_routes(tag, "token gate", routes)
     check(gate.ok, f"{label}: token gate failed at (request, position, "
-                   f"slack) {gate.failures[:5]}")
-    def dense_logits(which, wave, wave_names=None):
+                   f"slack) {gate.failures[:5]}; routing {route_gate}")
+    def dense_logits(which, wave, wave_names=None, wave_routes=None):
         """First-token logits of a plain dense prefill of ``wave``, row i
-        with adapter ``wave_names[i]`` (all base when None)."""
+        with adapter ``wave_names[i]`` (all base when None); row i is
+        request i of ``wave_routes``."""
         pl = _pow2_bucket(max(len(p) for p in wave), 8, MAX_LEN)
         toks = np.zeros((len(wave), pl), np.int32)
         for i, p in enumerate(wave):
@@ -1126,6 +1454,10 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                                                  device=dev),
                         lora_scaling=registry.scaling)
         api = get_model(cfg, impl=which)
+        if wave_routes is not None:
+            ar = np.arange(pl)
+            wave_routes.at(range(len(wave)), np.where(
+                ar[None] < lengths.cpu().numpy()[:, None], ar[None], -1))
         with torch.inference_mode():
             return api.prefill(
                 eng.params, {"tokens": torch.from_numpy(toks).to(dev)},
@@ -1156,11 +1488,25 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
 
     # first wave (no prefix hit: the plain ragged prefill) against the
     # plain path, same card and weights
+    # (moe: the plain pass takes the served pass's expert choices, each
+    # held to the routing gate)
     wave, wave_names = prompts[:N_SLOTS], names[:N_SLOTS]
-    served = dense_logits(impl, wave, wave_names)
-    logit_err, scale, argmax_agree = hold(
-        "first-wave logits", served, dense_logits(plain_impl, wave,
-                                                  wave_names))
+    if routes is None:
+        served = dense_logits(impl, wave, wave_names)
+        plain_wave = dense_logits(plain_impl, wave, wave_names)
+    else:
+        wave_routes = Routes()
+        with wave_routes.record():
+            served = dense_logits(impl, wave, wave_names, wave_routes)
+        with wave_routes.force(LOGIT_TOL):
+            plain_wave = dense_logits(plain_impl, wave, wave_names,
+                                      wave_routes)
+        route_gate["first_wave"] = print_routes(tag, "first wave",
+                                                wave_routes)
+        check(wave_routes.ok, f"{label}: the first wave's routing gate "
+                              f"failed: {wave_routes.failures[:5]}")
+    logit_err, scale, argmax_agree = hold("first-wave logits", served,
+                                          plain_wave)
     hit = {}
     if registry is not None:
         # the delta ran: each adapter row's logits move beyond the
@@ -1204,15 +1550,24 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
           f"{idle:.3f}", flush=True)
     for name, ms in top[:8]:
         print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
+    decode_split = split_by_kind(top)
+    print(f"{tag}: decode device ms by kind: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in decode_split.items()),
+          flush=True)
     # where a prefill wave's time goes: the first wave's prefill through
     # the kernel path (as served: the same model call), profiled
     p_wall, p_busy, p_top = device_busy_ms(
         lambda: dense_logits(impl, wave, wave_names))
     flash_ms = sum(ms for name, ms in p_top if "flash" in name)
+    wave_split = split_by_kind(p_top)
     print(f"{tag}: one prefill wave ({len(wave)} rows): wall {p_wall:.2f} "
           f"ms, device busy {p_busy:.2f} ms, idle share "
           f"{1.0 - p_busy / p_wall:.3f}; flash attention {flash_ms:.3f} ms "
-          f"device", flush=True)
+          f"device; by kind: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wave_split.items()),
+          flush=True)
+    extra = {} if after is None else after(
+        lambda: dense_logits(impl, wave, wave_names), wave)
 
     plain = engine(plain_impl)
     for p, name in zip(prompts, names):
@@ -1232,15 +1587,20 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                 prefix_hit_tokens=st.prefix_hit_tokens,
                 blocks_in_use=st.blocks_in_use, peak_bytes=peak,
                 launches=launches, logit_err=logit_err, logit_scale=scale,
+                init_peak_bytes=init_peak, deploy_peak_bytes=deploy_peak,
+                routing_gate=route_gate,
+                **extra,
                 gate=dict(positions=gate.positions, differ=gate.differ,
                           min_slack=gate.min_slack,
                           failures=len(gate.failures)),
                 first_wave_argmax_agree=argmax_agree, **hit,
                 requests_identical=same, position_agree=float(agree),
                 decode_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                                    idle_share=idle, top=top),
+                                    idle_share=idle, top=top,
+                                    by_kind=decode_split),
                 prefill_profile=dict(wall_ms=p_wall, busy_ms=p_busy,
-                                     flash_ms=flash_ms, top=p_top[:8])), eng
+                                     flash_ms=flash_ms, top=p_top[:8],
+                                     by_kind=wave_split)), eng
 
 
 def run_a_prompts() -> list:
@@ -1650,6 +2010,90 @@ def end_to_end_spec_paged(dev, card, ref_tokens):
                         "flash_attention.wgmma"),
                     impl="reuse", paged=True, kv_block_size=KV_BLOCK,
                     spec_k=8, draft_bits=8, draft_mode="shiftadd")[0]
+
+
+# runs h and i: (config, layers kept, why the rest are cut)
+FAMILY_RUNS = {
+    "moe": ("qwen2-moe-a2.7b", 12, "chip time and the f32 init "
+            "temporaries; at 24 layers the raw bf16 tree alone is 30.3 GB"),
+    "vlm": ("chameleon-34b", 12, "at 48 layers its 34.3 B parameters (68.6 "
+            "GB raw plus 34 GB of codes) do not fit in 80 GB"),
+}
+FAMILY_KERNELS = ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
+                  "decode_attention", "flash_attention",
+                  "flash_attention.wgmma")
+
+
+def moe_drops(cfg):
+    """``after`` of run h: the share of layer 0's (token, choice) pairs of
+    the first wave that the capacity dropped, by the port's own dispatch
+    (``moe._dispatch_row``) on the FFN input the wave gave layer 0, over
+    all pairs and over the real (not padding) tokens' pairs."""
+    def after(prefill, wave):
+        import torch
+        from repro_torch.models import moe as M
+        seen, orig = [], M.moe_ffn
+
+        def hook(p, x, c, impl="auto"):
+            if not seen:
+                seen.append((p, x))
+            return orig(p, x, c, impl=impl)
+
+        M.moe_ffn = hook
+        try:
+            prefill()
+        finally:
+            M.moe_ffn = orig
+        p, x = seen[0]
+        b, s, d = x.shape
+        k = cfg.top_k
+        w, e = M._route(p, x.reshape(-1, d), cfg)
+        cap = M.capacity(cfg, s)
+        _, _, tok, _, keep, _ = M._dispatch_row(
+            w.reshape(b, s, k), e.reshape(b, s, k), cfg.padded_experts, cap,
+            k)
+        lengths = torch.tensor([len(q) for q in wave], device=x.device)
+        real = tok < lengths[:b, None]
+        all_share = 1.0 - float(keep.float().mean())
+        real_share = 1.0 - float(keep[real].float().mean())
+        print(f"e2e moe: layer 0 of the first wave (B{b} S{s}, capacity "
+              f"{cap} pairs an expert a row): {all_share:.4f} of its "
+              f"{keep.numel()} (token, choice) pairs dropped, "
+              f"{real_share:.4f} of the {int(real.sum())} real tokens' "
+              f"pairs", flush=True)
+        return dict(layer0_drop_share=all_share,
+                    layer0_real_drop_share=real_share, layer0_capacity=cap)
+    return after
+
+
+def end_to_end_family(dev, card, family):
+    """Run h (moe) or i (vlm): the config at full width, cut in depth,
+    serving run a's requests as run a does. Earlier runs' engines hold
+    reference cycles (their wrapped methods), so they are collected
+    first: the peaks then count this run's tensors alone."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    name, layers, why = FAMILY_RUNS[family]
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    print(f"e2e {family} [{card}]: {name} at full width (d_model "
+          f"{cfg.d_model}, H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded {cfg.padded_vocab}"
+          + (f", {cfg.n_experts} experts padded to {cfg.padded_experts}, "
+             f"top-{cfg.top_k}, {cfg.n_shared_experts} shared, capacity "
+             f"factor {cfg.capacity_factor}" if cfg.n_experts else "")
+          + f"), depth cut to {layers} of {full.n_layers} layers: {why}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e, _ = serve_run(dev, card, family, run_a_prompts(), FAMILY_KERNELS,
+                       cfg=cfg, after=moe_drops(cfg) if family == "moe"
+                       else None)
+    torch.cuda.empty_cache()
+    return dict(e2e, config=name, layers=layers, full_layers=full.n_layers)
 
 
 def simulator_phase(eng, card) -> dict:
@@ -2155,6 +2599,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - start:.1f} s] {what} done",
+              flush=True)
+
     card = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
@@ -2181,6 +2631,9 @@ def main() -> int:
     sweep = tensor_core_phase(dev, flush)
     q_rows, deploy = quantize_kernel_phase(dev, flush, strip)
     rows += q_rows
+    stamp("kernel phases")
+    rows += family_kernel_phase(dev, flush)
+    stamp("the families' kernel phase")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
@@ -2193,9 +2646,14 @@ def main() -> int:
            "spec reuse+paged": end_to_end_spec_paged(dev, card,
                                                      reuse_paged_tokens),
            "deploy": deploy}
+    stamp("runs a to g")
     simulator = simulator_phase(reuse_paged_eng, card)
     del reuse_paged_eng
     chaos = chaos_phase(dev, card)
+    stamp("simulator and chaos phases")
+    for family in FAMILY_RUNS:                  # runs h and i
+        e2e[family] = end_to_end_family(dev, card, family)
+        stamp(f"run {family}")
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
@@ -2209,7 +2667,10 @@ def main() -> int:
             shape=main_shape, launches_from=run,
             # the speculative runs f and g that serve it, and its launches
             launches_spec={r: e2e[r]["launches"][name] for r in SPEC_RUNS
-                           if e2e[r]["launches"].get(name)}))
+                           if e2e[r]["launches"].get(name)},
+            # runs h (moe) and i (vlm)
+            launches_families={r: e2e[r]["launches"].get(name, 0)
+                               for r in FAMILY_RUNS}))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the main row is the decode kernel; beside it the tile kernel
             # at the same shape (for axllm_matmul the path the row took

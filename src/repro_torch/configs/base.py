@@ -1,8 +1,8 @@
 """ModelConfig: the dataclass describing a model, and its reduced variant.
 
 A field-for-field copy of the JAX package's ``configs/base.py`` so that a
-config built here and one built there describe the same model; only the
-fields and helpers the PyTorch port reads are kept as code.
+config built here and one built there describe the same model, with the
+same derived sizes (padded vocab and experts, parameter counts).
 """
 
 from __future__ import annotations
@@ -83,6 +83,62 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def padded_experts(self) -> int:
+        if not self.n_experts:
+            return 0
+        m = self.expert_pad_to
+        return ((self.n_experts + m - 1) // m) * m
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic state: SSM/hybrid run long_500k; attention archs
+        skip."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every pool arch decodes (whisper via its decoder)
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding included once if tied)."""
+        d, dff, hd = self.d_model, self.d_ff, self.resolved_head_dim
+        h, hk = self.n_heads, self.n_kv_heads
+        attn = d * h * hd + 2 * d * hk * hd + h * hd * d
+        if self.act == "swiglu":
+            ffn = 3 * d * dff
+        else:
+            ffn = 2 * d * dff
+        per_layer = attn
+        if self.family == "moe":
+            shared = 3 * d * dff * self.n_shared_experts
+            routed = 3 * d * dff * self.n_experts
+            dense_res = 3 * d * dff if self.moe_dense_residual else 0
+            per_layer += shared + routed + dense_res + d * self.n_experts
+        elif self.family in ("ssm",):      # xLSTM: internal projections
+            di = self.ssm_expand * d
+            per_layer += 2 * d * di + di * d + 4 * (di // 1) * hd
+        elif self.family == "hybrid":
+            di = self.ssm_expand * d
+            per_layer += 2 * d * di + di * d
+        else:
+            per_layer += ffn
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        enc = 0
+        if self.is_encoder_decoder:
+            enc = self.n_enc_layers * (attn + ffn)
+        return self.n_layers * per_layer + emb + enc
+
+    def n_active_params(self) -> int:
+        """Per-token active params (MoE: top_k + shared + dense residual)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, dff = self.d_model, self.d_ff
+        full = self.n_params()
+        routed_all = self.n_layers * 3 * d * dff * self.n_experts
+        routed_active = self.n_layers * 3 * d * dff * self.top_k
+        return full - routed_all + routed_active
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU tests (same rule as the JAX

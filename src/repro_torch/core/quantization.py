@@ -177,10 +177,22 @@ def unpack_int4(packed: torch.Tensor, out_dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def quantize(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
-    """Quantize a weight of shape [..., in, out] per ``cfg``."""
-    w = w.to(torch.float32)
+    """Quantize a weight of shape [..., in, out] per ``cfg``.
+
+    A stacked weight is quantized one leading entry at a time (every scale
+    reduces within one matrix, so the result is the same): the f32
+    temporaries of a whole stacked leaf, such as a full-width expert bank
+    of 2.2 G weights, would not fit on the card beside the model."""
     if w.ndim < 2:
         raise ValueError("quantize expects [..., in, out]")
+    if w.ndim > 2:
+        parts = [quantize(w[i], cfg) for i in range(w.shape[0])]
+        return dataclasses.replace(
+            parts[0], codes=torch.stack([q.codes for q in parts]),
+            scale=torch.stack([q.scale for q in parts]),
+            shape=tuple(w.shape),
+            kernel_scale=torch.stack([q.kernel_scale for q in parts]))
+    w = w.to(torch.float32)
     eps = 1e-8
     if cfg.granularity == "per_group":
         *lead, n_in, n_out = w.shape

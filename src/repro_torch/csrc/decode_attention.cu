@@ -51,14 +51,16 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // q/out: [B,H,D] f32 (q_bf16 = 0) or bf16; k/v: [B,S,Hk,D] in q's type, or
 // int8 (kv_int8 = 1) with k_scale/v_scale [B,S,Hk,1] f32; length: [B] int32.
 // The keys split into n_split ranges of split_len (n_split * split_len >=
-// S); with n_split > 1, part is an f32 scratch of B*Hk*n_split*(H/Hk)*(D+1)
-// floats and counters B*Hk int32 zeros (left zero).
+// S); with n_split > 1, part is an f32 scratch of rows*n_split*gs*(D+1)
+// floats and counters rows int32 zeros (left zero), where rows = B*Hk*n_grp
+// and n_grp, gs = decode_groups(H/Hk), decode_group_size(H/Hk). Any ratio
+// H/Hk; D in {16, 32, 64, 128}.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, const int* length, void* out, float* part,
     int* counters, int B, int S, int H, int Hk, int D, int q_bf16,
     int kv_int8, int n_split, int split_len, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk || H / Hk > kDecodeMaxRep ||
+  if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk ||
       !decode_split_ok(S, n_split, split_len, part, counters) ||
       (kv_int8 && (!k_scale || !v_scale)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -72,7 +74,8 @@ extern "C" int decode_attention_launch(
         using TKV = typename decltype(tkv)::type;
         decode_attention_kernel<TQ, TKV, decltype(d)::value,
                                 decltype(r)::value>
-            <<<dim3(B * Hk, n_split), kDecodeThreads, 0, s>>>(
+            <<<dim3(B * Hk * decode_groups(H / Hk), n_split), kDecodeThreads,
+               0, s>>>(
                 static_cast<const TQ*>(q), static_cast<const TKV*>(k),
                 static_cast<const TKV*>(v), ks, vs, length,
                 static_cast<TQ*>(out), part, counters, S, H, Hk, split_len,

@@ -15,10 +15,17 @@
 // int8 scales. The valid length is clamped to [0, limit()]: stopped and
 // free serving rows keep advancing their cursor past the end.
 //
-// Split-KV. The grid is (B * Hk, n_split): block (b * Hk + hk, s) serves
-// all H/Hk query heads of KV head hk of row b (a GQA group streams its
-// keys and values once, its query heads in registers) over keys
-// [s * split_len, (s + 1) * split_len) of the clamped length. The host
+// Query-head groups. A block holds at most kDecodeMaxRep query heads in
+// registers, so the rep = H/Hk query heads of a KV head split into
+// n_grp = ceil(rep / kDecodeMaxRep) groups of gs = ceil(rep / n_grp) (the
+// last may be smaller; decode_groups). Each group's blocks read the same
+// KV rows: a ratio of 16 reads them twice, but q is never copied.
+//
+// Split-KV. The grid is (B * Hk * n_grp, n_split): block ((b * Hk + hk) *
+// n_grp + g, s) serves query heads g * gs .. of KV head hk of row b (a
+// GQA group streams its keys and values once, its query heads in
+// registers) over keys [s * split_len, (s + 1) * split_len) of the
+// clamped length. The host
 // picks n_split and split_len from shapes alone (never from `length`, which
 // lives on the device): enough blocks to fill the card. A split that
 // starts past its row's length reads nothing and writes an empty partial.
@@ -41,9 +48,11 @@
 // block's partial. With one split the block writes the output; otherwise
 // it writes its normalized partial and log2-sum-exp (-1e30 if empty) to
 // an f32 scratch, and the last of the row's splits to arrive (an atomic
-// counter per (b, hk), which it resets to 0 for the next launch) merges
+// counter per (b, hk, group), which it resets to 0 for the next launch) merges
 // them in the same launch; an empty partial weighs exactly 0. A row with
 // length 0 gives exactly 0 (every split empty: 0 / max(0, 1e-30) == 0).
+// The merges give each lane D / 32 output elements, or one element to each
+// of the first D lanes at D = 16.
 //
 // Decode stays on the CUDA cores: H/Hk = 3 query rows per KV head are far
 // below wgmma's 64 rows, and the bound is the bytes of the valid KV.
@@ -55,9 +64,18 @@
 
 constexpr int kDecodeWarps = 4;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
-constexpr int kDecodeMaxRep = 8;   // query heads per KV head (H / Hk)
+constexpr int kDecodeMaxRep = 8;   // query heads a block holds (a group)
 constexpr int kDecodeStages = 2;   // cp.async ring depth per warp
 constexpr int kDecodeTable = 256;  // staged block-table entries (paged)
+
+// Query-head groups of a KV head with rep = H / Hk query heads.
+__host__ __device__ inline int decode_groups(int rep) {
+  return (rep + kDecodeMaxRep - 1) / kDecodeMaxRep;
+}
+__host__ __device__ inline int decode_group_size(int rep) {
+  const int n = decode_groups(rep);
+  return (rep + n - 1) / n;
+}
 
 // One warp tile of keys: each lane loads 16 bytes of a key row per load.
 template <typename TKV, int D, int R>
@@ -94,17 +112,23 @@ __device__ __forceinline__ void decode_attention_body(
   using Tl = DecodeTile<TKV, D, R>;
   constexpr int W = kDecodeWarps, U = Tl::kLoads, L = Tl::kLanes;
   constexpr int KPL = Tl::kKeysPerLoad, KEYS = Tl::kKeys, VEC = Tl::kVec;
-  constexpr int E = D / 32;    // output elements per lane in the merges
+  // output elements per lane in the merges: D / 32, or 1 on D lanes
+  constexpr int E = D >= 32 ? D / 32 : 1;
   constexpr int kRing = kDecodeStages * W * Tl::kStage;
   constexpr int kMerge = W * R * (D + 2) * 4;
   __shared__ __align__(16) uint8_t smem[kRing > kMerge ? kRing : kMerge];
   __shared__ int tab[kDecodeTable];
   __shared__ int last;
 
-  const int bhk = blockIdx.x, b = bhk / Hk, hk = bhk % Hk;
+  const int rep = H / Hk, n_grp = decode_groups(rep);
+  const int gs = decode_group_size(rep);
+  const int row_id = blockIdx.x, bhk = row_id / n_grp, qg = row_id % n_grp;
+  const int b = bhk / Hk, hk = bhk % Hk;
+  const int h0 = hk * rep + qg * gs;           // this block's first head
+  const int nr = min(gs, rep - qg * gs);       // and its number of heads
   const int split = blockIdx.y, n_split = gridDim.y;
-  const int rep = H / Hk;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool out_lane = lane * E < D;          // holds output elements
   const int len = min(max(length[b], 0), rows.limit());
   const int j0 = split * split_len, j1 = min(j0 + split_len, len);
   rows.stage(b, j0, j1, tab);
@@ -120,9 +144,9 @@ __device__ __forceinline__ void decode_attention_body(
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       acc[r][e] = 0.f;
-      qr[r][e] = r < rep ? to_f32(q[((size_t)b * H + hk * rep + r) * D +
-                                    sub * VEC + e]) * scale_log2
-                         : 0.f;
+      qr[r][e] = r < nr ? to_f32(q[((size_t)b * H + h0 + r) * D +
+                                   sub * VEC + e]) * scale_log2
+                        : 0.f;
     }
   }
 
@@ -186,7 +210,7 @@ __device__ __forceinline__ void decode_attention_body(
     // whole-row dot products: sum over the row's L lanes
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= rep) break;
+      if (r >= nr) break;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
 #pragma unroll
@@ -236,7 +260,7 @@ __device__ __forceinline__ void decode_attention_body(
   float* sm_acc = sm_l + W * R;                    // [W][R][D]
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (r >= rep) break;
+    if (r >= nr) break;
     if (lane < L) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
@@ -249,9 +273,9 @@ __device__ __forceinline__ void decode_attention_body(
   }
   __syncthreads();
 
-  const size_t slot = (size_t)bhk * n_split;
-  float* part_lse = part + (size_t)gridDim.x * n_split * rep * D;
-  for (int r = warp; r < rep; r += W) {
+  const size_t slot = (size_t)row_id * n_split;
+  float* part_lse = part + (size_t)gridDim.x * n_split * gs * D;
+  for (int r = warp; r < nr; r += W) {
     float mx = kNegInf;
     for (int w = 0; w < W; ++w) mx = fmaxf(mx, sm_m[w * R + r]);
     float lsum = 0.f, o[E];
@@ -261,22 +285,28 @@ __device__ __forceinline__ void decode_attention_body(
       // a warp without keys has l == 0 and acc == 0
       const float f = exp2f(sm_m[w * R + r] - mx);
       lsum += sm_l[w * R + r] * f;
+      if (out_lane) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        o[e] += sm_acc[(w * R + r) * D + lane * E + e] * f;
+        for (int e = 0; e < E; ++e)
+          o[e] += sm_acc[(w * R + r) * D + lane * E + e] * f;
+      }
     }
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     if (n_split == 1) {
+      if (out_lane) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        out[((size_t)b * H + hk * rep + r) * D + lane * E + e] =
-            from_f32<TQ>(o[e] * inv);
+        for (int e = 0; e < E; ++e)
+          out[((size_t)b * H + h0 + r) * D + lane * E + e] =
+              from_f32<TQ>(o[e] * inv);
+      }
     } else {
+      if (out_lane) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        part[((slot + split) * rep + r) * D + lane * E + e] = o[e] * inv;
+        for (int e = 0; e < E; ++e)
+          part[((slot + split) * gs + r) * D + lane * E + e] = o[e] * inv;
+      }
       if (lane == 0)
-        part_lse[(slot + split) * rep + r] =
+        part_lse[(slot + split) * gs + r] =
             lsum > 0.f ? mx + log2f(lsum) : kNegInf;
     }
   }
@@ -284,34 +314,40 @@ __device__ __forceinline__ void decode_attention_body(
 
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&counters[bhk], 1) == n_split - 1;
+  if (threadIdx.x == 0)
+    last = atomicAdd(&counters[row_id], 1) == n_split - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // the last split of (b, hk) to arrive merges every split's partial
-  for (int r = warp; r < rep; r += W) {
+  // the last split of (b, hk, group) to arrive merges every split's partial
+  for (int r = warp; r < nr; r += W) {
     float mx = kNegInf;
     for (int s = 0; s < n_split; ++s)
-      mx = fmaxf(mx, __ldcg(part_lse + (slot + s) * rep + r));
+      mx = fmaxf(mx, __ldcg(part_lse + (slot + s) * gs + r));
     float wsum = 0.f, o[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) o[e] = 0.f;
     for (int s = 0; s < n_split; ++s) {
-      const float lse = __ldcg(part_lse + (slot + s) * rep + r);
+      const float lse = __ldcg(part_lse + (slot + s) * gs + r);
       const float w = lse == kNegInf ? 0.f : exp2f(lse - mx);
       wsum += w;
+      if (out_lane) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        o[e] = fmaf(w, __ldcg(part + ((slot + s) * rep + r) * D + lane * E + e),
-                    o[e]);
+        for (int e = 0; e < E; ++e)
+          o[e] = fmaf(
+              w, __ldcg(part + ((slot + s) * gs + r) * D + lane * E + e),
+              o[e]);
+      }
     }
     const float inv = 1.f / fmaxf(wsum, 1e-30f);
+    if (out_lane) {
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      out[((size_t)b * H + hk * rep + r) * D + lane * E + e] =
-          from_f32<TQ>(o[e] * inv);
+      for (int e = 0; e < E; ++e)
+        out[((size_t)b * H + h0 + r) * D + lane * E + e] =
+            from_f32<TQ>(o[e] * inv);
+    }
   }
-  if (threadIdx.x == 0) counters[bhk] = 0;
+  if (threadIdx.x == 0) counters[row_id] = 0;
 }
 
 template <typename T>
@@ -321,12 +357,16 @@ struct TypeTag {
 
 // Calls launch(TypeTag<TQ>, TypeTag<TKV>, std::integral_constant<int, D>,
 // std::integral_constant<int, R>) for q in f32 (q_bf16 = 0) or bf16, KV in
-// q's type or int8 (kv_int8 = 1), head dim D in {32, 64, 128} and R = 4
-// query heads per KV head in registers (rep <= 4) or 8; returns the
+// q's type or int8 (kv_int8 = 1), head dim D in {16, 32, 64, 128} and R = 4
+// query heads of a group in registers (gs <= 4) or 8; returns the
 // launch's cudaError_t.
 template <typename TQ, typename TKV, int R, typename F>
 int decode_dispatch_d(int D, F& launch) {
   switch (D) {
+    case 16:
+      launch(TypeTag<TQ>{}, TypeTag<TKV>{}, std::integral_constant<int, 16>{},
+             std::integral_constant<int, R>{});
+      break;
     case 32:
       launch(TypeTag<TQ>{}, TypeTag<TKV>{}, std::integral_constant<int, 32>{},
              std::integral_constant<int, R>{});
@@ -347,19 +387,22 @@ int decode_dispatch_d(int D, F& launch) {
 }
 
 template <typename TQ, typename TKV, typename F>
-int decode_dispatch_r(int rep, int D, F& launch) {
-  return rep <= 4 ? decode_dispatch_d<TQ, TKV, 4>(D, launch)
-                  : decode_dispatch_d<TQ, TKV, kDecodeMaxRep>(D, launch);
+int decode_dispatch_r(int gs, int D, F& launch) {
+  return gs <= 4 ? decode_dispatch_d<TQ, TKV, 4>(D, launch)
+                 : decode_dispatch_d<TQ, TKV, kDecodeMaxRep>(D, launch);
 }
 
+// rep = H / Hk query heads per KV head, any count: the blocks hold its
+// groups (decode_group_size(rep) heads each)
 template <typename F>
 int decode_dispatch(int q_bf16, int kv_int8, int rep, int D, F launch) {
+  const int gs = decode_group_size(rep);
   if (q_bf16)
     return kv_int8
-        ? decode_dispatch_r<__nv_bfloat16, int8_t>(rep, D, launch)
-        : decode_dispatch_r<__nv_bfloat16, __nv_bfloat16>(rep, D, launch);
-  return kv_int8 ? decode_dispatch_r<float, int8_t>(rep, D, launch)
-                 : decode_dispatch_r<float, float>(rep, D, launch);
+        ? decode_dispatch_r<__nv_bfloat16, int8_t>(gs, D, launch)
+        : decode_dispatch_r<__nv_bfloat16, __nv_bfloat16>(gs, D, launch);
+  return kv_int8 ? decode_dispatch_r<float, int8_t>(gs, D, launch)
+                 : decode_dispatch_r<float, float>(gs, D, launch);
 }
 
 // Checks shared by the two launch functions: the splits cover every

@@ -1,7 +1,8 @@
 // Causal or non-causal GQA flash attention (forward) for Hopper, two
 // entry points: a tensor-core kernel for bf16 at head dim 64 or 128
 // (flash_attention_wgmma_launch, the serving path's prefill) and a SIMT
-// kernel for the rest (flash_attention_launch: f32, and head dim 32).
+// kernel for the rest (flash_attention_launch: f32, and head dims 16 and
+// 32).
 //
 // Replaces the TPU kernel flash_attention_pallas (src/repro/kernels/
 // flash_attention.py:81; body _flash_kernel :34). q [B,Sq,H,d] attends to
@@ -151,6 +152,10 @@ int launch_t(const void* q, const void* k, const void* v, void* out, int B,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   switch (D) {
+    case 16:
+      flash_attention_kernel<T, 16><<<grid, kBQ, 0, stream>>>(
+          qt, kt, vt, ot, Sq, Sk, H, Hk, causal, sm_scale);
+      break;
     case 32:
       flash_attention_kernel<T, 32><<<grid, kBQ, 0, stream>>>(
           qt, kt, vt, ot, Sq, Sk, H, Hk, causal, sm_scale);

@@ -67,15 +67,15 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // q/out: [B,H,D] f32 (q_bf16 = 0) or bf16; k/v: [NB,bs,Hk,D] pools in q's
 // type, or int8 (kv_int8 = 1) with k_scale/v_scale [NB,bs,Hk,1] f32;
 // block_tables: [B,MB] int32 pool block ids; length: [B] int32. The keys
-// split as in decode_attention_launch (n_split * split_len >= MB * bs,
-// split_len <= (kDecodeTable - 1) * bs).
+// split, and the query heads group, as in decode_attention_launch
+// (n_split * split_len >= MB * bs, split_len <= (kDecodeTable - 1) * bs).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, const int* block_tables, const int* length,
     void* out, float* part, int* counters, int B, int H, int Hk, int D,
     int NB, int bs, int MB, int q_bf16, int kv_int8, int n_split,
     int split_len, float sm_scale, void* stream) {
-  if (B <= 0 || Hk <= 0 || H % Hk || H / Hk > kDecodeMaxRep || NB <= 0 ||
+  if (B <= 0 || Hk <= 0 || H % Hk || NB <= 0 ||
       bs <= 0 || MB <= 0 ||
       !decode_split_ok(MB * bs, n_split, split_len, part, counters) ||
       (long long)split_len > (long long)(kDecodeTable - 1) * bs ||
@@ -90,7 +90,8 @@ extern "C" int paged_decode_attention_launch(
         using TQ = typename decltype(tq)::type;
         using TKV = typename decltype(tkv)::type;
         paged_decode_kernel<TQ, TKV, decltype(d)::value, decltype(r)::value>
-            <<<dim3(B * Hk, n_split), kDecodeThreads, 0, s>>>(
+            <<<dim3(B * Hk * decode_groups(H / Hk), n_split), kDecodeThreads,
+               0, s>>>(
                 static_cast<const TQ*>(q), static_cast<const TKV*>(k),
                 static_cast<const TKV*>(v), ks, vs, block_tables, length,
                 static_cast<TQ*>(out), part, counters, H, Hk, NB, bs, MB,

@@ -20,20 +20,38 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
-MAX_REP = 8          # query heads per KV head the kernel holds in registers
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_REP = 8          # query heads a block holds in registers (a group)
 SPLIT_KEYS = 64      # a split's length is a multiple of this many keys
 BLOCKS_PER_SM = 2    # the split grid aims at this many blocks per SM
 TABLE = 256          # block-table entries a paged block stages
                      # (csrc/decode_attention_body.cuh kDecodeTable)
 
 
+def head_groups(h: int, hk: int) -> tuple:
+    """(n_grp, gs): the ``h // hk`` query heads of a KV head split into
+    ``n_grp`` groups of at most ``MAX_REP``, ``gs`` heads each (the last
+    may hold fewer); a block of the decode kernels serves one group, and
+    every group's blocks read the same KV rows
+    (``csrc/decode_attention_body.cuh`` decode_groups)."""
+    rep = h // hk
+    n_grp = -(-rep // MAX_REP)
+    return n_grp, -(-rep // n_grp)
+
+
+def plan_rows(b: int, h: int, hk: int) -> int:
+    """The ``rows`` of :func:`split_plan`: (row, KV head, query-head
+    group) triples, one block each per split."""
+    return b * hk * head_groups(h, hk)[0]
+
+
 def split_plan(limit: int, rows: int, sms: int, bs=None) -> tuple:
     """(n_split, split_len) of the split-KV decode kernels for ``rows`` =
-    B * Hk (row, KV head) pairs over up to ``limit`` keys (S, or MB * bs
-    paged with ``bs``-key blocks) on a card of ``sms`` SMs: about
-    ``BLOCKS_PER_SM`` blocks per SM, each split a multiple of
-    ``SPLIT_KEYS`` keys (and, paged, at most ``TABLE - 1`` blocks).
+    :func:`plan_rows` (row, KV head, query-head group) triples over up to
+    ``limit`` keys (S, or MB * bs paged with ``bs``-key blocks) on a card
+    of ``sms`` SMs: about ``BLOCKS_PER_SM`` blocks per SM, each split a
+    multiple of ``SPLIT_KEYS`` keys (and, paged, at most ``TABLE - 1``
+    blocks).
     Splits cover every position: n_split * split_len >= limit. A function
     of shapes only, so the launch needs no host sync."""
     want = max(1, -(-BLOCKS_PER_SM * sms // rows))
@@ -51,13 +69,14 @@ _SPLITS: dict = {}
 def split_buffers(q: torch.Tensor, limit: int, rows: int, stream: int,
                   bs=None) -> tuple:
     """(n_split, split_len, partials, counters) of a split launch of ``q``
-    [B, H, d] over ``rows`` = B * Hk pairs and up to ``limit`` keys
-    (``bs``-key blocks if paged): the plan of :func:`split_plan`, an f32
-    scratch for every split's partial, and ``rows`` int32 arrival counters
-    at 0 (a launch leaves them at 0); None, None for one split. Made once
-    per (device, stream, shapes) and kept: launches on one stream run in
-    order, so each reuses them, and a decode step, bound by the host,
-    pays one dict lookup. Serving has one decode shape per engine."""
+    [B, H, d] over ``rows`` = :func:`plan_rows` triples and up to ``limit``
+    keys (``bs``-key blocks if paged): the plan of :func:`split_plan`, an
+    f32 scratch for every split's partial (``gs`` heads a row), and
+    ``rows`` int32 arrival counters at 0 (a launch leaves them at 0);
+    None, None for one split. Made once per (device, stream, shapes) and
+    kept: launches on one stream run in order, so each reuses them, and a
+    decode step, bound by the host, pays one dict lookup. Serving has one
+    decode shape per engine."""
     key = (q.device, stream, tuple(q.shape), limit, rows, bs)
     hit = _SPLITS.get(key)
     if hit is None:
@@ -66,8 +85,8 @@ def split_buffers(q: torch.Tensor, limit: int, rows: int, stream: int,
         part = counters = None
         if n_split > 1:
             b, h, d = q.shape
-            rep = h // (rows // b)
-            part = torch.empty(rows * n_split * rep * (d + 1),
+            gs = -(-h // (rows // b))     # the heads of a group
+            part = torch.empty(rows * n_split * gs * (d + 1),
                                dtype=torch.float32, device=q.device)
             counters = torch.zeros(rows, dtype=torch.int32, device=q.device)
         hit = _SPLITS[key] = (n_split, split_len, part, counters)
@@ -91,8 +110,10 @@ def check_operands(q, k, v, length, k_scale, v_scale, names, extra=()):
     if k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"{names[0]}/{names[1]} shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS or h % hk or h // hk > MAX_REP:
-        raise ValueError(f"unsupported head layout H={h}, Hk={hk}, d={d}")
+    if d not in HEAD_DIMS or h % hk:
+        raise ValueError(f"unsupported head layout H={h}, Hk={hk}, d={d}: "
+                         f"the decode kernels take head dims {HEAD_DIMS} "
+                         f"and H a multiple of Hk")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     quantized = k_scale is not None
@@ -140,7 +161,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     quantized = k_scale is not None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n_split, split_len, part, counters = split_buffers(q, s, b * hk, stream)
+    n_split, split_len, part, counters = split_buffers(
+        q, s, plan_rows(b, h, hk), stream)
     _build.launch(
         "decode_attention", q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale), length.data_ptr(),

@@ -8,8 +8,8 @@ picks, before the launch, the library's tensor-core kernel (TMA + wgmma,
 counted also under ``LAUNCHES["flash_attention.wgmma"]``) for bf16 at
 head dim 64 or 128, whose arithmetic :func:`ref.flash_attention_tc_ref`
 emulates (P rounded to bf16 before P V), and the SIMT kernel for the
-rest (f32, head dim 32); the source says what each design does about its
-bound.
+rest (f32, head dims 16 and 32); the source says what each design does
+about its bound.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 TC_HEAD_DIMS = (64, 128)   # head dims of the tensor-core kernel
 
 
@@ -26,8 +26,8 @@ def tensor_core_path(q: torch.Tensor) -> bool:
     """Whether attention of ``q`` [B, Sq, H, d] takes the tensor-core
     kernel: bf16 at a head dim of ``TC_HEAD_DIMS``. Reads q's dtype and
     shape, never its values. f32 keeps the SIMT kernel (the tensor cores
-    would round it to bf16), and so does d = 32, below one 128-byte TMA
-    row and not a served shape."""
+    would round it to bf16), and so do d = 16 and 32, below one 128-byte
+    TMA row."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
 
 
@@ -42,7 +42,9 @@ def _check(q, k, v) -> None:
                          f"not match q {tuple(q.shape)}")
     if sq > sk or d not in HEAD_DIMS or h % hk or b * h > 65535:
         raise ValueError(f"unsupported attention shape q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+                         f"k {tuple(k.shape)}: the kernels take Sq <= Sk, "
+                         f"head dims {HEAD_DIMS}, H a multiple of Hk and "
+                         f"B * H <= 65535")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "

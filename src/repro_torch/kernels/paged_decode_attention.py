@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.decode_attention import (_ptr, check_operands,
-                                                  split_buffers)
+                                                  plan_rows, split_buffers)
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -50,8 +50,8 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     quantized = k_scale is not None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n_split, split_len, part, counters = split_buffers(q, mb * bs, b * hk,
-                                                       stream, bs)
+    n_split, split_len, part, counters = split_buffers(
+        q, mb * bs, plan_rows(b, h, hk), stream, bs)
     _build.launch(
         "paged_decode_attention", q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),

@@ -59,8 +59,8 @@ def norm_fwd(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, cfg, dtype=torch.float32, lead=()):
-    d, d_ff = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg, dtype=torch.float32, lead=(), d_ff=None):
+    d, d_ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "swiglu":
         return {"gate": init_linear(gen, d, d_ff, dtype, lead),
                 "up": init_linear(gen, d, d_ff, dtype, lead),

@@ -18,8 +18,9 @@ takes ``prefix=`` for suffix-only prefill against cached blocks.
 ``fuse_params`` is the deploy-time fused-projection rewrite (wqkv,
 gate_up; apply after quantization), and ``supports_lora`` says that
 ``prefill`` and ``decode`` take the multi-LoRA kwargs ``adapters=``,
-``adapter_idx=`` and ``lora_scaling=``. Only the dense family is ported
-so far.
+``adapter_idx=`` and ``lora_scaling=``. The port serves the transformer
+families (dense, moe, vlm); the recurrent and audio families come with
+ROADMAP queue 1 items 10b and 10c.
 """
 
 from __future__ import annotations
@@ -47,11 +48,17 @@ class ModelAPI:
     supports_lora: bool
 
 
+# the families whose KV cache is position-addressable (a cursor or a block
+# table to truncate), as the JAX package's ``init_paged_cache`` says: paged
+# serving and speculative rollback need one. The port serves these.
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+
+
 def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 10); the port serves the dense family")
+            "item 10); the port serves the dense, moe and vlm families")
     mod = transformer
     return ModelAPI(
         cfg=cfg,

@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM: the dense, moe and vlm families.
 
+The vlm family (chameleon-34b) is the dense decoder with ``qk_norm``; the
+moe family swaps the FFN for :func:`repro_torch.models.moe.moe_ffn`.
 Layer parameters are stacked on a leading ``L`` axis (the JAX package's
 layout) and a Python loop over the layers takes the place of its
 ``lax.scan``. Prefill and decode write the stacked KV cache in place.
@@ -12,6 +14,7 @@ import torch
 from repro_torch.core.quantization import QTensor
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def param_dtype(cfg) -> torch.dtype:
@@ -27,7 +30,8 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         "ln1": L.init_norm(cfg, device, lead=lead),
         "attn": A.init_attention(gen, cfg, dtype, lead),
         "ln2": L.init_norm(cfg, device, lead=lead),
-        "ffn": L.init_mlp(gen, cfg, dtype, lead),
+        "ffn": (M.init_moe(gen, cfg, dtype, lead) if cfg.family == "moe"
+                else L.init_mlp(gen, cfg, dtype, lead)),
     }
     return {"embed": L.init_embed(gen, cfg, dtype), "layers": layers,
             "final_norm": L.init_norm(cfg, device)}
@@ -45,18 +49,24 @@ def layer_slice(tree, i: int):
 def fuse_params(params, cfg):
     """Deploy-time fused-projection rewrite (``cfg.fuse_qkv`` or the
     engine's ``fuse_qkv=``): wq/wk/wv -> wqkv and gate/up -> gate_up across
-    the stacked layers. Apply after ``deploy_quantize``, so QTensors
-    concatenate exactly."""
+    the stacked layers. MoE routed experts keep their bank layout (only
+    the shared and dense-residual MLPs fuse). Apply after
+    ``deploy_quantize``, so QTensors concatenate exactly."""
     layers = dict(params["layers"])
     layers["attn"] = A.fuse_attention_params(layers["attn"])
-    layers["ffn"] = L.fuse_mlp_params(layers["ffn"])
+    ffn = layers["ffn"]
+    if cfg.family == "moe":
+        ffn = {k: L.fuse_mlp_params(v) if k in ("shared", "dense") else v
+               for k, v in ffn.items()}
+    else:
+        ffn = L.fuse_mlp_params(ffn)
+    layers["ffn"] = ffn
     return {**params, "layers": layers}
 
 
 def _ffn_fwd(p, x, cfg, impl):
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
+    if cfg.family == "moe":
+        return M.moe_ffn(p, x, cfg, impl=impl)
     return L.mlp_fwd(p, x, cfg, impl=impl)
 
 

@@ -63,11 +63,9 @@ from repro_torch.serve.adapters import make_synthetic_adapters
 from repro_torch.serve.engine import ServeEngine, StopStream
 from repro_torch.serve.scheduler import pick_victim
 
-#: the JAX harness's model but for its head dim: 32, the smallest the
-#: card's attention kernels take (16 there)
 CFG = ModelConfig(name="chaos", family="dense", n_layers=2, d_model=64,
                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
-                  head_dim=32, vocab_pad_multiple=64, dtype="float32")
+                  head_dim=16, vocab_pad_multiple=64, dtype="float32")
 
 #: default chaos workload: mixed lengths, shared-prefix pairs
 WORKLOAD = [np.arange(8), np.arange(12) + 3, np.arange(31) + 7,

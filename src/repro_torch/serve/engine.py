@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine, dense subset (PyTorch port).
+"""Continuous-batching serving engine for the transformer families
+(PyTorch port).
 
 ``ServeEngine(cfg, params, quantize=True)`` converts the weights to AxLLM
 codes once (``deploy_quantize``: int8 affine per-channel by default), so
@@ -135,7 +136,7 @@ import torch
 from repro_torch.core.axllm_linear import deploy_quantize
 from repro_torch.core.quantization import QuantConfig, derive_draft_params
 from repro_torch.kernels import ops
-from repro_torch.models.model import ModelAPI, get_model
+from repro_torch.models.model import ATTENTION_FAMILIES, ModelAPI, get_model
 from repro_torch.serve.adapters import AdapterRegistry, target_dims
 from repro_torch.serve.decode import decode_steps, sample_tokens, verify_steps
 from repro_torch.serve.paged_cache import TRASH_BLOCK, PagedKVCache
@@ -375,12 +376,13 @@ class ServeEngine:
                     "compares the target's deterministic argmax with the "
                     "draft's (sampled verification needs rejection "
                     "sampling, which this engine does not implement)")
-            if cfg.family != "dense":
+            if cfg.family not in ATTENTION_FAMILIES:
                 raise ValueError(
                     f"family {cfg.family!r} has no speculative path: "
-                    "rollback needs position-addressable KV (a cursor or a "
-                    "block table to truncate); recurrent state cannot "
-                    "rewind rejected positions")
+                    "rollback needs position-addressable KV (truncate a "
+                    "cursor / block table); recurrent state folding "
+                    "cannot rewind k rejected positions (attention "
+                    "families only)")
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if long_prompt not in ("truncate", "reject"):

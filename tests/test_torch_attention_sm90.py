@@ -297,3 +297,63 @@ def test_split_buffers_read_no_values(monkeypatch):
     assert split_buffers(q, 1024, 32, stream=1)[2] is not part
     # a split of the whole cache (few keys, many rows): no scratch
     assert split_buffers(q, 64, 32, stream=0)[2:] == (None, None)
+
+
+# (H, Hk, d) beyond one block's 8 query heads a KV head (glm4-9b's ratio
+# 16: two groups) and at head dim 16 (the merge on half a warp)
+GROUP_LAYOUTS = [(32, 2, 128), (4, 2, 16), (24, 1, 32)]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+@pytest.mark.parametrize("layout", GROUP_LAYOUTS, ids=str)
+def test_decode_group_and_split_plan_matches_oracle(layout, quant, paged):
+    """The decode kernels' plan at these layouts: the query heads of a KV
+    head in groups of at most ``MAX_REP`` (each group's blocks one plan
+    row), the keys split as ``split_plan`` gives for those rows on an
+    H100 (132 SMs); the split emulation under that plan agrees with the
+    port's and JAX's oracles, and a length-0 row is exactly 0."""
+    from repro_torch.kernels.decode_attention import (MAX_REP, head_groups,
+                                                      plan_rows)
+    h, hk, d = layout
+    n_grp, gs = head_groups(h, hk)
+    assert n_grp * gs >= h // hk > (n_grp - 1) * gs and gs <= MAX_REP
+    b = len(LENGTHS)
+    rows = plan_rows(b, h, hk)
+    assert rows == b * hk * n_grp
+    q, kc, vc, length, ks, vs = _decode_inputs(quant, seed=h + d, h=h,
+                                               hk=hk, d=d)
+    t = torch.from_numpy
+    want = ref.decode_attention_ref(t(q), t(kc), t(vc), t(length),
+                                    _opt(ks, t), _opt(vs, t))
+    jwant = np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(length),
+        _opt(ks, jnp.asarray), _opt(vs, jnp.asarray)))
+    if paged:
+        # this case's rows laid out in a shuffled pool of 16-key blocks
+        bs = 16
+        mb = S // bs
+        nb = b * mb + 1
+        perm = (1 + np.random.default_rng(d).permutation(nb - 1)).reshape(
+            b, mb).astype(np.int32)
+
+        def pool(x):
+            p = np.zeros((nb, bs, *x.shape[2:]), x.dtype)
+            p[perm.reshape(-1)] = x.reshape(b * mb, bs, *x.shape[2:])
+            return p
+
+        n_split, split_len = split_plan(mb * bs, rows, 132, bs)
+        got = ref.paged_decode_attention_split_ref(
+            t(q), t(pool(kc)), t(pool(vc)), t(perm), t(length),
+            _opt(ks, lambda a: t(pool(a))), _opt(vs, lambda a: t(pool(a))),
+            n_split, split_len)
+    else:
+        n_split, split_len = split_plan(S, rows, 132)
+        got = ref.decode_attention_split_ref(
+            t(q), t(kc), t(vc), t(length), _opt(ks, t), _opt(vs, t),
+            n_split, split_len)
+    assert n_split > 1
+    _within_scale(got, want.numpy(), DECODE_TOL)
+    _within_scale(got, jwant, DECODE_TOL)
+    zero = [i for i, n in enumerate(LENGTHS) if n <= 0]
+    assert zero and torch.count_nonzero(got[zero]) == 0

@@ -3,11 +3,8 @@ chaos scenarios (smoke mode), speculation_storm included, runs on the
 JAX harness and on the port's, on the same weights
 (``bridge.params_from_numpy``) and on the CPU. The port's report must be ok, every request's tokens and finish
 reason must equal the JAX harness's, and so must the report's counts
-(preemptions, restores, faults, retries, sheds).
-
-The port's harness model has head dim 32 where the JAX one has 16 (the
-card's attention kernels take 32, 64 and 128), so the JAX harness runs
-here with the port's model (its module config patched for the test).
+(preemptions, restores, faults, retries, sheds). Both harnesses run one
+model, head dim 16 included.
 """
 
 import dataclasses
@@ -25,24 +22,16 @@ COUNTS = ("submitted", "finished", "rejected", "expired", "cancelled",
           "faults_injected", "step_retries", "lost", "mismatched")
 
 
-def _jax_cfg():
-    return dataclasses.replace(jchaos.CFG, head_dim=tchaos.CFG.head_dim)
-
-
 @pytest.fixture(scope="module")
 def params():
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jchaos, "CFG", _jax_cfg())
-    try:
-        jparams = jchaos._params()
-    finally:
-        mp.undo()
+    jparams = jchaos._params()
     return jparams, params_from_numpy(jax_tree_to_numpy(jparams), "cpu")
 
 
 def test_models_differ_only_in_head_dim():
-    assert dataclasses.asdict(tchaos.CFG) == dataclasses.asdict(_jax_cfg())
-    assert (jchaos.CFG.head_dim, tchaos.CFG.head_dim) == (16, 32)
+    # they no longer differ at all: the card's kernels take head dim 16
+    assert dataclasses.asdict(tchaos.CFG) == dataclasses.asdict(jchaos.CFG)
+    assert (jchaos.CFG.head_dim, tchaos.CFG.head_dim) == (16, 16)
 
 
 def _record_outcomes(mod, monkeypatch) -> list:
@@ -63,7 +52,6 @@ def _record_outcomes(mod, monkeypatch) -> list:
 @pytest.mark.parametrize("name", list(tchaos.SCENARIOS))
 def test_scenario_matches_jax(params, name, monkeypatch):
     jparams, tparams = params
-    monkeypatch.setattr(jchaos, "CFG", _jax_cfg())
     jseen = _record_outcomes(jchaos, monkeypatch)
     tseen = _record_outcomes(tchaos, monkeypatch)
     jrep = jchaos.SCENARIOS[name](jparams, True)

@@ -33,7 +33,10 @@ through the kernels. The speculative engine (an int4 draft, dense and
 paged) must give the target-only engine's tokens on the card, exactly. The
 quantization kernel's codes and scales must equal its plain version's
 exactly, on every route of its plan and on columns that hold a NaN, an
-inf or only zeros.
+inf or only zeros. The decode kernels also run at 16 query heads a KV
+head (two groups) and head dim 16, flash's SIMT kernel at head dim 16,
+and a reduced moe engine (paged, reuse, speculating) against its plain
+path.
 """
 
 import dataclasses
@@ -50,7 +53,9 @@ from repro_torch.kernels import axllm_matmul as axllm_kernel
 from repro_torch.kernels import reuse_matmul as reuse_kernel
 from repro_torch.kernels.axllm_matmul import (axllm_matmul_cuda, gemv_buffers,
                                               tensor_core_path)
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import decode_attention_cuda, \
+    plan_rows
 from repro_torch.kernels.decode_attention import \
     split_plan as decode_split_plan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -303,8 +308,10 @@ def _emu_tol(dtype):
 
 
 # (H, Hk, d) of the body's instantiations: the serving shape (4 query heads
-# per KV head in registers), 8 per KV head at d = 32, and d = 128 with 8
-HEADS = [(12, 4, 64), (16, 2, 32), (8, 1, 128)]
+# per KV head in registers), 8 per KV head at d = 32, d = 128 with 8, 16
+# per KV head (two groups of 8 blocks read the same KV: glm4-9b's layout)
+# and d = 16 (the merge on half a warp)
+HEADS = [(12, 4, 64), (16, 2, 32), (8, 1, 128), (32, 2, 128), (4, 2, 16)]
 
 
 @pytest.mark.parametrize("heads", HEADS, ids=str)
@@ -318,7 +325,8 @@ def test_decode_attention_split_kernel(card, quant, dtype, heads):
     (h, hk, d), b, s = heads, 9, 1024
     q, kc, vc, ks, vs = _decode_split_case(card, quant, dtype, b, s, h, hk, d,
                                            3)
-    n_split, split_len = decode_split_plan(s, b * hk, _build.sm_count(card))
+    n_split, split_len = decode_split_plan(s, plan_rows(b, h, hk),
+                                           _build.sm_count(card))
     assert n_split > 1
     length = torch.tensor([0, 1, split_len - 1, split_len, split_len + 1,
                            3 * split_len, 700, s, s + 9], dtype=torch.int32,
@@ -351,7 +359,7 @@ def test_paged_decode_attention_split_kernel(card, quant, dtype, heads):
     bt = (1 + torch.randperm(nb - 1, generator=g, device=card)[:b * mb])
     bt = bt.reshape(b, mb).to(torch.int32)
     bt[1:, :16] = bt[0, :16]                  # a shared 256-token prefix
-    n_split, split_len = decode_split_plan(mb * bs, b * hk,
+    n_split, split_len = decode_split_plan(mb * bs, plan_rows(b, h, hk),
                                            _build.sm_count(card), bs)
     length = torch.tensor([0, split_len - 1, split_len, split_len + 1, 511,
                            1000, mb * bs, mb * bs + 300], dtype=torch.int32,
@@ -812,3 +820,52 @@ def test_speculative_engine_matches_target_only_on_the_card(card, paged):
     if paged:
         assert launches["paged_decode_attention"] > 0
         assert eng.pager.blocks_in_use == eng.pager.evictable_blocks()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(128, 128, True), (50, 190, True),
+                                          (50, 190, False)])
+def test_flash_attention_simt_head_dim_16(card, sq, sk, causal, dtype):
+    """Head dim 16 (the chaos harness's model) takes the SIMT kernel."""
+    g = torch.Generator(device=card).manual_seed(sq + 16)
+    q = torch.randn(2, sq, 4, 16, generator=g, device=card).to(dtype)
+    k = torch.randn(2, sk, 2, 16, generator=g, device=card).to(dtype)
+    v = torch.randn(2, sk, 2, 16, generator=g, device=card).to(dtype)
+    assert not flash_attention_tensor_core_path(q)
+    out = flash_attention_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref.attention_ref(q, k, v, causal)) < _tol(dtype)
+
+
+def test_moe_engine_kernel_path_matches_plain_path(card):
+    """The reduced qwen2-moe (f32, int8 weights) served paged, on the reuse
+    kernels and speculating (an int4 draft) gives the plain path's
+    tokens; the expert banks are dequantized products, every projection a
+    kernel."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced(dtype="float32",
+                                                remat=False)
+    params = get_model(cfg).init(seed=0, device=card)
+    rng = np.random.default_rng(5)
+    head = list(rng.integers(0, cfg.vocab_size, size=16))
+    heads = [np.array(head + [40 + i, 50 + i], np.int32) for i in range(3)]
+    # one head-sharing prompt a wave: the first publishes what the others hit
+    prompts = [heads[0]] + [rng.integers(0, cfg.vocab_size, size=n).astype(
+        np.int32) for n in (8, 12)] + [heads[1], rng.integers(
+            0, cfg.vocab_size, size=31).astype(np.int32), heads[2]]
+    runs = {}
+    for impl in ("reuse", "reuse_ref"):
+        eng = ServeEngine(cfg, params, n_slots=3, max_len=64, quantize=True,
+                          decode_chunk=4, impl=impl, paged=True,
+                          kv_block_size=8, speculate=True, spec_k=4,
+                          device=card)
+        _build.reset_launches()
+        runs[impl] = (eng.generate(prompts, max_new=12),
+                      dict(_build.LAUNCHES), eng.stats)
+    (got, launches, st), (want, plain, _) = runs["reuse"], runs["reuse_ref"]
+    assert got == want
+    assert st.spec_rounds > 0 and st.prefix_hit_tokens > 0
+    for name in ("reuse_matmul", "reuse_matmul.gemv",
+                 "paged_decode_attention", "decode_attention",
+                 "flash_attention"):
+        assert launches.get(name, 0) > 0, name
+    assert plain == {}

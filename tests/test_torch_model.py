@@ -152,6 +152,6 @@ def test_init_params_layout_and_seed():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(T_CONFIG, family="moe")
+    cfg = dataclasses.replace(T_CONFIG, family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_get_model(cfg)
