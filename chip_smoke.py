@@ -50,7 +50,14 @@ NVIDIA GPU.
    the output scale), both decode kernels at 16/16, 64/8, 32/2 (two
    query-head groups) and 4/2 heads (head dims 128 and 16; length-0 rows
    exactly 0, each against its split emulation), flash at 16/16 and 64/8
-   heads (d128, both paths) and at f32 head dim 16 (SIMT).
+   heads (d128, both paths) and at f32 head dim 16 (SIMT). At the shapes
+   of runs j and k: axllm_matmul at xlstm-1.3b's and zamba2-1.2b's
+   mixers' K x N (M8 and M4096; xLSTM's gate projections also with f32
+   activations: wif at N8 takes the tile kernel), reuse_matmul at
+   zamba2's shared MLP, both untied heads at M8, decode attention at
+   32/32 heads d64 and flash at the sub-waves' exact lengths 64, 200 and
+   511. The zero-row check: both decode kernels at 16/2 heads d32, bf16
+   and int8 KV, with one and with five length-0 rows, each exactly 0.
 4. Small-input checks on the reduced float32 model: the dense int8 engine
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
@@ -147,7 +154,7 @@ NVIDIA GPU.
    must inject faults, preempt a speculating slot, restore none fast and
    give every request the fault-free target-only run's tokens.
 8. Runs h (moe) and i (vlm): qwen2-moe-a2.7b and chameleon-34b at full
-   width, each cut to 12 layers (the cut printed), serve run a's requests
+   width, each cut to 6 layers (the cut printed), serve run a's requests
    as run a does (its checks: launches on ``.wgmma`` / ``.gemv``, the
    token gate, first-wave logits, greedy agreement, profiles split into
    attention, quantized matmul, expert products and the rest, peak
@@ -155,9 +162,18 @@ NVIDIA GPU.
    serving schedule with the served expert choices, recorded from a
    second serving that must repeat the first bit for bit, and holds each
    choice to the routing gate; it also prints the share of layer 0's
-   (token, choice) pairs its first wave dropped at capacity.
+   (token, choice) pairs its first wave dropped at capacity. Runs j (ssm)
+   and k (hybrid): xlstm-1.3b (float32, ``impl="auto"``) and zamba2-1.2b
+   (bf16, ``impl="reuse"``) at full width and full depth serve run a's
+   requests the same way, their waves split into equal-length sub-waves;
+   their profiles label the recurrent mixers' kernels apart
+   (``recurrent_mixer``); run j's tile-kernel launches must be exactly
+   its f32 projections' and it prints why it serves in float32 (the bf16
+   model's plain path against itself and the kernel path against it, and
+   the same in float32); run k prints the counted reuse rate of its
+   shared block's projections.
 9. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
-   g, and in runs h and i, beside its main run's), then the result line.
+   g, and in runs h to k, beside its main run's), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -193,7 +209,8 @@ GEMV_M = (1, 8, 16)     # where the decode kernels are timed as well
 # flash kernel phase: (B, Sq, Sk, causal, head dim)
 FLASH_CASES = ((N_SLOTS, 512, 512, True, 64), (2, 256, 1024, True, 64),
                (2, 256, 1024, False, 64), (N_SLOTS, 512, 512, True, 128))
-LOGIT_TOL = 5e-2        # bf16 model, 12 layers: |kernel - plain| / scale
+LOGIT_TOL = 5e-2        # |kernel - plain| / scale: bf16 transformers and
+                        # zamba2 (38 layers), float32 xlstm (48 layers)
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 # run e (overload + chunked prefill): 24 requests on run a's prompt cycle,
 # the last 4 at priority 1 after the second step; 111 usable pool blocks
@@ -233,28 +250,85 @@ def time_ms(fn, flush, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def device_busy_ms(fn) -> tuple:
+MIXER_LABEL = "recurrent_mixer"
+
+
+def annotated_mixers():
+    """Within the block every recurrent mixer call (Mamba2, mLSTM, sLSTM,
+    forward and step) runs inside ``record_function(MIXER_LABEL)``, so a
+    profile can tell the mixers' own kernels apart."""
+    import contextlib
+    from torch.profiler import record_function
+    from repro_torch.models import ssm as S
+    from repro_torch.models import xlstm as X
+    names = ((S, "mamba2_fwd"), (S, "mamba2_step"), (X, "mlstm_fwd"),
+             (X, "mlstm_step"), (X, "slstm_fwd"))
+
+    def wrap(fn):
+        def annotated(*args, **kw):
+            with record_function(MIXER_LABEL):
+                return fn(*args, **kw)
+        return annotated
+
+    @contextlib.contextmanager
+    def block():
+        orig = [(mod, name, getattr(mod, name)) for mod, name in names]
+        for mod, name, fn in orig:
+            setattr(mod, name, wrap(fn))
+        try:
+            yield
+        finally:
+            for mod, name, fn in orig:
+                setattr(mod, name, fn)
+    return block()
+
+
+def device_busy_ms(fn, mixers: bool = False) -> tuple:
     """(wall ms, device-busy ms, device ms of every kernel by name, the
     largest first) of ``fn`` under torch.profiler: the busy time is the
     sum of the card's kernel, memcpy and memset durations (one stream, so
-    they do not overlap)."""
+    they do not overlap). With ``mixers`` a fourth item: the device ms by
+    kernel name of the kernels launched inside a recurrent mixer
+    (``annotated_mixers``), found by the host time range of the op that
+    launched each."""
+    import bisect
+    import contextlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (annotated_mixers() if mixers else contextlib.nullcontext()):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a record_function range shows on the device timeline too: it is
+        # no device work
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return wall, sum(by_name.values()), top
+    if not mixers:
+        return wall, sum(by_name.values()), top
+    # the mixer ranges do not nest, so sorted starts and ends bracket them
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events() if e.name == MIXER_LABEL
+                    and e.device_type == DeviceType.CPU)
+    starts = [a for a, _ in ranges]
+    in_mixer = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.time_range.end > ranges[i][1]:
+            continue
+        for k in e.kernels:
+            in_mixer[k.name] = in_mixer.get(k.name, 0.0) + k.duration / 1e3
+    return wall, sum(by_name.values()), top, in_mixer
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -774,8 +848,9 @@ FAMILY_FLASH = ((16, 16, 128, "bfloat16"), (64, 8, 128, "bfloat16"),
                 (4, 2, 16, "float32"))
 
 
-def matmul_case(kernel, m, k, n, g, dev, flush) -> dict:
-    """One quantized-matmul case (int8 affine per channel, bf16 x) of
+def matmul_case(kernel, m, k, n, g, dev, flush, act="bfloat16") -> dict:
+    """One quantized-matmul case (int8 affine per channel, x in ``act``:
+    bf16, or f32 as the recurrent families' gate projections take it) of
     ``kernel`` ("axllm_matmul" or "reuse_matmul") against its plain
     version, timed beside it and ``torch.matmul`` on the dequantized
     weight; a decode-path case also against its split emulation."""
@@ -785,9 +860,8 @@ def matmul_case(kernel, m, k, n, g, dev, flush) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
     from repro_torch.kernels.reuse_matmul import reuse_matmul_cuda
-    bf16 = torch.bfloat16
     reuse = kernel == "reuse_matmul"
-    x = torch.randn(m, k, generator=g, device=dev).to(bf16)
+    x = torch.randn(m, k, generator=g, device=dev).to(getattr(torch, act))
     qt = quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5,
                   QuantConfig(8))
     plain_fn = ref.reuse_matmul_ref if reuse else ref.axllm_matmul_ref
@@ -807,24 +881,30 @@ def matmul_case(kernel, m, k, n, g, dev, flush) -> dict:
     tol = max(1e-5, 8 * 2.0 ** -24 * k ** 0.5) * max(
         1.0, float(want.abs().max()))
     del want
-    w_deq = dequantize(qt, bf16)
+    w_deq = dequantize(qt, x.dtype)
     ms = time_ms(call, flush)
     plain = time_ms(lambda: plain_fn(x, qt), flush, iters=5)
     lib = time_ms(lambda: torch.matmul(x, w_deq), flush)
-    shape = f"M{m} K{k} N{n} 8b-affine-per_channel"
+    shape = f"M{m} K{k} N{n} 8b-affine-per_channel" + (
+        "" if act == "bfloat16" else f" {act}-x")
     path = path_of(m, x, qt)
     row = case_row(kernel, shape, err, tol, ms, plain, lib,
                    nbytes(x, qt.codes, qt.kernel_scale, got),
-                   2.0 * m * k * n, "bfloat16", path)
+                   2.0 * m * k * n, act, path)
     if path == "gemv":
         row.update(gemv_checks(kernel, x, qt, got, call, reuse))
     return row
 
 
-def decode_case(paged, h, hk, d, quant, g, dev, flush) -> dict:
+DECODE_LENGTHS = (0, 64, 200, 511, 700, 1000, MAX_LEN, MAX_LEN + 300)
+
+
+def decode_case(paged, h, hk, d, quant, g, dev, flush,
+                lengths=DECODE_LENGTHS) -> dict:
     """One decode step of the 8 slots at S = 1024 (dense cache) or through
-    shuffled, shared 16-key block tables (paged), lengths 0 to past the
-    end, against the plain version and the split emulation."""
+    shuffled, shared 16-key block tables (paged), at ``lengths`` (0 to
+    past the end), against the plain version and the split emulation;
+    every length-0 row must be exactly 0."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ref
@@ -837,8 +917,7 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush) -> dict:
     mb = s // bs
     n_rows = 2 * N_SLOTS * mb + 2 if paged else b   # pool blocks or rows
     inner = (bs,) if paged else (s,)
-    length = torch.tensor([0, 64, 200, 511, 700, 1000, s, s + 300],
-                          dtype=torch.int32, device=dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     valid = torch.clamp(length, 0, s)
     q = torch.randn(b, h, d, generator=g, device=dev).to(bf16)
     shape_kv = (n_rows, *inner, hk, d)
@@ -883,8 +962,11 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush) -> dict:
     want = plain_fn(*args)
     got = fn(*args)
     torch.cuda.synchronize()
-    check(int(torch.count_nonzero(got[0])) == 0,
-          f"{name}: a length-0 row is not exactly 0 (H{h} Hk{hk} d{d})")
+    zero = length <= 0
+    nz = int(torch.count_nonzero(got[zero]))
+    check(nz == 0, f"{name}: a length-0 row is not exactly 0 (H{h} Hk{hk} "
+          f"d{d} {'int8' if quant else 'bf16'}-kv, lengths "
+          f"{list(lengths)}): {nz} nonzero entries")
     err = float((got.float() - want.float()).abs().max())
     tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
     split_err(got, emu, f"{name} H{h} Hk{hk} d{d}")
@@ -899,21 +981,23 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush) -> dict:
             qs, kt, vt, attn_mask=mask, enable_gqa=True), flush)
     shape = (f"B{b} H{h} Hk{hk} d{d} bs{bs} MB{mb}" if paged
              else f"B{b} S{s} H{h} Hk{hk} d{d}") + \
-        f" {'int8' if quant else 'bf16'}-kv"
+        f" {'int8' if quant else 'bf16'}-kv" + (
+            "" if tuple(lengths) == DECODE_LENGTHS
+            else f" lengths {','.join(map(str, lengths))}")
     return case_row(name, shape, err, tol, ms, plain, lib,
                     nbytes(q, length, got) + n_entries * per_key + extra,
                     4.0 * int(valid.sum()) * h * d, "bfloat16")
 
 
-def flash_case(h, hk, d, dtype_name, g, dev, flush) -> list:
-    """Causal flash attention of a prefill wave (8 x 512) at this head
+def flash_case(h, hk, d, dtype_name, g, dev, flush, sq=512) -> list:
+    """Causal flash attention of a prefill wave (8 x ``sq``) at this head
     layout: the wrapper's path and, for bf16, the SIMT kernel beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
-    b, sq = N_SLOTS, 512
+    b = N_SLOTS
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     k = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
     v = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
@@ -962,6 +1046,75 @@ def family_kernel_phase(dev, flush):
                                         flush))
     for h, hk, d, dt in FAMILY_FLASH:
         rows += flash_case(h, hk, d, dt, g, dev, flush)
+    return rows
+
+
+# the recurrent families' kernel shapes (runs j and k). Through
+# axllm_matmul: xlstm-1.3b's bf16 projections (mLSTM up K2048 N8192, wq/wk
+# K4096 N4096, down K4096 N2048; sLSTM GeGLU gate/up K2048 N2752 and down
+# K2752 N2048) and zamba2-1.2b's mixers' (Mamba2 in_proj K2048 N8384,
+# out_proj and the shared block's concat_proj K4096 N2048), which the JAX
+# package runs on the AxLLM matmul under impl="reuse" too; through
+# reuse_matmul: zamba2's shared MLP (up K2048 N8192, down K8192 N2048; its
+# attention's K2048 N2048 is qwen2-moe's row above). At decode M8 and a
+# prefill wave's M4096; xLSTM's f32 gate projections (mLSTM wif K4096 N8,
+# sLSTM wx K2048 N8192) with f32 activations; the untied heads at M8
+RECURRENT_MATMULS = {
+    "axllm_matmul": ((2048, 8384), (4096, 2048), (2048, 8192), (4096, 4096),
+                     (2048, 2752), (2752, 2048)),
+    "reuse_matmul": ((2048, 8192), (8192, 2048)),
+}
+RECURRENT_F32 = ((4096, 8), (2048, 8192))
+RECURRENT_HEADS = {"axllm_matmul": (2048, 50432),
+                   "reuse_matmul": (2048, 32000)}
+# zamba2's shared attention (H, Hk, d): decode at B8 S1024 and flash at
+# the exact lengths of run k's sub-waves, which are not multiples of a tile
+RECURRENT_ATTN = (32, 32, 64)
+RECURRENT_SQ = (64, 200, 511)
+# the open length-0 question: both decode kernels at B8 H16 Hk2 d32 (the
+# layout of an untraced report of a nonzero length-0 row), bf16 and int8
+# KV, at the usual lengths and at lengths with five 0 rows among others
+ZERO_ROW = (16, 2, 32)
+ZERO_ROW_LENGTHS = (0, 512, 0, 1, 0, 1000, 0, 0)
+
+
+def recurrent_kernel_phase(dev, flush):
+    """Kernels 1 to 3 at the shapes of runs j and k (xlstm-1.3b and
+    zamba2-1.2b at full width), each against its plain version."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for kernel, shapes in RECURRENT_MATMULS.items():
+        for m in (N_SLOTS, 4096):
+            for k, n in shapes:
+                rows.append(matmul_case(kernel, m, k, n, g, dev, flush))
+        rows.append(matmul_case(kernel, N_SLOTS, *RECURRENT_HEADS[kernel], g,
+                                dev, flush))
+    for m in (N_SLOTS, 4096):
+        for k, n in RECURRENT_F32:
+            rows.append(matmul_case("axllm_matmul", m, k, n, g, dev, flush,
+                                    act="float32"))
+    rows.append(decode_case(False, *RECURRENT_ATTN, False, g, dev, flush))
+    for sq in RECURRENT_SQ:
+        rows += flash_case(*RECURRENT_ATTN, "bfloat16", g, dev, flush, sq=sq)
+    return rows
+
+
+def zero_row_phase(dev, flush):
+    """Both decode kernels at ``ZERO_ROW``, bf16 and int8 KV: every
+    length-0 row must be exactly 0 (``decode_case`` checks it), the
+    reference's rule (``src/repro/kernels/ref.py:169-173``)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for paged in (False, True):
+        for quant in (False, True):
+            for lengths in (DECODE_LENGTHS, ZERO_ROW_LENGTHS):
+                rows.append(decode_case(paged, *ZERO_ROW, quant, g, dev,
+                                        flush, lengths=lengths))
+    print(f"zero-row check: both decode kernels at H{ZERO_ROW[0]} "
+          f"Hk{ZERO_ROW[1]} d{ZERO_ROW[2]}, bf16 and int8 KV, "
+          f"{len(rows)} cases: every length-0 row exactly 0", flush=True)
     return rows
 
 
@@ -1283,22 +1436,33 @@ def record_hit_wave(eng) -> dict:
     return rec
 
 
-def split_by_kind(top) -> dict:
+def split_by_kind(top, in_mixer=None) -> dict:
     """Device ms of a profile's kernels (``top``: (name, ms) pairs) split
     into attention (the decode and flash kernels), the quantized matmuls
     (both libraries), the expert products (every other GEMM: cuBLAS's
     batched expert products and the router's product) and the rest (the
-    expert banks' dequantization among it)."""
+    expert banks' dequantization among it). With ``in_mixer`` (the device
+    ms by name of the kernels launched inside a recurrent mixer) those
+    kernels but the quantized matmuls count as ``recurrent_mixer``
+    instead: the SSD and mLSTM einsums' GEMMs, the sLSTM loop, the causal
+    conv, the gates and norms."""
     out = dict(attention=0.0, quantized_matmul=0.0, expert_products=0.0,
                rest=0.0)
+    if in_mixer is not None:
+        out["recurrent_mixer"] = 0.0
     for name, ms in top:
         n = name.lower()
         if "attention" in n or "paged_decode" in n or "flash" in n:
             out["attention"] += ms
-        elif "axllm" in n or "reuse_" in n or "quant_gemm" in n:
+            continue
+        if "axllm" in n or "reuse_" in n or "quant_gemm" in n:
             out["quantized_matmul"] += ms
-        elif any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass",
-                                  "bmm")):
+            continue
+        if in_mixer is not None:
+            mixer_ms = min(ms, in_mixer.get(name, 0.0))
+            out["recurrent_mixer"] += mixer_ms
+            ms -= mixer_ms
+        if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "bmm")):
             out["expert_products"] += ms
         else:
             out["rest"] += ms
@@ -1306,14 +1470,19 @@ def split_by_kind(top) -> dict:
 
 
 def serve_run(dev, card, label, prompts, kernels, names=None,
-              registry=None, cfg=None, after=None, **engine_kw):
+              registry=None, cfg=None, after=None, tile_expect=None,
+              **engine_kw):
     """One end-to-end run, on full-width repro-100m unless ``cfg`` says
     otherwise: ``prompts`` through ``ServeEngine(quantize=True, n_slots=8,
     max_len=1024, decode_chunk=8, adapters=registry, **engine_kw)``,
     request i with adapter ``names[i]``, with every launch count set to 0
     just before and read just after, each of ``kernels`` required to have
     launched. ``after(prefill, wave)`` adds its metrics: ``prefill()``
-    runs the first wave (``wave``, its prompts) again as served. Returns
+    runs the first wave (``wave``, its prompts) again as served.
+    ``tile_expect(stats)`` gives the launches each quantized matmul must
+    make on its tile kernel (none without it). A recurrent family's
+    profiles label its mixers' kernels apart (``annotated_mixers``), and
+    its plain first-wave prefill runs equal-length groups. Returns
     (metrics, the engine)."""
     import numpy as np
     import torch
@@ -1372,13 +1541,17 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
         check(launches.get(name, 0) > 0, f"{label}: {name} never launched "
                                          "on the main path")
     # every quantized-matmul launch took the tensor cores (prefill) or the
-    # split-K decode kernel (decode): none the tile kernel
+    # split-K decode kernel (decode): none the tile kernel, but those that
+    # ``tile_expect`` counts (f32 activations, N not a multiple of 16)
+    tile_want = {} if tile_expect is None else tile_expect(eng.stats)
     for lib in ("axllm_matmul", "reuse_matmul"):
-        check(launches.get(lib, 0) == launches.get(f"{lib}.wgmma", 0)
-              + launches.get(f"{lib}.gemv", 0), f"{label}: {lib} launches "
-              f"{launches.get(lib, 0)} are not wgmma "
+        tile = launches.get(lib, 0) - launches.get(f"{lib}.wgmma", 0) \
+            - launches.get(f"{lib}.gemv", 0)
+        check(tile == tile_want.get(lib, 0), f"{label}: {lib} launches "
+              f"{launches.get(lib, 0)} are wgmma "
               f"{launches.get(f'{lib}.wgmma', 0)} + gemv "
-              f"{launches.get(f'{lib}.gemv', 0)}")
+              f"{launches.get(f'{lib}.gemv', 0)} + tile {tile}, not the "
+              f"{tile_want.get(lib, 0)} tile launches expected")
     # bf16 prefill: every flash launch takes the tensor cores, 12 (one a
     # layer) per wave that runs flash attention
     check(launches.get("flash_attention.wgmma") ==
@@ -1454,6 +1627,20 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                                                  device=dev),
                         lora_scaling=registry.scaling)
         api = get_model(cfg, impl=which)
+        if not api.ragged_prefill:
+            # a recurrent family: equal-length groups, each at its exact
+            # length, the rows put back in order
+            out = [None] * len(wave)
+            with torch.inference_mode():
+                for n in sorted({len(p) for p in wave}):
+                    idx = [i for i, p in enumerate(wave) if len(p) == n]
+                    toks = torch.from_numpy(np.stack(
+                        [np.asarray(wave[i], np.int32) for i in idx])).to(dev)
+                    logits = api.prefill(eng.params, {"tokens": toks},
+                                         api.init_cache(len(idx), n, dev))[0]
+                    for j, i in enumerate(idx):
+                        out[i] = logits[j]
+            return torch.stack(out)
         if wave_routes is not None:
             ar = np.arange(pl)
             wave_routes.at(range(len(wave)), np.where(
@@ -1542,24 +1729,25 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     for p, name in zip(prompts[:N_SLOTS], names):
         prof_eng.submit(p, max_new=MAX_NEW, adapter=name)
     prof_eng.step()                                  # prefill + 1st chunk
-    wall_ms, busy_ms, top = device_busy_ms(
-        lambda: [prof_eng.step() for _ in range(4)])
+    recurrent = not eng.api.ragged_prefill
+    wall_ms, busy_ms, top, *mixer = device_busy_ms(
+        lambda: [prof_eng.step() for _ in range(4)], mixers=recurrent)
     idle = 1.0 - busy_ms / wall_ms
     print(f"{tag}: 4 decode chunks (32 steps, 8 slots): wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{idle:.3f}", flush=True)
     for name, ms in top[:8]:
         print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
-    decode_split = split_by_kind(top)
+    decode_split = split_by_kind(top, *mixer)
     print(f"{tag}: decode device ms by kind: "
           + ", ".join(f"{k} {v:.3f}" for k, v in decode_split.items()),
           flush=True)
     # where a prefill wave's time goes: the first wave's prefill through
     # the kernel path (as served: the same model call), profiled
-    p_wall, p_busy, p_top = device_busy_ms(
-        lambda: dense_logits(impl, wave, wave_names))
+    p_wall, p_busy, p_top, *p_mixer = device_busy_ms(
+        lambda: dense_logits(impl, wave, wave_names), mixers=recurrent)
     flash_ms = sum(ms for name, ms in p_top if "flash" in name)
-    wave_split = split_by_kind(p_top)
+    wave_split = split_by_kind(p_top, *p_mixer)
     print(f"{tag}: one prefill wave ({len(wave)} rows): wall {p_wall:.2f} "
           f"ms, device busy {p_busy:.2f} ms, idle share "
           f"{1.0 - p_busy / p_wall:.3f}; flash attention {flash_ms:.3f} ms "
@@ -1624,41 +1812,49 @@ def end_to_end(dev, card):
     return e2e, served_tokens(eng)
 
 
-def layer0_reuse_rates(eng, label, card, rows=(N_SLOTS,)) -> dict:
+def reuse_rates(projections, where, label, card, rows=(N_SLOTS,)) -> dict:
     """The reuse rate the kernel counts on each quantized projection of
-    layer 0 of ``eng``'s served weights, on a call of each M in ``rows``
-    (each through the path serving takes at that M), each count held
-    against ``reuse_mult_count``, beside the analytic Gaussian model."""
+    ``projections`` (name -> weight, ``where`` names them: "layer 0",
+    ...), on a call of each M in ``rows`` (each through the path serving
+    takes at that M), each count held against ``reuse_mult_count``,
+    beside the analytic Gaussian model."""
     import torch
     from repro_torch.core.quantization import QTensor
     from repro_torch.core.reuse import expected_reuse_rate
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.reuse_matmul import segment
-    from repro_torch.models.transformer import layer_slice
 
-    layer0 = layer_slice(eng.params["layers"], 0)
     predicted = expected_reuse_rate(256, 128, "gaussian")
     rates = {}
-    for group in ("attn", "ffn"):
-        for name, qt in layer0[group].items():
-            if not isinstance(qt, QTensor):
-                continue
-            k, n = qt.shape
-            count = ref.reuse_mult_count(qt, segment(n))
-            for m in rows:
-                x = torch.ones((m, k), dtype=torch.bfloat16,
-                               device=qt.codes.device)
-                _, mults = ops.reuse_matmul(x, qt, impl="reuse",
-                                            with_stats=True)
-                check(int(mults) == count, f"{label}: layer-0 {name} M{m}: "
-                      f"kernel counted {int(mults)}, host {count}")
-            rates[name] = 1.0 - count / (k * n)
-            print(f"e2e {label} [{card}]: layer 0 {name} K{k} N{n} "
-                  f"{qt.bits}b-{qt.mode}: reuse rate {rates[name]:.4f} "
-                  f"(kernel count {count} = reuse_mult_count at M "
-                  f"{', '.join(f'{m} [{path_of(m, x, qt)}]' for m in rows)}"
-                  f"; analytic gaussian model {predicted:.4f})", flush=True)
-    return dict(reuse_rate_layer0=rates, reuse_rate_predicted=predicted)
+    for name, qt in projections.items():
+        if not isinstance(qt, QTensor):
+            continue
+        k, n = qt.shape
+        count = ref.reuse_mult_count(qt, segment(n))
+        for m in rows:
+            x = torch.ones((m, k), dtype=torch.bfloat16,
+                           device=qt.codes.device)
+            _, mults = ops.reuse_matmul(x, qt, impl="reuse",
+                                        with_stats=True)
+            check(int(mults) == count, f"{label}: {where} {name} M{m}: "
+                  f"kernel counted {int(mults)}, host {count}")
+        rates[name] = 1.0 - count / (k * n)
+        print(f"e2e {label} [{card}]: {where} {name} K{k} N{n} "
+              f"{qt.bits}b-{qt.mode}: reuse rate {rates[name]:.4f} "
+              f"(kernel count {count} = reuse_mult_count at M "
+              f"{', '.join(f'{m} [{path_of(m, x, qt)}]' for m in rows)}"
+              f"; analytic gaussian model {predicted:.4f})", flush=True)
+    key = "reuse_rate_" + where.replace(" ", "_").replace("layer_", "layer")
+    return {key: rates, "reuse_rate_predicted": predicted}
+
+
+def layer0_reuse_rates(eng, label, card, rows=(N_SLOTS,)) -> dict:
+    """:func:`reuse_rates` on layer 0's attention and FFN projections of
+    ``eng``'s served weights."""
+    from repro_torch.models.transformer import layer_slice
+    layer0 = layer_slice(eng.params["layers"], 0)
+    return reuse_rates({**layer0["attn"], **layer0["ffn"]}, "layer 0", label,
+                       card, rows)
 
 
 def run_b_prompts() -> list:
@@ -2012,16 +2208,57 @@ def end_to_end_spec_paged(dev, card, ref_tokens):
                     spec_k=8, draft_bits=8, draft_mode="shiftadd")[0]
 
 
-# runs h and i: (config, layers kept, why the rest are cut)
+# runs h, i, j and k: (config, layers kept, why the rest are cut; None:
+# full depth)
 FAMILY_RUNS = {
-    "moe": ("qwen2-moe-a2.7b", 12, "chip time and the f32 init "
-            "temporaries; at 24 layers the raw bf16 tree alone is 30.3 GB"),
-    "vlm": ("chameleon-34b", 12, "at 48 layers its 34.3 B parameters (68.6 "
-            "GB raw plus 34 GB of codes) do not fit in 80 GB"),
+    "moe": ("qwen2-moe-a2.7b", 6, "chip time (runs j and k serve at full "
+            "depth in the same call); at 24 layers the raw bf16 tree alone "
+            "is 30.3 GB"),
+    "vlm": ("chameleon-34b", 6, "chip time (runs j and k serve at full "
+            "depth in the same call); at 48 layers its 34.3 B parameters "
+            "(68.6 GB raw plus 34 GB of codes) do not fit in 80 GB"),
+    "ssm": ("xlstm-1.3b", 48, None),
+    "hybrid": ("zamba2-1.2b", 38, None),
 }
 FAMILY_KERNELS = ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
                   "decode_attention", "flash_attention",
                   "flash_attention.wgmma")
+# runs j and k: the kernels each must launch, the engine's impl and the
+# model's dtype. Run k's mixers take axllm_matmul under impl="reuse" (as
+# in the JAX package); its shared attention block and head take
+# reuse_matmul. Run j serves xlstm-1.3b in float32: in bf16 its plain path
+# does not reproduce itself (random weights, 48 layers: the same prompt in
+# another batch, or chunked otherwise, moves the logits by a third of
+# their scale, and the kernel path lies as far off; in float32 both stay
+# within 3e-4 of the scale), so no token gate could hold it. Its
+# projections then take the SIMT tile kernel at prefill (f32 activations)
+# and the split-K kernel at decode
+RECURRENT_RUNS = {
+    "ssm": (("axllm_matmul", "axllm_matmul.gemv"), "auto", "float32"),
+    "hybrid": (("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
+                "reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
+                "decode_attention", "flash_attention",
+                "flash_attention.wgmma"), "reuse", None),
+}
+
+
+def xlstm_tile_launches(cfg):
+    """``tile_expect`` of run j: the launches of xLSTM's projections on
+    the tile kernel. mLSTM's wif (N = 2 heads, not a multiple of 16) takes
+    it at every decode step; at a prefill wave (every wave of run a's
+    prompts holds more than 16 tokens) the f32-activation projections do:
+    wif and the sLSTM's wx always, and in a float32 model all five mLSTM
+    and four sLSTM projections."""
+    from repro_torch.models.xlstm import _superblock_counts
+    n_super, m_per = _superblock_counts(cfg)
+    f32 = cfg.dtype == "float32"
+    per_wave = n_super * m_per * (5 if f32 else 1) + n_super * (4 if f32
+                                                                else 1)
+
+    def expect(st):
+        return {"axllm_matmul": n_super * m_per * st.steps
+                + per_wave * st.prefill_waves}
+    return expect
 
 
 def moe_drops(cfg):
@@ -2066,11 +2303,59 @@ def moe_drops(cfg):
     return after
 
 
+def reproducibility(dev, card, cfg, f32_params) -> dict:
+    """Why run j serves in float32: request 3's prompt (64 tokens) through
+    ``cfg``'s int8 model in bf16 (weights from seed 0) and in float32
+    (``f32_params``, run j's served weights), alone and as row 1 of a
+    batch of four (requests 0, 3, 6 and a row of zeros), on the plain path
+    and on the kernel path. Prints and returns each pair's largest logit
+    difference at the last position over the logit scale."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.axllm_linear import deploy_quantize
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.models.model import get_model
+    prompts = run_a_prompts()
+    alone = torch.from_numpy(np.asarray(prompts[3], np.int64))[None].to(dev)
+    four = torch.from_numpy(np.stack(
+        [prompts[0], prompts[3], prompts[6], np.zeros_like(prompts[0])])
+        .astype(np.int64)).to(dev)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = f32_params if dtype == "float32" else deploy_quantize(
+            get_model(c).init(seed=0, device=dev), QuantConfig(bits=8))
+
+        def last(impl, toks, row=0):
+            api = get_model(c, impl=impl)
+            with torch.inference_mode():
+                return api.prefill(params, {"tokens": toks},
+                                   api.init_cache(len(toks), toks.shape[1],
+                                                  dev))[0][row].float()
+
+        plain = last("ref", alone)
+        scale = max(1.0, float(plain.abs().max()))
+        pairs = {"plain in a batch of four": last("ref", four, 1),
+                 "kernel path": last("auto", alone)}
+        out[dtype] = {k: float((v - plain).abs().max()) / scale
+                      for k, v in pairs.items()}
+        print(f"e2e ssm [{card}]: {dtype}, request 3's prompt alone on the "
+              f"plain path against "
+              + "; ".join(f"{k}: {v:.4e} of the logit scale {scale:.4f}"
+                          for k, v in out[dtype].items()), flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def end_to_end_family(dev, card, family):
-    """Run h (moe) or i (vlm): the config at full width, cut in depth,
-    serving run a's requests as run a does. Earlier runs' engines hold
-    reference cycles (their wrapped methods), so they are collected
-    first: the peaks then count this run's tensors alone."""
+    """Run h (moe), i (vlm), j (ssm) or k (hybrid): the config at full
+    width, cut in depth where ``FAMILY_RUNS`` says, serving run a's
+    requests as run a does. Earlier runs' engines hold reference cycles
+    (their wrapped methods), so they are collected first: the peaks then
+    count this run's tensors alone. Run k also reads the reuse rate the
+    kernel counts on the shared attention block's projections."""
     import dataclasses
     import gc
     import torch
@@ -2078,6 +2363,15 @@ def end_to_end_family(dev, card, family):
     name, layers, why = FAMILY_RUNS[family]
     full = get_config(name)
     cfg = dataclasses.replace(full, n_layers=layers)
+    kw = {}
+    kernels = FAMILY_KERNELS
+    if family in RECURRENT_RUNS:
+        kernels, kw["impl"], dtype = RECURRENT_RUNS[family]
+        cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+        if family == "ssm":
+            kw["tile_expect"] = xlstm_tile_launches(cfg)
+    depth = (f"full depth, {layers} layers" if layers == full.n_layers
+             else f"depth cut to {layers} of {full.n_layers} layers: {why}")
     print(f"e2e {family} [{card}]: {name} at full width (d_model "
           f"{cfg.d_model}, H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
@@ -2085,13 +2379,28 @@ def end_to_end_family(dev, card, family):
           + (f", {cfg.n_experts} experts padded to {cfg.padded_experts}, "
              f"top-{cfg.top_k}, {cfg.n_shared_experts} shared, capacity "
              f"factor {cfg.capacity_factor}" if cfg.n_experts else "")
-          + f"), depth cut to {layers} of {full.n_layers} layers: {why}",
-          flush=True)
+          + (f", an sLSTM every {cfg.xlstm_slstm_every} blocks"
+             if cfg.xlstm_slstm_every else "")
+          + (f", ssm_state {cfg.ssm_state}, SSM head dim "
+             f"{cfg.ssm_head_dim}, shared attention every "
+             f"{cfg.hybrid_attn_every} layers" if cfg.hybrid_attn_every
+             else "")
+          + f", {cfg.dtype}), {depth}; {cfg.n_params() / 1e9:.3f} G "
+          f"parameters at this depth", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    e2e, _ = serve_run(dev, card, family, run_a_prompts(), FAMILY_KERNELS,
-                       cfg=cfg, after=moe_drops(cfg) if family == "moe"
-                       else None)
+    if family == "moe":
+        kw["after"] = moe_drops(cfg)
+    e2e, eng = serve_run(dev, card, family, run_a_prompts(), kernels,
+                         cfg=cfg, **kw)
+    if family == "ssm":
+        e2e["reproducibility"] = reproducibility(
+            dev, card, dataclasses.replace(full, n_layers=layers), eng.params)
+    if family == "hybrid":
+        shared = eng.params["shared"]
+        e2e.update(reuse_rates({**shared["attn"], **shared["mlp"]},
+                               "shared block", family, card))
+    del eng
     torch.cuda.empty_cache()
     return dict(e2e, config=name, layers=layers, full_layers=full.n_layers)
 
@@ -2633,7 +2942,9 @@ def main() -> int:
     rows += q_rows
     stamp("kernel phases")
     rows += family_kernel_phase(dev, flush)
-    stamp("the families' kernel phase")
+    rows += recurrent_kernel_phase(dev, flush)
+    rows += zero_row_phase(dev, flush)
+    stamp("the families' kernel phases and the zero-row check")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
@@ -2651,7 +2962,7 @@ def main() -> int:
     del reuse_paged_eng
     chaos = chaos_phase(dev, card)
     stamp("simulator and chaos phases")
-    for family in FAMILY_RUNS:                  # runs h and i
+    for family in FAMILY_RUNS:                  # runs h, i, j and k
         e2e[family] = end_to_end_family(dev, card, family)
         stamp(f"run {family}")
 
@@ -2668,7 +2979,7 @@ def main() -> int:
             # the speculative runs f and g that serve it, and its launches
             launches_spec={r: e2e[r]["launches"][name] for r in SPEC_RUNS
                            if e2e[r]["launches"].get(name)},
-            # runs h (moe) and i (vlm)
+            # runs h (moe), i (vlm), j (ssm) and k (hybrid)
             launches_families={r: e2e[r]["launches"].get(name, 0)
                                for r in FAMILY_RUNS}))
         if name in ("axllm_matmul", "reuse_matmul"):

@@ -1,7 +1,7 @@
 """Config registry of the port: the models it can serve so far, the
-transformer families (dense, moe, vlm). The recurrent and audio configs
-(xlstm-1.3b, zamba2-1.2b, whisper-small) come with their families
-(ROADMAP queue 1 items 10b and 10c)."""
+transformer families (dense, moe, vlm) and the recurrent ones (ssm:
+xlstm-1.3b; hybrid: zamba2-1.2b). The audio config (whisper-small) comes
+with its family (ROADMAP queue 1 item 10c)."""
 
 from __future__ import annotations
 
@@ -14,10 +14,12 @@ from repro_torch.configs.internlm2_20b import CONFIG as _internlm2
 from repro_torch.configs.qwen2_72b import CONFIG as _qwen2
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2_moe
 from repro_torch.configs.repro_100m import CONFIG as _repro100m
+from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm
+from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
 REGISTRY = {c.name: c for c in [
-    _chameleon, _arctic, _qwen2_moe, _internlm2, _qwen2, _granite, _glm4,
-    _repro100m,
+    _chameleon, _arctic, _qwen2_moe, _xlstm, _internlm2, _qwen2, _granite,
+    _glm4, _zamba2, _repro100m,
 ]}
 
 

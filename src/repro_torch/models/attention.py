@@ -104,10 +104,11 @@ def _project_qkv(p, x, cfg, impl, adapters=None, adapter_idx=None,
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda"):
-    """Stacked-over-layers KV cache (leading L dim)."""
+               device="cuda", n_layers=None):
+    """Stacked-over-layers KV cache (leading L dim: ``n_layers``, default
+    ``cfg.n_layers``; the hybrid family stacks one per attention site)."""
     hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    nl = cfg.n_layers
+    nl = cfg.n_layers if n_layers is None else n_layers
     kv_dtype = torch.int8 if cfg.quant_kv else dtype
     cache = {
         "k": torch.zeros((nl, batch, max_len, hk, hd), dtype=kv_dtype,

@@ -31,8 +31,8 @@ def init_linear(gen, n_in: int, n_out: int, dtype=torch.float32, lead=()):
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_norm(cfg, device, lead=()):
-    d = cfg.d_model
+def init_norm(cfg, device, lead=(), d=None):
+    d = d or cfg.d_model
     p = {"scale": torch.ones((*lead, d), dtype=torch.float32, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros((*lead, d), dtype=torch.float32,

@@ -19,17 +19,21 @@ takes ``prefix=`` for suffix-only prefill against cached blocks.
 gate_up; apply after quantization), and ``supports_lora`` says that
 ``prefill`` and ``decode`` take the multi-LoRA kwargs ``adapters=``,
 ``adapter_idx=`` and ``lora_scaling=``. The port serves the transformer
-families (dense, moe, vlm); the recurrent and audio families come with
-ROADMAP queue 1 items 10b and 10c.
+families (dense, moe, vlm) and the recurrent ones (ssm: xLSTM; hybrid:
+zamba2). A recurrent family's ``prefill`` refuses ``lengths`` and is fed
+equal-length batches (``ragged_prefill=False``); it has no paged cache
+and no LoRA hooks (``init_paged_cache`` None, ``supports_lora`` False),
+so the engine refuses those modes. The audio family comes with ROADMAP
+queue 1 item 10c.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,23 +46,44 @@ class ModelAPI:
     decode: Callable[..., Any]
     cache_spec: Any
     ragged_prefill: bool
-    init_paged_cache: Callable[..., Any]
-    paged_cache_spec: Any
-    fuse_params: Callable[[Any], Any]
-    supports_lora: bool
+    # None for the recurrent families: their state folding has no
+    # per-position KV to page, so the engine refuses paged=True
+    init_paged_cache: Optional[Callable[..., Any]] = None
+    paged_cache_spec: Any = None
+    fuse_params: Optional[Callable[[Any], Any]] = None
+    supports_lora: bool = False
 
 
 # the families whose KV cache is position-addressable (a cursor or a block
 # table to truncate), as the JAX package's ``init_paged_cache`` says: paged
-# serving and speculative rollback need one. The port serves these.
+# serving and speculative rollback need one.
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+RECURRENT_FAMILIES = {"ssm": xlstm, "hybrid": hybrid}
 
 
 def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
+    if cfg.family in RECURRENT_FAMILIES:
+        mod = RECURRENT_FAMILIES[cfg.family]
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda seed=0, device="cuda": mod.init_params(cfg, seed,
+                                                               device),
+            forward=lambda p, b: mod.forward(p, b["tokens"], cfg, impl=impl),
+            init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
+                cfg, batch, max_len, device),
+            prefill=lambda p, b, c, lengths=None, all_positions=False:
+            mod.prefill(p, b["tokens"], cfg, c, impl=impl, lengths=lengths,
+                        all_positions=all_positions),
+            decode=lambda p, t, c: mod.decode_step(p, t, cfg, c, impl=impl),
+            cache_spec=mod.cache_spec(cfg),
+            ragged_prefill=False,
+            fuse_params=lambda p: mod.fuse_params(p, cfg),
+        )
     if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 10); the port serves the dense, moe and vlm families")
+            "item 10c: the audio family); the port serves the dense, moe, "
+            "vlm, ssm and hybrid families")
     mod = transformer
     return ModelAPI(
         cfg=cfg,

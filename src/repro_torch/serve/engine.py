@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine for the transformer families
-(PyTorch port).
+"""Continuous-batching serving engine (PyTorch port): the transformer
+families and the recurrent ones (ssm, hybrid).
 
 ``ServeEngine(cfg, params, quantize=True)`` converts the weights to AxLLM
 codes once (``deploy_quantize``: int8 affine per-channel by default), so
@@ -13,6 +13,17 @@ scheduler keeps ``n_slots`` request slots full:
   Causal masking keeps real tokens from the pads; logits come from each
   row's last real position; the per-row cursor is the true length. The
   wave's cache rows are then copied into the seated slots.
+- **Recurrent families (ssm, hybrid).** Their prefill folds every
+  position into the state, so it takes no padding
+  (``api.ragged_prefill`` False): a wave splits into equal-length
+  sub-waves, one per admission length, each at its exact length (the
+  width still a power of two), passed no ``lengths``. Slot writes follow
+  each cache leaf's batch axis through the nested ``cache_spec``. These
+  families have no paged cache, no LoRA hooks and no speculative
+  rollback, and the engine refuses ``paged``, ``adapters`` and
+  ``speculate`` for them, with the JAX engine's errors. A preempted slot
+  restores by recompute: ``prompt ++ tokens`` re-prefills as one
+  equal-length group.
 - **Chunked decode.** ``step()`` runs up to ``decode_chunk`` decode steps
   back to back on the device (``serve.decode.decode_steps``), clamped to
   the largest per-slot remaining budget, and reads the tokens once per
@@ -288,6 +299,20 @@ def _pow2_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
+def _leaves(tree, spec):
+    """(tensor, batch axis) of every leaf of a cache ``tree`` and its
+    ``spec`` (the same nesting of dicts and tuples, an int at each
+    leaf), in the spec's order."""
+    if isinstance(spec, dict):
+        for k, sub in spec.items():
+            yield from _leaves(tree[k], sub)
+    elif isinstance(spec, tuple):
+        for t, sub in zip(tree, spec):
+            yield from _leaves(t, sub)
+    else:
+        yield tree, spec
+
+
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
@@ -369,6 +394,13 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving is not "
                                       "ported yet (ROADMAP queue 1 item 12)")
+        self.api: ModelAPI = get_model(cfg, impl=impl)
+        if paged and self.api.init_paged_cache is None:
+            raise ValueError(
+                f"family {cfg.family!r} has no paged KV cache path: "
+                "recurrent/enc-dec state folding exposes no per-position "
+                "KV to page — serve it with paged=False (attention "
+                "families only)")
         if speculate:
             if not greedy:
                 raise ValueError(
@@ -395,7 +427,6 @@ class ServeEngine:
                              f"{impl!r}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.api: ModelAPI = get_model(cfg, impl=impl)
         params = raw_params = _params_to(params, self.device)
         if quantize:
             bits = cfg.quant_bits if quant_bits is None else quant_bits
@@ -461,6 +492,7 @@ class ServeEngine:
         else:
             self.pager = None
             self.cache = self.api.init_cache(n_slots, max_len, self.device)
+        self._validate_cache_spec()
         self.slots: List[Optional[Request]] = [None] * n_slots
         # bounded priority wait queue; max_queue=None with "block" is the
         # unbounded FIFO of a closed-loop caller
@@ -473,12 +505,36 @@ class ServeEngine:
         self._rid = 0
         self.stats = EngineStats()
 
+    def _validate_cache_spec(self):
+        """Every cache leaf must have its slots (paged pool leaves: its
+        blocks) on the axis the family's spec names."""
+        if self.paged:
+            for name, ax in self.api.paged_cache_spec.items():
+                want = self.num_blocks if ax == 1 else self.n_slots
+                got = self.cache[name].shape[ax]
+                if got != want:
+                    raise ValueError(
+                        f"paged_cache_spec says axis {ax} of {name!r} is "
+                        f"the {'block' if ax == 1 else 'slot'} axis but "
+                        f"shape {tuple(self.cache[name].shape)} has {got} "
+                        f"!= {want} there")
+            return
+        for leaf, ax in _leaves(self.cache, self.api.cache_spec):
+            if leaf.shape[ax] != self.n_slots:
+                raise ValueError(
+                    f"cache_spec says batch axis {ax} but leaf shape "
+                    f"{tuple(leaf.shape)} has {leaf.shape[ax]} != n_slots="
+                    f"{self.n_slots} there")
+
     def _validate_adapters(self, reg: AdapterRegistry):
         """The family must take the LoRA kwargs, and the registry must be
         built for a config of the same dims, on the engine's device."""
         if not self.api.supports_lora:
-            raise ValueError(f"family {self.cfg.family!r} has no multi-LoRA "
-                             "serving path")
+            raise ValueError(
+                f"family {self.cfg.family!r} has no multi-LoRA serving "
+                "path: its recurrent state folding offers no per-slot "
+                "projection hook for the delta pipeline (attention "
+                "families only)")
         if reg.cfg.n_layers != self.cfg.n_layers:
             raise ValueError(
                 f"adapter registry built for n_layers={reg.cfg.n_layers} "
@@ -825,14 +881,32 @@ class ServeEngine:
             pending.append(r)
         if not pending:
             return
+        if self.api.ragged_prefill:
+            groups = [pending]
+        else:
+            # a recurrent family folds every position into its state, so
+            # it prefills equal-length sub-waves, one per admission length
+            by_len = {}
+            for r in pending:
+                by_len.setdefault(len(self._admission_seq(r)), []).append(r)
+            groups = list(by_len.values())
         t0 = time.perf_counter()
+        gi = -1
         try:
-            if self.paged:
-                self._prefill_group_paged(pending, free)
-            else:
-                self._prefill_group(pending, free)
+            for gi, group in enumerate(groups):
+                if self.paged:
+                    self._prefill_group_paged(group, free)
+                else:
+                    self._prefill_group(group, free)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        except Exception:
+            # the failing group requeued itself; the groups after it never
+            # ran and requeue here, adapter pins intact
+            for group in groups[gi + 1:]:
+                for r in group:
+                    self.queue.push_front(r)
+            raise
         finally:
             self.stats.prefill_wall_s += time.perf_counter() - t0
 
@@ -867,7 +941,11 @@ class ServeEngine:
         wb = _pow2_bucket(w, 1, self.n_slots)
         seqs = [self._admission_seq(r) for r in group]
         lens = [len(s) for s in seqs]
-        pl = _pow2_bucket(max(lens), min(8, self.max_len), self.max_len)
+        ragged = self.api.ragged_prefill
+        if ragged:
+            pl = _pow2_bucket(max(lens), min(8, self.max_len), self.max_len)
+        else:
+            pl = lens[0]                # an equal-length group, exact
         toks = np.zeros((wb, pl), np.int32)
         lengths = np.ones((wb,), np.int32)
         aidx = np.full((wb,), -1, np.int32)
@@ -875,6 +953,9 @@ class ServeEngine:
             toks[i, :lens[i]] = seq
             lengths[i] = lens[i]
             aidx[i] = self._adapter_row(r)
+        kw = self._lora_kw(aidx)
+        if ragged:
+            kw["lengths"] = torch.from_numpy(lengths).to(self.device)
         wave_cache = self.api.init_cache(wb, pl, self.device)
         try:
             if self.fault_hook is not None:
@@ -882,8 +963,7 @@ class ServeEngine:
             logits, wave_cache = self.api.prefill(
                 self.params,
                 {"tokens": torch.from_numpy(toks).to(self.device)},
-                wave_cache, lengths=torch.from_numpy(lengths).to(self.device),
-                **self._lora_kw(aidx))
+                wave_cache, **kw)
         except Exception:
             # nothing was changed yet: requeue the whole group, so no
             # request (or its adapter pin) is lost
@@ -914,8 +994,7 @@ class ServeEngine:
                 _, dwave = self.api.prefill(
                     self.draft_params,
                     {"tokens": torch.from_numpy(toks).to(self.device)},
-                    dwave, lengths=torch.from_numpy(lengths).to(self.device),
-                    **self._lora_kw(aidx))
+                    dwave, **kw)
                 self._write_wave(self.draft_cache, dwave, src, dst)
         self.stats.prefill_waves += 1
 
@@ -1217,18 +1296,20 @@ class ServeEngine:
 
     def _write_wave(self, cache, wave_cache, src, dst):
         """Copy wave rows ``src`` into the slots ``dst`` of the dense
-        ``cache`` (the target's or the draft's) on each leaf's batch axis
-        (``api.cache_spec``). The wave cache covers the padded length only;
-        slot entries past it are never read before decode overwrites
+        ``cache`` (the target's or the draft's) on each leaf's declared
+        batch axis (``api.cache_spec``, nested dicts and tuples). A KV
+        leaf of the wave covers its padded length only, so only the wave's
+        leading entries of each axis after the batch axis are written;
+        slot entries past them are never read before decode overwrites
         them."""
         s = torch.tensor(src, device=self.device)
         d = torch.tensor(dst, device=self.device)
-        for name, ax in self.api.cache_spec.items():
-            full, one = cache[name], wave_cache[name]
-            if ax == 0:
-                full[d] = one[s].to(full.dtype)
-            else:
-                full[:, d, :one.shape[2]] = one[:, s].to(full.dtype)
+        spec = self.api.cache_spec
+        for (full, ax), (one, _) in zip(_leaves(cache, spec),
+                                        _leaves(wave_cache, spec)):
+            idx = (slice(None),) * ax + (d,) + tuple(
+                slice(0, n) for n in one.shape[ax + 1:])
+            full[idx] = one.index_select(ax, s).to(full.dtype)
 
     # -- sampling and stopping ------------------------------------------------
     def _sample(self, logits) -> np.ndarray:

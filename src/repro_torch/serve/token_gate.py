@@ -172,29 +172,37 @@ class Routes:
         return self._route_by(fn)
 
 
-def teacher_forced_logits(cfg, params, prompt: Sequence[int],
-                          tokens: Sequence[int], *, impl: str, device,
-                          registry=None, adapter: Optional[str] = None
-                          ) -> torch.Tensor:
-    """[len(tokens), vocab] f32 logits of ``impl``'s prefill of ``prompt``
-    followed by ``tokens``: row p is the distribution ``tokens[p]`` was
-    drawn from. ``adapter`` names a ``registry`` adapter (None: base)."""
-    seq = np.concatenate([np.asarray(prompt, np.int64),
-                          np.asarray(tokens[:-1], np.int64)])
-    toks = torch.from_numpy(seq[None]).to(device)
+def teacher_forced_logits(cfg, params, prompts, generated, *, impl: str,
+                          device, registry=None, names=None) -> list:
+    """Per request, [len(generated[i]), vocab] f32 logits of ``impl``'s
+    prefill of ``prompts[i]`` followed by ``generated[i]``: row p is the
+    distribution ``generated[i][p]`` was drawn from. Request i takes the
+    ``registry`` adapter ``names[i]`` (None: base). Every request's
+    sequence (its prompt and all its tokens but the last) must have one
+    length: the requests run as one prefill with no padding, which
+    computes what each alone would."""
+    seqs = [np.concatenate([np.asarray(p, np.int64),
+                            np.asarray(g[:-1], np.int64)])
+            for p, g in zip(prompts, generated)]
+    if len({len(q) for q in seqs}) != 1:
+        raise ValueError("teacher_forced_logits: sequences of one length "
+                         "only (prompt plus all tokens but the last)")
+    toks = torch.from_numpy(np.stack(seqs)).to(device)
     api = get_model(cfg, impl=impl)
     lora = {}
     if registry is not None:
-        idx = -1 if adapter is None else registry.index_of(adapter)
+        rows = [-1 if n is None else registry.index_of(n)
+                for n in names or [None] * len(prompts)]
         lora = dict(adapters=registry.stacked, lora_scaling=registry.scaling,
-                    adapter_idx=torch.tensor([idx], dtype=torch.int32,
+                    adapter_idx=torch.tensor(rows, dtype=torch.int32,
                                              device=device))
     with torch.inference_mode():
         logits = api.prefill(params, {"tokens": toks},
-                             api.init_cache(1, len(seq), device),
+                             api.init_cache(len(seqs), toks.shape[1], device),
                              all_positions=True, **lora)[0]
-    first = len(prompt) - 1
-    return logits[0, first:first + len(tokens), :cfg.vocab_size].float()
+    return [logits[i, len(p) - 1:len(p) - 1 + len(g),
+                   :cfg.vocab_size].float()
+            for i, (p, g) in enumerate(zip(prompts, generated))]
 
 
 def replayed_logits(cfg, params, prompts, generated, prefill_len: int, *,
@@ -252,9 +260,11 @@ def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
     with adapter ``names[i]``) against ``impl``'s teacher-forced logits:
     at every position the token's reference logit must lie within
     ``2 * tol`` of the reference maximum, ``tol = tol_rel * max(1, the
-    request's largest |logit|)``. With ``prefill_lens`` (each request's
-    served prefill length) the reference replays the serving schedule
-    (:func:`replayed_logits`, requests of one length a batch); with
+    request's largest |logit|)``. The reference is a teacher-forced
+    prefill of requests of one sequence length at a time, at most 8 a
+    batch (:func:`teacher_forced_logits`). With ``prefill_lens`` (each
+    request's served prefill length) it replays the serving schedule
+    instead (:func:`replayed_logits`, requests of one length a batch); with
     ``routes`` as well (recorded from the served path, request i under
     key i) it takes the served expert choices and keeps the routing
     gate's account in ``routes``."""
@@ -276,14 +286,23 @@ def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
                     device=device, registry=registry,
                     names=[names[i] for i in part], routes=routes,
                     rids=part)))
+    by_len = {}
+    for i, (prompt, toks) in enumerate(zip(prompts, generated)):
+        if len(toks) and i not in refs:
+            by_len.setdefault(len(prompt) + len(toks) - 1, []).append(i)
+    for idx in by_len.values():
+        for j0 in range(0, len(idx), 8):         # at most 8 rows a batch
+            part = idx[j0:j0 + 8]
+            refs.update(zip(part, teacher_forced_logits(
+                cfg, params, [prompts[i] for i in part],
+                [generated[i] for i in part], impl=impl, device=device,
+                registry=registry, names=[names[i] for i in part])))
     positions = differ = 0
     min_slack, worst, failures = float("inf"), None, []
     for i, (prompt, toks) in enumerate(zip(prompts, generated)):
         if not len(toks):
             continue
-        ref = refs[i] if i in refs else teacher_forced_logits(
-            cfg, params, prompt, toks, impl=impl, device=device,
-            registry=registry, adapter=names[i])
+        ref = refs[i]
         tol = tol_rel * max(1.0, float(ref.abs().max()))
         t = torch.as_tensor(np.asarray(toks, np.int64), device=ref.device)
         top = ref.max(-1).values

@@ -152,6 +152,6 @@ def test_init_params_layout_and_seed():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(T_CONFIG, family="ssm")
+    cfg = dataclasses.replace(T_CONFIG, family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_get_model(cfg)
