@@ -163,8 +163,10 @@ NVIDIA GPU.
    second serving that must repeat the first bit for bit, and holds each
    choice to the routing gate; it also prints the share of layer 0's
    (token, choice) pairs its first wave dropped at capacity. Runs j (ssm)
-   and k (hybrid): xlstm-1.3b (float32, ``impl="auto"``) and zamba2-1.2b
-   (bf16, ``impl="reuse"``) at full width and full depth serve run a's
+   and k (hybrid): xlstm-1.3b (float32, ``impl="auto"``; cut to 8 of its
+   48 layers, one super-block) and zamba2-1.2b (bf16, ``impl="reuse"``;
+   cut to 20 of its 38 layers, 3 attention sites), the cuts printed, both
+   at full width, serve run a's
    requests the same way, their waves split into equal-length sub-waves;
    their profiles label the recurrent mixers' kernels apart
    (``recurrent_mixer``); run j's tile-kernel launches must be exactly
@@ -172,8 +174,39 @@ NVIDIA GPU.
    model's plain path against itself and the kernel path against it, and
    the same in float32); run k prints the counted reuse rate of its
    shared block's projections.
-9. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
-   g, and in runs h to k, beside its main run's), then the result line.
+9. Run l (audio): whisper-small at full width and full depth (12
+   encoder and 12 decoder layers, bf16, int8 per channel; the encoder and
+   prefill streams float32 as in the reference) through the model API and
+   ``serve/decode.decode_steps`` (the reference serves no audio model
+   through its engine): 16 requests in two waves of 8, each a ragged
+   prefill of decoder prompts cycling 16/64/200 tokens over its own frames
+   [1500, 80] (f32 from a seed, the stub frontend's input), then greedy
+   decode chunks of 8 until 64 tokens a request, in a 448-token cache.
+   Its launches must be exactly ``audio_launches`` (encoder and prefill
+   projections on the f32 tile kernel, decode projections on ``.gemv``,
+   every flash call on the SIMT kernel, two decode attentions a layer a
+   step), every token must pass the token gate on its own frames, and the
+   first wave's logits must lie within the tolerance of the plain path's;
+   it prints tok/s, prefill wall time, an encoder pass's, a prefill wave's
+   and 4 decode chunks' device time by kind with the idle share and peak
+   memory. Its kernel rows (the
+   f32 tile kernel at M12000 with the frontend's K80, ``.gemv`` at the
+   decode MLP, flash non-causal over 1500 frames and at Sq 200 > Sk 64,
+   decode attention over the 1500 cross K/V and the 448-token self cache)
+   come after the zero-row check.
+10. Launcher phase: a checkpoint of full-width repro-100m (the port's
+   init from seed 1 and its AdamW state) written by
+   ``train/checkpoint.save``, then ``python -m repro_torch.launch.serve
+   --ckpt <dir> --slots 8 --max-len 1024 --requests 16 --max-new 64
+   --prompt-lens 64,200,511 --stats`` as a subprocess on the card, plain
+   and with ``--reuse --paged``: each must exit 0, print "restored step
+   7" and print the token lines and stats of
+   ``repro_torch.launch.serve.main`` run in process on the card with the
+   same flags, whose launches (counted from 0 just before it) must
+   include every kernel of its mode.
+11. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
+   g, in runs h to l and in the launcher phase's in-process
+   ``serve.main`` runs, beside its main run's), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -210,7 +243,9 @@ GEMV_M = (1, 8, 16)     # where the decode kernels are timed as well
 FLASH_CASES = ((N_SLOTS, 512, 512, True, 64), (2, 256, 1024, True, 64),
                (2, 256, 1024, False, 64), (N_SLOTS, 512, 512, True, 128))
 LOGIT_TOL = 5e-2        # |kernel - plain| / scale: bf16 transformers and
-                        # zamba2 (38 layers), float32 xlstm (48 layers)
+                        # zamba2 (20 layers), float32 xlstm (8 layers)
+F32_LOGIT_TOL = 1e-4    # the same for run l's float32 prefill logits (read
+                        # at 1.3e-6 of the scale on the H100, PERF.md)
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin ahead of each timed launch
 # run e (overload + chunked prefill): 24 requests on run a's prompt cycle,
 # the last 4 at priority 1 after the second step; 111 usable pool blocks
@@ -900,11 +935,11 @@ DECODE_LENGTHS = (0, 64, 200, 511, 700, 1000, MAX_LEN, MAX_LEN + 300)
 
 
 def decode_case(paged, h, hk, d, quant, g, dev, flush,
-                lengths=DECODE_LENGTHS) -> dict:
-    """One decode step of the 8 slots at S = 1024 (dense cache) or through
-    shuffled, shared 16-key block tables (paged), at ``lengths`` (0 to
-    past the end), against the plain version and the split emulation;
-    every length-0 row must be exactly 0."""
+                lengths=DECODE_LENGTHS, s=MAX_LEN) -> dict:
+    """One decode step of the 8 slots at S = ``s`` (dense cache; 1024 but
+    for run l's shapes) or through shuffled, shared 16-key block tables
+    (paged), at ``lengths`` (0 to past the end), against the plain version
+    and the split emulation; every length-0 row must be exactly 0."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ref
@@ -913,7 +948,7 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush,
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_cuda
     bf16 = torch.bfloat16
-    b, s, bs = N_SLOTS, MAX_LEN, KV_BLOCK
+    b, bs = N_SLOTS, KV_BLOCK
     mb = s // bs
     n_rows = 2 * N_SLOTS * mb + 2 if paged else b   # pool blocks or rows
     inner = (bs,) if paged else (s,)
@@ -989,32 +1024,38 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush,
                     4.0 * int(valid.sum()) * h * d, "bfloat16")
 
 
-def flash_case(h, hk, d, dtype_name, g, dev, flush, sq=512) -> list:
-    """Causal flash attention of a prefill wave (8 x ``sq``) at this head
-    layout: the wrapper's path and, for bf16, the SIMT kernel beside it."""
+def flash_case(h, hk, d, dtype_name, g, dev, flush, sq=512, sk=None,
+               causal=True) -> list:
+    """Flash attention of a prefill wave (8 x ``sq`` queries, ``sk`` keys,
+    default ``sq``) at this head layout, causal or not: the wrapper's path
+    and, for bf16, the SIMT kernel beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
-    b = N_SLOTS
+    b, sk = N_SLOTS, sk or sq
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
-    k = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
-    v = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
-    want = ref.attention_ref(q, k, v, True)
+    k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+    want = ref.attention_ref(q, k, v, causal)
     scale = max(1.0, float(want.float().abs().max()))
     tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * scale
-    amask = (torch.arange(sq, device=dev)[:, None]
-             >= torch.arange(sq, device=dev)[None, :])
+    amask = (torch.arange(sq, device=dev)[:, None] + sk - sq
+             >= torch.arange(sk, device=dev)[None, :]) if causal else None
     qt_, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt_, kt, vt, attn_mask=amask, enable_gqa=True), flush)
-    plain = time_ms(lambda: ref.attention_ref(q, k, v, True), flush)
-    pairs = sq * (sq + 1) // 2
-    shape = f"B{b} Sq{sq} Sk{sq} H{h} Hk{hk} d{d} causal {dtype_name}"
-    calls = [("simt", lambda: fa.launch(q, k, v, True, False))]
+    plain = time_ms(lambda: ref.attention_ref(q, k, v, causal), flush)
+    # the query-key pairs the softmax covers (causal: the last sq rows of
+    # the sk x sk triangle)
+    pairs = sq * sk - (sq * (sq - 1) // 2 if causal else 0)
+    shape = (f"B{b} Sq{sq} Sk{sk} H{h} Hk{hk} d{d} "
+             f"{'causal' if causal else 'full'} {dtype_name}")
+    calls = [("simt", lambda: fa.launch(q, k, v, causal, False))]
     if fa.tensor_core_path(q):
-        calls.insert(0, ("wgmma", lambda: fa.flash_attention_cuda(q, k, v)))
+        calls.insert(0, ("wgmma", lambda: fa.flash_attention_cuda(
+            q, k, v, causal)))
     rows = []
     for path, call in calls:
         got = call()
@@ -2211,14 +2252,18 @@ def end_to_end_spec_paged(dev, card, ref_tokens):
 # runs h, i, j and k: (config, layers kept, why the rest are cut; None:
 # full depth)
 FAMILY_RUNS = {
-    "moe": ("qwen2-moe-a2.7b", 6, "chip time (runs j and k serve at full "
-            "depth in the same call); at 24 layers the raw bf16 tree alone "
-            "is 30.3 GB"),
-    "vlm": ("chameleon-34b", 6, "chip time (runs j and k serve at full "
-            "depth in the same call); at 48 layers its 34.3 B parameters "
-            "(68.6 GB raw plus 34 GB of codes) do not fit in 80 GB"),
-    "ssm": ("xlstm-1.3b", 48, None),
-    "hybrid": ("zamba2-1.2b", 38, None),
+    "moe": ("qwen2-moe-a2.7b", 6, "chip time (runs j to l serve in the "
+            "same call); at 24 layers the raw bf16 tree alone is 30.3 GB"),
+    "vlm": ("chameleon-34b", 6, "chip time (runs j to l serve in the "
+            "same call); at 48 layers its 34.3 B parameters (68.6 GB raw "
+            "plus 34 GB of codes) do not fit in 80 GB"),
+    "ssm": ("xlstm-1.3b", 8, "chip time (run l and the launcher phase "
+            "joined the call; at 48 layers run j alone took 157 s, at 16 "
+            "55-70 s)"),
+    "hybrid": ("zamba2-1.2b", 20, "chip time (run l and the launcher "
+               "phase joined the call; at 38 layers run k took 65-102 s); "
+               "20 layers keep 3 of its 6 attention sites and a "
+               "remainder of 2 Mamba2 layers"),
 }
 FAMILY_KERNELS = ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
                   "decode_attention", "flash_attention",
@@ -2227,8 +2272,8 @@ FAMILY_KERNELS = ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
 # model's dtype. Run k's mixers take axllm_matmul under impl="reuse" (as
 # in the JAX package); its shared attention block and head take
 # reuse_matmul. Run j serves xlstm-1.3b in float32: in bf16 its plain path
-# does not reproduce itself (random weights, 48 layers: the same prompt in
-# another batch, or chunked otherwise, moves the logits by a third of
+# does not reproduce itself (random weights, at full depth: the same prompt
+# in another batch, or chunked otherwise, moves the logits by a third of
 # their scale, and the kernel path lies as far off; in float32 both stay
 # within 3e-4 of the scale), so no token gate could hold it. Its
 # projections then take the SIMT tile kernel at prefill (f32 activations)
@@ -2863,6 +2908,418 @@ def chaos_phase(dev, card) -> dict:
     return dict(scenarios=out, wall_s=wall, launches=launches)
 
 
+# run l: whisper-small at full width and full depth. The reference serves
+# no audio model through its engine, so run l drives the model API and
+# ``serve/decode.decode_steps`` as ``tests/test_decode_steps.py`` does:
+# waves of 8 requests, each a ragged prefill of decoder prompts cycling
+# 16/64/200 tokens over its own frames [1500, 80] (f32, the stub frontend's
+# input), then greedy decode chunks of 8 steps until every row holds
+# MAX_NEW tokens, in a cache of whisper's decoder context (448)
+AUDIO_ARCH, AUDIO_MAX_LEN = "whisper-small", 448
+AUDIO_PROMPTS = (16, 64, 200)
+# its kernel shapes: the f32 projections of a wave's encoder (M = 8 x 1500)
+# on the tile kernel, the frontend's K80 among them; the decode step's bf16
+# MLP projections on the split-K kernel (K768 N768 is repro-100m's row)
+AUDIO_F32 = ((80, 768), (768, 768), (768, 3072), (3072, 768))
+AUDIO_DECODE = ((768, 3072), (3072, 768))
+# decode attention: cross-attention over the 1500 frames at full length,
+# self-attention in the 448-token cache at run l's lengths
+AUDIO_SELF_LENGTHS = (16, 64, 200, 79, 127, 263, 300, 447)
+
+
+def audio_kernel_phase(dev, flush):
+    """Kernels 1 to 3 at run l's shapes and the non-causal Sq > Sk case,
+    each against its plain version: the f32 tile kernel at M12000 (the
+    frontend's K80 and the encoder's projections), ``.gemv`` at the decode
+    MLP, flash non-causal f32 over 1500 frames (the encoder, Sq = Sk =
+    1500; a prefill's cross-attention, Sq 200) and causal at the decoder's
+    200-token prompts, non-causal at Sq 200 > Sk 64 (bf16 on both paths,
+    f32), and decode attention over the 1500 cross K/V and the self cache."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    m = N_SLOTS * 1500
+    for k, n in AUDIO_F32:
+        rows.append(matmul_case("axllm_matmul", m, k, n, g, dev, flush,
+                                act="float32"))
+    for k, n in AUDIO_DECODE:
+        rows.append(matmul_case("axllm_matmul", N_SLOTS, k, n, g, dev,
+                                flush))
+    rows += flash_case(12, 12, 64, "float32", g, dev, flush, sq=1500,
+                       causal=False)
+    rows += flash_case(12, 12, 64, "float32", g, dev, flush, sq=200,
+                       sk=1500, causal=False)
+    rows += flash_case(12, 12, 64, "float32", g, dev, flush, sq=200)
+    for dt in ("bfloat16", "float32"):
+        rows += flash_case(12, 12, 64, dt, g, dev, flush, sq=200, sk=64,
+                           causal=False)
+    rows.append(decode_case(False, 12, 12, 64, False, g, dev, flush,
+                            lengths=(1500,) * N_SLOTS, s=1500))
+    rows.append(decode_case(False, 12, 12, 64, False, g, dev, flush,
+                            lengths=AUDIO_SELF_LENGTHS, s=AUDIO_MAX_LEN))
+    return rows
+
+
+def audio_requests(cfg, dev):
+    """Run l's 16 requests: decoder prompts cycling 16/64/200 tokens (numpy
+    seed 0) and frames [16, enc_seq, d_feat] f32, standard normal from a
+    generator seeded 0 on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            size=AUDIO_PROMPTS[i % len(AUDIO_PROMPTS)])
+               .astype(np.int32) for i in range(N_REQUESTS)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((N_REQUESTS, cfg.enc_seq, cfg.d_feat), generator=g,
+                         device=dev)
+    return prompts, frames
+
+
+def audio_prefill(api, params, wave, frames, dev):
+    """A wave's ragged prefill: the prompts right-padded to the longest,
+    ``lengths`` each row's own. Returns (first-token logits, cache)."""
+    import numpy as np
+    import torch
+    toks = np.zeros((len(wave), max(len(p) for p in wave)), np.int32)
+    for i, p in enumerate(wave):
+        toks[i, :len(p)] = p
+    lengths = torch.tensor([len(p) for p in wave], dtype=torch.int32,
+                           device=dev)
+    with torch.inference_mode():
+        return api.prefill(params, {"frames": frames,
+                                    "tokens": torch.from_numpy(toks).to(dev)},
+                           api.init_cache(len(wave), AUDIO_MAX_LEN, dev),
+                           lengths=lengths)
+
+
+def audio_decode_chunk(api, params, state, cache):
+    """One chunk of ``DECODE_CHUNK`` greedy decode steps; ``state`` is
+    (last, stop mask, generated counts)."""
+    import torch
+    from repro_torch.serve.decode import decode_steps
+    last, stop, gen = state
+    with torch.inference_mode():
+        return decode_steps(api.decode, params, last, cache, None, stop, gen,
+                            torch.full_like(gen, MAX_NEW), n=DECODE_CHUNK,
+                            vocab_size=api.cfg.vocab_size,
+                            max_len=AUDIO_MAX_LEN)
+
+
+def serve_audio(api, params, prompts, frames, dev) -> tuple:
+    """Serve ``prompts`` on their ``frames`` in waves of ``N_SLOTS``: the
+    first token is the prefill's argmax, the rest come from decode chunks
+    until every row holds ``MAX_NEW`` tokens (the host reads each chunk's
+    tokens, as the engine does). Returns (tokens per request, prefill wall
+    s, decode steps)."""
+    import torch
+    out, prefill_s, steps = [], 0.0, 0
+    for w0 in range(0, len(prompts), N_SLOTS):
+        wave = prompts[w0:w0 + N_SLOTS]
+        b = len(wave)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = audio_prefill(api, params, wave,
+                                      frames[w0:w0 + b], dev)
+        last = torch.argmax(logits[:, :api.cfg.vocab_size], -1).to(
+            torch.int32)
+        torch.cuda.synchronize()
+        prefill_s += time.perf_counter() - t0
+        toks = [[t] for t in last.tolist()]
+        state = (last, torch.zeros(b, dtype=torch.bool, device=dev),
+                 torch.ones(b, dtype=torch.int32, device=dev))
+        while not bool(state[1].all()):
+            ch = audio_decode_chunk(api, params, state, cache)
+            got, valid = ch.tokens.cpu(), ch.valid.cpu()
+            for i in range(b):
+                toks[i] += got[valid[:, i], i].tolist()
+            state, steps = (ch.last, ch.stop_mask, ch.gen), \
+                steps + DECODE_CHUNK
+        out += toks
+    return out, prefill_s, steps
+
+
+def audio_launches(cfg, waves: int, steps: int) -> dict:
+    """The launches run l must make, exactly. A wave: the frontend and six
+    projections an encoder layer, ten a decoder layer (self q/k/v/o, cross
+    q, k, v, o, MLP up/down) on the tile kernel (f32 activations above
+    M16), one non-causal flash an encoder layer and two a decoder layer
+    (causal self, non-causal cross), all SIMT (f32). A decode step: eight
+    projections a decoder layer on ``.gemv`` (the cross K/V are cached)
+    and two decode attentions (self, cross)."""
+    tile = waves * (1 + 6 * cfg.n_enc_layers + 10 * cfg.n_layers)
+    gemv = steps * 8 * cfg.n_layers
+    return {"axllm_matmul": tile + gemv, "axllm_matmul.gemv": gemv,
+            "flash_attention": waves * (cfg.n_enc_layers + 2 * cfg.n_layers),
+            "decode_attention": steps * 2 * cfg.n_layers}
+
+
+def end_to_end_audio(dev, card):
+    """Run l: whisper-small at full width and full depth (12 + 12 layers,
+    bf16, int8 affine per channel, ``impl="auto"``) serving 16 requests
+    in two waves (``serve_audio``), with every launch count set to 0 just
+    before and read just after and held to ``audio_launches`` exactly;
+    every generated token held to the token gate, teacher-forced through
+    the plain path on its own frames; the first wave's logits against the
+    plain path's; an encoder pass, a prefill wave and 4 decode chunks
+    profiled."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.axllm_linear import deploy_quantize
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import encdec
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.token_gate import token_gate
+    cfg = get_config(AUDIO_ARCH)
+    tag = f"e2e audio [{card}]"
+    print(f"{tag}: {cfg.name} at full width and full depth ({cfg.n_enc_layers}"
+          f" encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, {cfg.norm}, {cfg.act}, "
+          f"vocab {cfg.vocab_size} padded {cfg.padded_vocab}, frames "
+          f"[{cfg.enc_seq}, {cfg.d_feat}], {cfg.dtype}; the encoder and "
+          f"prefill streams float32 as in the reference), max_len "
+          f"{AUDIO_MAX_LEN}; {cfg.n_params() / 1e9:.3f} G parameters",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raw = get_model(cfg).init(seed=0, device=dev)
+    init_peak = torch.cuda.max_memory_allocated()
+    params = deploy_quantize(raw, QuantConfig(bits=8))
+    deploy_peak = torch.cuda.max_memory_allocated()
+    del raw
+    api, plain_api = get_model(cfg), get_model(cfg, impl="ref")
+    prompts, frames = audio_requests(cfg, dev)
+    serve_audio(api, params, prompts[:2], frames[:2], dev)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, prefill_s, steps = serve_audio(api, params, prompts, frames, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for i, t in enumerate(tokens):
+        check(len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t),
+              f"audio: request {i} has {len(t)} tokens or one outside the "
+              "vocab")
+    want = audio_launches(cfg, -(-len(prompts) // N_SLOTS), steps)
+    print(f"{tag}: launches {launches}; expected {want}", flush=True)
+    check(launches == want, f"audio: launches {launches} are not the "
+          f"expected {want}")
+    generated = sum(len(t) for t in tokens)
+    print(f"{tag}: {generated} tokens in {wall:.3f} s = "
+          f"{generated / wall:.1f} tok/s; {steps} decode steps; prefill "
+          f"{prefill_s:.3f} s (2 waves); peak memory {peak / 2**30:.3f} GiB "
+          f"(init {init_peak / 2**30:.3f}, with a quantized copy "
+          f"{deploy_peak / 2**30:.3f})", flush=True)
+
+    gate = token_gate(cfg, params, prompts, tokens, impl="ref",
+                      tol_rel=LOGIT_TOL, device=dev, frames=frames)
+    print(f"{tag}: token gate: {gate.positions} generated positions checked "
+          f"against the plain path's teacher-forced logits on each "
+          f"request's frames; {gate.differ} where the token is not the "
+          f"plain path's argmax; smallest slack {gate.min_slack:.4e} "
+          f"(request {gate.worst[0]}, position {gate.worst[1]}); "
+          f"{len(gate.failures)} positions more than 2 x tol below the "
+          f"plain maximum", flush=True)
+    check(gate.ok, f"audio: token gate failed at (request, position, "
+                   f"slack) {gate.failures[:5]}")
+
+    wave, wframes = prompts[:N_SLOTS], frames[:N_SLOTS]
+    served = audio_prefill(api, params, wave, wframes, dev)[0].float()
+    plain = audio_prefill(plain_api, params, wave, wframes, dev)[0].float()
+    check(bool(torch.isfinite(served).all()), "audio: non-finite logits")
+    scale = float(plain.abs().max())
+    err = float((served - plain).abs().max())
+    agree = float((served[:, :cfg.vocab_size].argmax(-1)
+                   == plain[:, :cfg.vocab_size].argmax(-1)).float().mean())
+    print(f"{tag}: first-wave logits (float32) |kernel - plain| = "
+          f"{err:.4e}, scale {scale:.4f}, tolerance "
+          f"{F32_LOGIT_TOL * max(1.0, scale):.4e}; argmax agreement "
+          f"{agree:.3f}", flush=True)
+    check(err <= F32_LOGIT_TOL * max(1.0, scale),
+          f"audio: first-wave logits differ by {err}")
+
+    e_wall, e_busy, e_top = device_busy_ms(
+        lambda: encdec.encode(params, wframes, cfg))
+    p_wall, p_busy, p_top = device_busy_ms(
+        lambda: audio_prefill(api, params, wave, wframes, dev))
+    _, cache = audio_prefill(api, params, wave, wframes, dev)
+    state = (torch.zeros(N_SLOTS, dtype=torch.int32, device=dev),
+             torch.zeros(N_SLOTS, dtype=torch.bool, device=dev),
+             torch.ones(N_SLOTS, dtype=torch.int32, device=dev))
+    ch = audio_decode_chunk(api, params, state, cache)    # the first chunk
+    state = (ch.last, ch.stop_mask, ch.gen)
+
+    def four_chunks():
+        st = state
+        for _ in range(4):
+            c = audio_decode_chunk(api, params, st, cache)
+            st = (c.last, c.stop_mask, c.gen)
+            c.tokens.cpu()          # the host reads each chunk, as served
+
+    d_wall, d_busy, d_top = device_busy_ms(four_chunks)
+    profiles = {}
+    for what, (w, b, top) in (("encoder pass", (e_wall, e_busy, e_top)),
+                              ("prefill wave", (p_wall, p_busy, p_top)),
+                              ("4 decode chunks (32 steps)",
+                               (d_wall, d_busy, d_top))):
+        split = split_by_kind(top)
+        profiles[what] = dict(wall_ms=w, busy_ms=b, idle_share=1.0 - b / w,
+                              by_kind=split, top=top[:8])
+        print(f"{tag}: {what} ({len(wave)} rows): wall {w:.2f} ms, device "
+              f"busy {b:.2f} ms, idle share {1.0 - b / w:.3f}; by kind: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
+              flush=True)
+        for name, ms in top[:4]:
+            print(f"{tag}:   device {ms:8.3f} ms  {name[:90]}", flush=True)
+
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, tokens=generated, wall_s=wall,
+                tok_per_s=generated / wall, prefill_wall_s=prefill_s,
+                steps=steps, launches=launches, expected_launches=want,
+                peak_bytes=peak, init_peak_bytes=init_peak,
+                deploy_peak_bytes=deploy_peak, logit_err=err,
+                logit_scale=scale, first_wave_argmax_agree=agree,
+                gate=dict(positions=gate.positions, differ=gate.differ,
+                          min_slack=gate.min_slack,
+                          failures=len(gate.failures)),
+                profiles=profiles)
+
+
+# the launcher phase: ``python -m repro_torch.launch.serve`` on a
+# checkpoint of full-width repro-100m, with and without the reuse kernel
+# and paging (kernels 1 to 5 under the normal entry point)
+LAUNCH_ARGS = ("--arch", "repro-100m", "--slots", str(N_SLOTS), "--max-len",
+               str(MAX_LEN), "--requests", str(N_REQUESTS), "--max-new",
+               str(MAX_NEW), "--prompt-lens",
+               ",".join(map(str, PROMPT_LENS)), "--stats")
+LAUNCH_RUNS = {"default": (), "reuse+paged": ("--reuse", "--paged")}
+LAUNCH_KERNELS = {
+    "default": ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
+                "decode_attention", "flash_attention",
+                "flash_attention.wgmma"),
+    "reuse+paged": ("reuse_matmul", "reuse_matmul.wgmma", "reuse_matmul.gemv",
+                    "paged_decode_attention", "flash_attention",
+                    "flash_attention.wgmma"),
+}
+LAUNCH_STEP = 7     # the step the checkpoint is saved at
+
+
+def launcher_phase(dev, card):
+    """The launcher from a checkpoint: the port's full-width repro-100m
+    init from seed 1 and ``adamw.init`` saved by ``train/checkpoint.save``
+    under ``build/`` (seed 1, where the launcher's own init is seed 0, so a
+    restore that did nothing would show), then ``python -m
+    repro_torch.launch.serve --ckpt <dir> ...`` as a subprocess on the
+    card for each of ``LAUNCH_RUNS``. Each must exit 0, print ``restored
+    step 7``, and print the token lines and stats JSON (all stats but the
+    timing field) of ``repro_torch.launch.serve.main`` run in process on
+    the card with the same flags. The launch counts are that in-process
+    run's: the entry point itself, counted from 0 just before it."""
+    import contextlib
+    import io
+    import json as _json
+    import os
+    import shutil
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    ckpt = ROOT / "build" / "launcher_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    params = get_model(CONFIG).init(seed=1, device=dev)
+    t0 = time.perf_counter()
+    checkpoint.save(str(ckpt), LAUNCH_STEP,
+                    (params, adamw.init(params, adamw.AdamWConfig())))
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+    like = get_model(CONFIG).init(seed=0, device=dev)
+    (got, _), step = checkpoint.restore(
+        str(ckpt), (like, adamw.init(like, adamw.AdamWConfig())))
+    del like
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        checkpoint._flatten(got), checkpoint._flatten(params)))
+    print(f"launcher [{card}]: checkpoint of repro-100m (seed 1) and its "
+          f"AdamW state, {size / 2**20:.1f} MiB, saved in {save_s:.2f} s; "
+          f"restored in process at step {step}, every leaf bit-equal "
+          f"{same}", flush=True)
+    check(same and step == LAUNCH_STEP, "launcher: the in-process restore "
+          "differs from the saved tree")
+    del got, params
+
+    def split(stdout):
+        """(the lines before the stats JSON, the stats without timing)"""
+        start = stdout.find("\n{")     # the stats JSON ends the output
+        stats = _json.loads(stdout[start:])
+        stats.pop("prefill_wall_s")
+        return stdout[:start].splitlines(), stats
+
+    out = {}
+    for label, extra in LAUNCH_RUNS.items():
+        flags = ["--ckpt", str(ckpt), *LAUNCH_ARGS, *extra]
+        argv = [sys.executable, "-m", "repro_torch.launch.serve", *flags]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"launcher [{card}] {label}: `python -m "
+              f"repro_torch.launch.serve {' '.join(flags)}` exited "
+              f"{proc.returncode} in {wall:.1f} s", flush=True)
+        check(proc.returncode == 0, f"launcher {label}: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines, stats = split(proc.stdout)
+        for ln in lines:
+            print(f"launcher [{card}] {label}: | {ln}", flush=True)
+        check(f"restored step {LAUNCH_STEP} from {ckpt}" in lines,
+              f"launcher {label}: no restore line")
+        token_lines = [ln for ln in lines if ln.startswith("  -> ")]
+
+        buf = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(flags, device=dev)
+        torch.cuda.synchronize()
+        in_wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        in_lines, want = split(buf.getvalue())
+        want_lines = [ln for ln in in_lines if ln.startswith("  -> ")]
+        print(f"launcher [{card}] {label}: in process, `serve.main` in "
+              f"{in_wall:.1f} s: restore line "
+              f"{in_lines[0] if in_lines else None!r}; token lines equal "
+              f"{token_lines == want_lines}, stats equal {stats == want} "
+              f"(prefix-hit tokens {want['prefix_hit_tokens']}, admitted "
+              f"{want['admitted']}, finished {want['finished']}); launches "
+              f"{launches}", flush=True)
+        check(f"restored step {LAUNCH_STEP} from {ckpt}" in in_lines,
+              f"launcher {label}: no restore line in process")
+        check(len(token_lines) == 3 and token_lines == want_lines,
+              f"launcher {label}: token lines {token_lines} != the "
+              f"in-process run's {want_lines}")
+        check(stats == want, f"launcher {label}: stats {stats} != the "
+              f"in-process run's {want}")
+        for name in LAUNCH_KERNELS[label]:
+            check(launches.get(name, 0) > 0, f"launcher {label}: {name} "
+                  "never launched")
+        out[label] = dict(wall_s=wall, in_process_s=in_wall, stats=stats,
+                          launches=launches, token_lines=token_lines)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(out, checkpoint_mib=size / 2**20, save_s=save_s)
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -2944,7 +3401,9 @@ def main() -> int:
     rows += family_kernel_phase(dev, flush)
     rows += recurrent_kernel_phase(dev, flush)
     rows += zero_row_phase(dev, flush)
-    stamp("the families' kernel phases and the zero-row check")
+    rows += audio_kernel_phase(dev, flush)
+    stamp("the families' kernel phases, the zero-row check and run l's "
+          "kernel rows")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
@@ -2965,6 +3424,10 @@ def main() -> int:
     for family in FAMILY_RUNS:                  # runs h, i, j and k
         e2e[family] = end_to_end_family(dev, card, family)
         stamp(f"run {family}")
+    e2e["audio"] = end_to_end_audio(dev, card)   # run l
+    stamp("run audio")
+    e2e["launcher"] = launcher_phase(dev, card)
+    stamp("launcher phase")
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
@@ -2979,9 +3442,13 @@ def main() -> int:
             # the speculative runs f and g that serve it, and its launches
             launches_spec={r: e2e[r]["launches"][name] for r in SPEC_RUNS
                            if e2e[r]["launches"].get(name)},
-            # runs h (moe), i (vlm), j (ssm) and k (hybrid)
+            # runs h (moe), i (vlm), j (ssm), k (hybrid) and l (audio)
             launches_families={r: e2e[r]["launches"].get(name, 0)
-                               for r in FAMILY_RUNS}))
+                               for r in (*FAMILY_RUNS, "audio")},
+            # the launcher phase's in-process serve.main, one per mode
+            launches_launcher={r: v["launches"].get(name, 0)
+                               for r, v in e2e["launcher"].items()
+                               if r in LAUNCH_RUNS}))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the main row is the decode kernel; beside it the tile kernel
             # at the same shape (for axllm_matmul the path the row took

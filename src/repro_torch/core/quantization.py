@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -405,3 +406,15 @@ def derive_draft_params(params, *, bits: int = 4, mode: str = "affine",
         return node
 
     return walk("", params)
+
+
+def tree_reuse_surface(params) -> int:
+    """Total quantized weight elements (the surface AxLLM's Result Cache
+    acts on): the logical sizes of every QTensor in the tree."""
+    if isinstance(params, QTensor):
+        return math.prod(params.shape)
+    if isinstance(params, dict):
+        return sum(tree_reuse_surface(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tree_reuse_surface(v) for v in params)
+    return 0

@@ -6,8 +6,11 @@
 //
 // Replaces the TPU kernel flash_attention_pallas (src/repro/kernels/
 // flash_attention.py:81; body _flash_kernel :34). q [B,Sq,H,d] attends to
-// k/v [B,Sk,Hk,d] with Sq <= Sk; causal queries sit at the last Sq key
-// positions (query i sees keys 0..i+Sk-Sq). Query head h reads KV head
+// k/v [B,Sk,Hk,d]; causal queries sit at the last Sq key positions
+// (query i sees keys 0..i+Sk-Sq, so a causal call needs Sq <= Sk), and a
+// non-causal query sees every key whatever Sq is (whisper's
+// cross-attention: a decoder prompt longer than the frames has Sq > Sk;
+// the offset Sk-Sq enters only the causal mask). Query head h reads KV head
 // h / (H/Hk). Online softmax in f32; the Sq x Sk scores never reach device
 // memory. Ragged edges (Sq or Sk not a multiple of the tile) are masked
 // here, so no caller pads. Both kernels skip key tiles that lie wholly
@@ -30,7 +33,8 @@
 //     rescale of O per tile); P is rounded to bf16 in registers and is
 //     the A operand of O += P V, V the transposed (MN-major) B operand;
 //   * every row, the padding rows past Sq too, sees key 0 in its first
-//     key tile (Sq <= Sk, queries at the last Sq positions), so its max
+//     key tile (causal: Sq <= Sk, queries at the last Sq positions;
+//     non-causal: every key), so its max
 //     is finite from then on and a masked score (-1e30) weighs exactly 0;
 //   * the grid: one block per query tile of 64 rows (the smallest wgmma
 //     M) and head, the heaviest causal tiles first: 768 blocks at the
@@ -182,7 +186,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Sk, int H, int Hk, int D, int bf16,
                                       int causal, float sm_scale,
                                       void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || Hk <= 0 || H % Hk || B * H > 65535)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || (causal && Sk < Sq) || Hk <= 0 ||
+      H % Hk || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
@@ -439,7 +444,8 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             int Sq, int Sk, int H, int Hk,
                                             int D, int causal, float sm_scale,
                                             void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || Hk <= 0 || H % Hk || B * H > 65535 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || (causal && Sk < Sq) || Hk <= 0 ||
+      H % Hk || B * H > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -31,7 +31,7 @@ def tensor_core_path(q: torch.Tensor) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal: bool = True) -> None:
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q must be [B, Sq, H, d] and k/v [B, Sk, Hk, d], "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -40,7 +40,11 @@ def _check(q, k, v) -> None:
     if k.shape != (b, sk, hk, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if sq > sk or d not in HEAD_DIMS or h % hk or b * h > 65535:
+    # causal queries sit at the last Sq key positions, so a causal call
+    # needs Sq <= Sk; a non-causal one (whisper's cross-attention under a
+    # decoder prompt longer than the frames) has no offset and takes any Sq
+    if (causal and sq > sk) or d not in HEAD_DIMS or h % hk or \
+            b * h > 65535:
         raise ValueError(f"unsupported attention shape q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}: the kernels take Sq <= Sk, "
                          f"head dims {HEAD_DIMS}, H a multiple of Hk and "
@@ -63,7 +67,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    _check(q, k, v)
+    _check(q, k, v, causal)
     return launch(q, k, v, causal, tensor_core_path(q))
 
 

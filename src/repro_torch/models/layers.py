@@ -137,3 +137,16 @@ def head_fwd(p, x, cfg, impl: str = "auto"):
             w = dequantize(w, x.dtype)
         return torch.matmul(x, w.T.to(x.dtype))
     return linear(x, p["lm_head"], impl=impl)
+
+
+def cross_entropy(logits, targets, vocab_size: int):
+    """Mean cross-entropy over all positions in f32; the padded vocab
+    columns (ids >= ``vocab_size``) are masked out of the normalizer."""
+    lf = logits.to(torch.float32)
+    padded_v = lf.shape[-1]
+    if padded_v > vocab_size:
+        mask = torch.arange(padded_v, device=lf.device) >= vocab_size
+        lf = torch.where(mask, torch.full_like(lf, -1e30), lf)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return (logz - gold).mean()

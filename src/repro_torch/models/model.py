@@ -19,12 +19,15 @@ takes ``prefix=`` for suffix-only prefill against cached blocks.
 gate_up; apply after quantization), and ``supports_lora`` says that
 ``prefill`` and ``decode`` take the multi-LoRA kwargs ``adapters=``,
 ``adapter_idx=`` and ``lora_scaling=``. The port serves the transformer
-families (dense, moe, vlm) and the recurrent ones (ssm: xLSTM; hybrid:
-zamba2). A recurrent family's ``prefill`` refuses ``lengths`` and is fed
-equal-length batches (``ragged_prefill=False``); it has no paged cache
-and no LoRA hooks (``init_paged_cache`` None, ``supports_lora`` False),
-so the engine refuses those modes. The audio family comes with ROADMAP
-queue 1 item 10c.
+families (dense, moe, vlm), the recurrent ones (ssm: xLSTM; hybrid:
+zamba2) and the audio encoder-decoder (whisper). A recurrent family's
+``prefill`` refuses ``lengths`` and is fed equal-length batches
+(``ragged_prefill=False``); it has no paged cache and no LoRA hooks
+(``init_paged_cache`` None, ``supports_lora`` False), so the engine
+refuses those modes. The audio family's ``forward`` and ``prefill`` take
+``{"frames": [B, enc_seq, d_feat], "tokens": [B, S]}`` and its prefill
+takes ragged ``lengths``; it has no paged cache and no LoRA hooks either.
+:func:`make_batch` makes a random batch of any family.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer, xlstm
+from repro_torch.models import encdec, hybrid, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +84,25 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
             ragged_prefill=False,
             fuse_params=lambda p: mod.fuse_params(p, cfg),
         )
+    if cfg.family == "audio":
+        mod = encdec
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda seed=0, device="cuda": mod.init_params(cfg, seed,
+                                                               device),
+            forward=lambda p, b: mod.forward(p, b, cfg, impl=impl),
+            init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
+                cfg, batch, max_len, device),
+            prefill=lambda p, b, c, lengths=None, all_positions=False:
+            mod.prefill(p, b, cfg, c, impl=impl, lengths=lengths,
+                        all_positions=all_positions),
+            decode=lambda p, t, c: mod.decode_step(p, t, cfg, c, impl=impl),
+            cache_spec=mod.cache_spec(cfg),
+            ragged_prefill=True,
+            fuse_params=lambda p: mod.fuse_params(p, cfg),
+        )
     if cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 10c: the audio family); the port serves the dense, moe, "
-            "vlm, ssm and hybrid families")
+        raise ValueError(f"unknown family {cfg.family!r}")
     mod = transformer
     return ModelAPI(
         cfg=cfg,
@@ -111,3 +130,21 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
         fuse_params=lambda p: mod.fuse_params(p, cfg),
         supports_lora=True,
     )
+
+
+def make_batch(cfg: ModelConfig, rng, batch: int, seq: int, device="cuda"):
+    """A random batch: ``tokens`` [B, S] int32 over the vocab, ``targets``
+    (the tokens shifted left by one, wrapping) and, for an
+    encoder-decoder config, ``frames`` [B, enc_seq, d_feat] float32 from a
+    standard normal. ``rng`` is a seed or a ``torch.Generator`` on
+    ``device``."""
+    gen = rng if isinstance(rng, torch.Generator) else \
+        torch.Generator(device=device).manual_seed(int(rng))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=device, dtype=torch.int32)
+    out = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_feat),
+                                    generator=gen, device=device,
+                                    dtype=torch.float32)
+    return out

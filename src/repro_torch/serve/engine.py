@@ -217,6 +217,17 @@ class Request:
     _admitted: bool = False           # counted in stats.admitted (vs restore)
 
 
+def refuse_unservable(cfg) -> None:
+    """Raise the JAX engine's error for a config it does not serve: an
+    encoder-decoder model (the engine prefills tokens only; there is no
+    frames ingress). The engine checks this before anything else, and
+    the launcher before it makes any weights."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "ServeEngine drives token-only prefill; encoder-decoder "
+            "serving needs a frames ingress (future PR)")
+
+
 @dataclasses.dataclass
 class EngineStats:
     admitted: int = 0
@@ -373,6 +384,7 @@ class ServeEngine:
                  speculate: bool = False, spec_k: int = 4,
                  draft_bits: int = 4, draft_mode: str = "affine",
                  prefill_budget: Optional[int] = None, device="cuda"):
+        refuse_unservable(cfg)
         if prefill_budget is not None:
             if not paged:
                 raise ValueError(

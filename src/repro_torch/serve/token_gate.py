@@ -172,12 +172,25 @@ class Routes:
         return self._route_by(fn)
 
 
+def _batch(toks, frames, device) -> dict:
+    """A prefill batch: the tokens, and an encoder-decoder model's frames
+    (one [enc_seq, d_feat] array or tensor a request) stacked."""
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = torch.stack([torch.as_tensor(f) for f in frames]
+                                      ).to(device=device,
+                                           dtype=torch.float32)
+    return batch
+
+
 def teacher_forced_logits(cfg, params, prompts, generated, *, impl: str,
-                          device, registry=None, names=None) -> list:
+                          device, registry=None, names=None,
+                          frames=None) -> list:
     """Per request, [len(generated[i]), vocab] f32 logits of ``impl``'s
     prefill of ``prompts[i]`` followed by ``generated[i]``: row p is the
     distribution ``generated[i][p]`` was drawn from. Request i takes the
-    ``registry`` adapter ``names[i]`` (None: base). Every request's
+    ``registry`` adapter ``names[i]`` (None: base) and, for an
+    encoder-decoder model, its own ``frames[i]``. Every request's
     sequence (its prompt and all its tokens but the last) must have one
     length: the requests run as one prefill with no padding, which
     computes what each alone would."""
@@ -197,7 +210,7 @@ def teacher_forced_logits(cfg, params, prompts, generated, *, impl: str,
                     adapter_idx=torch.tensor(rows, dtype=torch.int32,
                                              device=device))
     with torch.inference_mode():
-        logits = api.prefill(params, {"tokens": toks},
+        logits = api.prefill(params, _batch(toks, frames, device),
                              api.init_cache(len(seqs), toks.shape[1], device),
                              all_positions=True, **lora)[0]
     return [logits[i, len(p) - 1:len(p) - 1 + len(g),
@@ -207,13 +220,15 @@ def teacher_forced_logits(cfg, params, prompts, generated, *, impl: str,
 
 def replayed_logits(cfg, params, prompts, generated, prefill_len: int, *,
                     impl: str, device, registry=None, names=None,
-                    routes: Optional[Routes] = None, rids=None) -> list:
+                    routes: Optional[Routes] = None, rids=None,
+                    frames=None) -> list:
     """Per request, [len(generated[i]), vocab] f32 logits of ``impl``
     replaying the serving schedule: the prompts in one prefill wave
     right-padded to ``prefill_len`` (the first token's logits), then one
     decode step a generated token, teacher-forced with the served
     tokens. With ``routes`` (inside its :meth:`Routes.force` block) the
-    moe layers take the choices recorded for request ``rids[i]``."""
+    moe layers take the choices recorded for request ``rids[i]``;
+    ``frames`` as in :func:`teacher_forced_logits`."""
     b = len(prompts)
     steps = max(len(g) for g in generated)
     toks = np.zeros((b, prefill_len), np.int64)
@@ -237,8 +252,8 @@ def replayed_logits(cfg, params, prompts, generated, prefill_len: int, *,
             routes.at(rids, np.where(ar[None, :] < np.array(
                 [len(p) for p in prompts])[:, None], ar[None, :], -1))
         logits, cache = api.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(device)}, cache,
-            lengths=lengths, **lora)
+            params, _batch(torch.from_numpy(toks).to(device), frames,
+                           device), cache, lengths=lengths, **lora)
         out = [logits[:, :cfg.vocab_size].float()]
         for t in range(1, steps):
             fed = torch.tensor([g[t - 1] if t - 1 < len(g) else 0
@@ -255,7 +270,8 @@ def replayed_logits(cfg, params, prompts, generated, prefill_len: int, *,
 def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
                device, registry=None, names=None,
                prefill_lens: Optional[Sequence[int]] = None,
-               routes: Optional[Routes] = None) -> GateResult:
+               routes: Optional[Routes] = None,
+               frames=None) -> GateResult:
     """Hold ``generated[i]`` (the tokens a path served for ``prompts[i]``,
     with adapter ``names[i]``) against ``impl``'s teacher-forced logits:
     at every position the token's reference logit must lie within
@@ -267,7 +283,11 @@ def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
     instead (:func:`replayed_logits`, requests of one length a batch); with
     ``routes`` as well (recorded from the served path, request i under
     key i) it takes the served expert choices and keeps the routing
-    gate's account in ``routes``."""
+    gate's account in ``routes``. ``frames`` (one [enc_seq, d_feat] a
+    request) teacher-forces an encoder-decoder model on each request's
+    own frames."""
+    pick = (lambda part: None) if frames is None else \
+        (lambda part: [frames[i] for i in part])
     names = names or [None] * len(prompts)
     if routes is not None and prefill_lens is None:
         raise ValueError("routes= needs prefill_lens=: the routing of a "
@@ -285,7 +305,7 @@ def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
                     [generated[i] for i in part], pl, impl=impl,
                     device=device, registry=registry,
                     names=[names[i] for i in part], routes=routes,
-                    rids=part)))
+                    rids=part, frames=pick(part))))
     by_len = {}
     for i, (prompt, toks) in enumerate(zip(prompts, generated)):
         if len(toks) and i not in refs:
@@ -296,7 +316,8 @@ def token_gate(cfg, params, prompts, generated, *, impl: str, tol_rel: float,
             refs.update(zip(part, teacher_forced_logits(
                 cfg, params, [prompts[i] for i in part],
                 [generated[i] for i in part], impl=impl, device=device,
-                registry=registry, names=[names[i] for i in part])))
+                registry=registry, names=[names[i] for i in part],
+                frames=pick(part))))
     positions = differ = 0
     min_slack, worst, failures = float("inf"), None, []
     for i, (prompt, toks) in enumerate(zip(prompts, generated)):

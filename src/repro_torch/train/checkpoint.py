@@ -1,0 +1,248 @@
+"""Checkpoints in the JAX package's on-disk layout (PyTorch port of
+``repro.train.checkpoint``).
+
+Layout: ``<dir>/step_<N>/`` holding one ``.npy`` per tree leaf (path
+names joined by ``__``; a QTensor's arrays under ``@qt_codes``,
+``@qt_scale`` and, when it carries one, ``@qt_codebook``; a Q8
+moment's under ``@q8_codes`` and ``@q8_scale``) and ``manifest.json``
+(step, extra, each leaf's shape and dtype). Writes are atomic (a tmp dir,
+then a rename); a ``latest`` marker advances last; all but ``keep`` steps
+are removed. The files are byte for byte those the JAX package writes for
+the same values, so a checkpoint that either package writes, the other
+restores.
+
+bfloat16 leaves: numpy has no bfloat16 of its own. The JAX package saves
+them as ml_dtypes arrays, whose ``.npy`` header says ``<V2`` (raw two-byte
+voids); ``np.load`` gives them back as voids, and ``restore`` reinterprets
+their bits against the dtype the manifest recorded at save time. Here a
+bfloat16 tensor is written as its 16-bit patterns under that same header,
+and read back by viewing the bits as ``torch.bfloat16``: no value passes
+through float32.
+
+A QTensor's table is a function of its mode and bits in both packages
+(``resolve_codebook``), and ``quantize`` stores none, so its
+``@qt_codebook`` is written only when a QTensor carries one explicitly.
+``restore`` has no mesh to reshard onto: it takes a ``device``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantization import QTensor
+from repro_torch.optim.adamw import Q8
+
+_SEP = "__"
+_BF16_DESCR = "<V2"     # the header numpy writes for an ml_dtypes bfloat16
+
+
+def _flatten(tree):
+    """(path, leaf) pairs; QTensor and Q8 are decomposed into their
+    arrays."""
+    out = []
+
+    def visit(path, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(path + [str(k)], node[k])
+        elif isinstance(node, (list, tuple)) and not hasattr(node, "shape"):
+            for i, v in enumerate(node):
+                visit(path + [str(i)], v)
+        elif isinstance(node, QTensor):
+            visit(path + ["@qt_codes"], node.codes)
+            visit(path + ["@qt_scale"], node.scale)
+            if node.codebook is not None:
+                visit(path + ["@qt_codebook"], node.codebook)
+        elif isinstance(node, Q8):
+            visit(path + ["@q8_codes"], node.codes)
+            visit(path + ["@q8_scale"], node.scale)
+        else:
+            out.append((_SEP.join(path), node))
+
+    visit([], tree)
+    return out
+
+
+def _host(leaf):
+    """A leaf on the host: (numpy array to write, dtype name, header
+    descr or None for numpy's own)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16", _BF16_DESCR
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype), None
+
+
+def _write_npy(path: str, arr: np.ndarray, descr: Optional[str]) -> None:
+    if descr is None:
+        np.save(path, arr)
+        return
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": descr, "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes())
+
+
+def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
+         keep: int = 3) -> str:
+    """Synchronous atomic save. Returns the final step directory."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "extra": extra or {}, "leaves": {}}
+    for name, leaf in _flatten(tree):
+        arr, dtype, descr = _host(leaf)
+        _write_npy(os.path.join(tmp, name + ".npy"), arr, descr)
+        manifest["leaves"][name] = {"shape": list(arr.shape), "dtype": dtype}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    with open(os.path.join(ckpt_dir, "latest.tmp"), "w") as f:
+        f.write(os.path.basename(final))
+    os.replace(os.path.join(ckpt_dir, "latest.tmp"),
+               os.path.join(ckpt_dir, "latest"))
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _snapshot(tree):
+    """The tree with every tensor copied to the host (QTensor and Q8
+    kept as such)."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_snapshot(v) for v in tree)
+    if isinstance(tree, QTensor):
+        return tree.to("cpu")
+    if isinstance(tree, Q8):
+        return Q8(tree.codes.detach().cpu().clone(),
+                  tree.scale.detach().cpu().clone(), tree.shape, tree.pad)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+class AsyncSaver:
+    """Snapshot to the host synchronously, write on a background thread
+    (one write in flight)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, ckpt_dir: str, step: int, tree, extra=None, keep: int = 3):
+        snapshot = _snapshot(tree)
+        self.wait()
+        self._thread = threading.Thread(
+            target=save, args=(ckpt_dir, step, snapshot, extra, keep),
+            daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    marker = os.path.join(ckpt_dir, "latest")
+    if not os.path.exists(marker):
+        return None
+    with open(marker) as f:
+        name = f.read().strip()
+    if not os.path.isdir(os.path.join(ckpt_dir, name)):
+        return None
+    return int(name.split("_")[1])
+
+
+def _tensor(arr: np.ndarray, saved: Optional[str], device) -> torch.Tensor:
+    """A loaded array as a tensor on ``device``; raw voids reinterpreted
+    against the save-time dtype ``saved``."""
+    if arr.dtype.kind == "V":
+        if saved != "bfloat16" or arr.dtype.itemsize != 2:
+            raise TypeError(f"cannot read a {arr.dtype} leaf saved as "
+                            f"{saved!r}: the port reads bfloat16 voids only")
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _device_of(leaf, device):
+    if device is not None:
+        return device
+    return leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+
+
+def restore(ckpt_dir: str, like, step: Optional[int] = None,
+            shardings: Optional[Any] = None, device=None):
+    """Restore into the structure of ``like``. Each leaf comes back in the
+    dtype it was saved in, on ``device`` (default: the device of
+    ``like``'s leaf). ``shardings`` reshards onto a mesh in the JAX
+    package; one card has none. Returns (tree, step)."""
+    if shardings is not None:
+        raise NotImplementedError("restore(shardings=) reshards onto a "
+                                  "mesh, which is not ported yet (ROADMAP "
+                                  "queue 1 item 12); pass device=")
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        saved_dtypes = {k: v["dtype"]
+                        for k, v in json.load(f)["leaves"].items()}
+    loaded = {
+        name: _tensor(np.load(os.path.join(d, name + ".npy")),
+                      saved_dtypes.get(name), _device_of(node, device))
+        for name, node in _flatten(like)}
+    return _unflatten_like(like, loaded), step
+
+
+def _unflatten_like(like, loaded: dict):
+    def visit(path, node):
+        if isinstance(node, dict):
+            return {k: visit(path + [str(k)], v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and not hasattr(node, "shape"):
+            vals = [visit(path + [str(i)], v) for i, v in enumerate(node)]
+            return type(node)(vals)
+        if isinstance(node, QTensor):
+            cb = None
+            if node.codebook is not None:
+                cb = loaded[_SEP.join(path + ["@qt_codebook"])]
+            return QTensor(
+                codes=loaded[_SEP.join(path + ["@qt_codes"])],
+                scale=loaded[_SEP.join(path + ["@qt_scale"])],
+                codebook=cb, bits=node.bits, mode=node.mode,
+                granularity=node.granularity, group_size=node.group_size,
+                packed=node.packed, shape=node.shape)
+        if isinstance(node, Q8):
+            return Q8(loaded[_SEP.join(path + ["@q8_codes"])],
+                      loaded[_SEP.join(path + ["@q8_scale"])], node.shape,
+                      node.pad)
+        return loaded[_SEP.join(path)]
+
+    return visit([], like)
+
+
+def _gc(ckpt_dir: str, keep: int):
+    steps = sorted(
+        d for d in os.listdir(ckpt_dir)
+        if d.startswith("step_") and not d.endswith(".tmp")
+        and os.path.isdir(os.path.join(ckpt_dir, d)))
+    for d in steps[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)

@@ -869,3 +869,140 @@ def test_moe_engine_kernel_path_matches_plain_path(card):
                  "flash_attention"):
         assert launches.get(name, 0) > 0, name
     assert plain == {}
+
+
+@pytest.mark.parametrize("dtype,path", [
+    (torch.float32, "simt"), (torch.bfloat16, "simt"),
+    (torch.bfloat16, "wgmma")], ids=["f32-simt", "bf16-simt", "bf16-wgmma"])
+@pytest.mark.parametrize("b,sq,sk", [(2, 200, 70), (3, 12, 9), (1, 300, 64)])
+def test_flash_attention_non_causal_sq_above_sk(card, b, sq, sk, dtype,
+                                                path):
+    """Whisper's cross-attention under a decoder prompt longer than the
+    frames: non-causal with Sq > Sk on both kernels (every query sees
+    every key; no causal offset), against the plain version (and the
+    tensor-core kernel against its emulation). A causal call at Sq > Sk
+    still raises."""
+    h, hk = 12, 12 if sk == 9 else 4
+    g = torch.Generator(device=card).manual_seed(sq + sk)
+    q = torch.randn(b, sq, h, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(b, sk, hk, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(b, sk, hk, 64, generator=g, device=card).to(dtype)
+    out = flash_attention_launch(q, k, v, False, path == "wgmma")
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref.attention_ref(q, k, v, False)) < _tol(dtype)
+    if path == "wgmma":
+        emu = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                         False)
+        assert _rel_err(out, emu) < 2.0 ** -8
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention_cuda(q, k, v, True)
+
+
+@pytest.mark.parametrize("sq", [1500, 200], ids=["encoder", "cross"])
+def test_flash_attention_whisper_f32_shapes(card, sq):
+    """Whisper-small's f32 flash calls on the SIMT kernel, non-causal,
+    H12 d64 over 1500 frames: the encoder's self-attention (Sq = Sk =
+    1500, not a multiple of the tile) and a prefill's cross-attention (Sq
+    200), held to 1e-5 of the scale against the plain version."""
+    g = torch.Generator(device=card).manual_seed(sq)
+    q = torch.randn(2, sq, 12, 64, generator=g, device=card)
+    k = torch.randn(2, 1500, 12, 64, generator=g, device=card)
+    v = torch.randn(2, 1500, 12, 64, generator=g, device=card)
+    assert not flash_attention_tensor_core_path(q)
+    before = dict(_build.LAUNCHES)
+    out = flash_attention_cuda(q, k, v, False)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == \
+        before.get("flash_attention", 0) + 1
+    assert _build.LAUNCHES.get("flash_attention.wgmma", 0) == \
+        before.get("flash_attention.wgmma", 0)
+    assert _rel_err(out, ref.attention_ref(q, k, v, False)) < 1e-5
+
+
+def test_decode_attention_whisper_cross_cache(card):
+    """Whisper's cross-attention at decode: bf16, H12 Hk12 d64 over a dense
+    cache of S = 1500 frames at full length on every row; against the
+    split emulation and the plain version."""
+    b, s, h, hk, d = 8, 1500, 12, 12, 64
+    q, kc, vc, _, _ = _decode_split_case(card, False, torch.bfloat16, b, s,
+                                         h, hk, d, 15)
+    length = torch.full((b,), s, dtype=torch.int32, device=card)
+    n_split, split_len = decode_split_plan(s, plan_rows(b, h, hk),
+                                           _build.sm_count(card))
+    out = decode_attention_cuda(q, kc, vc, length)
+    torch.cuda.synchronize()
+    emu = ref.decode_attention_split_ref(q, kc, vc, length, None, None,
+                                         n_split, split_len)
+    assert _rel_err(out, emu) < _emu_tol(torch.bfloat16)
+    assert _rel_err(out, ref.decode_attention_ref(q, kc, vc, length)) < \
+        _tol(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,dtype", [(12000, torch.float32),
+                                     (37, torch.float32),
+                                     (8, torch.float32), (8, torch.bfloat16)])
+def test_axllm_matmul_whisper_frontend_k80(card, m, dtype):
+    """Whisper's frontend projection: K = 80 frame features (not a
+    multiple of any K tile) to N768, int8 per channel. f32 activations at
+    a wave's M = 8 x 1500 take the tile kernel; M <= 16 the split-K decode
+    kernel; held against the plain version."""
+    g = torch.Generator(device=card).manual_seed(m)
+    x = torch.randn(m, 80, generator=g, device=card).to(dtype)
+    qt = quantize(torch.randn(80, 768, generator=g, device=card) * 0.1,
+                  QuantConfig(8))
+    path = axllm_kernel.matmul_path(m, dtype, qt)
+    assert path == ("gemv" if m <= 16 else "tile")
+    before = dict(_build.LAUNCHES)
+    y = axllm_matmul_cuda(x, qt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["axllm_matmul"] == \
+        before.get("axllm_matmul", 0) + 1
+    assert _rel_err(y, ref.axllm_matmul_ref(x, qt)) < 1e-5
+
+
+def test_audio_model_kernel_path_matches_plain_path(card):
+    """The reduced whisper-small (bf16, int8 weights): a ragged prefill
+    whose longest decoder prompt (80 tokens) is longer than its 64 frames
+    (cross-attention at Sq > Sk on the kernel) and 6 decode steps through
+    the kernels, against the plain path's logits within 5e-2 of the
+    scale; the greedy tokens pass the token gate on their own frames."""
+    from repro_torch.core.axllm_linear import deploy_quantize
+    from repro_torch.serve.decode import decode_steps
+    cfg = get_config("whisper-small").reduced(remat=False)
+    assert cfg.dtype == "bfloat16"
+    params = deploy_quantize(get_model(cfg).init(seed=0, device=card),
+                             QuantConfig(8))
+    g = torch.Generator(device=card).manual_seed(4)
+    b, lens = 3, [80, 16, 40]
+    frames = torch.randn(b, cfg.enc_seq, cfg.d_feat, generator=g,
+                         device=card)
+    toks = torch.randint(0, cfg.vocab_size, (b, max(lens)), generator=g,
+                         device=card, dtype=torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    out = {}
+    for impl in ("auto", "ref"):
+        api = get_model(cfg, impl=impl)
+        _build.reset_launches()
+        logits, cache = api.prefill(params, {"frames": frames,
+                                             "tokens": toks},
+                                    api.init_cache(b, 128, card),
+                                    lengths=lengths)
+        first = torch.argmax(logits[:, :cfg.vocab_size], -1).to(torch.int32)
+        chunk = decode_steps(api.decode, params, first, cache, None,
+                             torch.zeros(b, dtype=torch.bool, device=card),
+                             torch.ones(b, dtype=torch.int32, device=card),
+                             torch.full((b,), 7, dtype=torch.int32,
+                                        device=card), n=6,
+                             vocab_size=cfg.vocab_size, max_len=128)
+        out[impl] = (logits, first, chunk.tokens, dict(_build.LAUNCHES))
+    logits, first, steps, launches = out["auto"]
+    assert _rel_err(logits, out["ref"][0]) < 5e-2
+    for name in ("axllm_matmul", "axllm_matmul.gemv", "flash_attention",
+                 "decode_attention"):
+        assert launches.get(name, 0) > 0, name
+    assert out["ref"][3] == {}
+    prompts = [toks[i, :n].cpu().numpy() for i, n in enumerate(lens)]
+    generated = [[int(first[i])] + steps[:, i].tolist() for i in range(b)]
+    gate = token_gate(cfg, params, prompts, generated, impl="ref",
+                      tol_rel=5e-2, device=card, frames=list(frames))
+    assert gate.ok, gate.failures[:5]

@@ -5,9 +5,8 @@ the JAX engine, on the CPU.
 
 - Every registered config's fields, ``n_params()`` and
   ``n_active_params()`` equal the JAX config's (the recurrent configs
-  xlstm-1.3b and zamba2-1.2b among them); the audio config is not
-  registered yet; ``get_model`` serves dense, moe, vlm, ssm and hybrid
-  and refuses audio.
+  xlstm-1.3b, zamba2-1.2b and the audio whisper-small among them);
+  ``get_model`` serves dense, moe, vlm, ssm, hybrid and audio.
 - Logits of ``forward``, a ragged ``prefill`` and 8 teacher-forced
   ``decode_step``s on the ``reduced()`` qwen2-moe, arctic and chameleon
   configs (f32), with f32 and int8 weights carried across from JAX:
@@ -40,15 +39,17 @@ TRANSFORMERS = ("repro-100m", "qwen2-moe-a2.7b", "arctic-480b",
                 "chameleon-34b", "glm4-9b", "granite-3-8b", "internlm2-20b",
                 "qwen2-72b")
 RECURRENT = ("xlstm-1.3b", "zamba2-1.2b")
+AUDIO = ("whisper-small",)
 
 
 def test_registry_holds_the_transformer_configs():
-    assert sorted(REGISTRY) == sorted(TRANSFORMERS + RECURRENT)
+    assert sorted(REGISTRY) == sorted(TRANSFORMERS + RECURRENT + AUDIO)
+    assert sorted(REGISTRY) == sorted(J_REGISTRY)
     with pytest.raises(KeyError, match="known"):
-        get_config("whisper-small")
+        get_config("whisper-medium")
 
 
-@pytest.mark.parametrize("name", TRANSFORMERS + RECURRENT)
+@pytest.mark.parametrize("name", TRANSFORMERS + RECURRENT + AUDIO)
 def test_config_equals_jax(name):
     t, j = get_config(name), J_REGISTRY[name]
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -69,13 +70,10 @@ def test_get_model_serves_the_transformer_families(family):
     base = {"ssm": "xlstm-1.3b", "hybrid": "zamba2-1.2b"}.get(
         family, "qwen2-moe-a2.7b")
     cfg = dataclasses.replace(get_config(base).reduced(), family=family)
-    if family == "audio":
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            get_model(cfg)
-        return
     api = get_model(cfg)
     assert api.cfg.family == family
-    assert api.ragged_prefill == (family in ATTENTION_FAMILIES)
+    assert api.ragged_prefill == (family in ATTENTION_FAMILIES
+                                  or family == "audio")
     assert api.supports_lora == (family in ATTENTION_FAMILIES)
     assert (api.init_paged_cache is None) == \
         (family not in ATTENTION_FAMILIES)

@@ -152,6 +152,8 @@ def test_init_params_layout_and_seed():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(T_CONFIG, family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every family of the JAX package is ported; one it does not have
+    # raises as the JAX package's get_model does
+    cfg = dataclasses.replace(T_CONFIG, family="conv")
+    with pytest.raises(ValueError, match="unknown family"):
         t_get_model(cfg)

@@ -117,3 +117,29 @@ def test_kernel_scale_made_once_and_sliced_per_layer(gran, mode):
             bits=8, mode=mode, granularity=gran, group_size=16))
         np.testing.assert_array_equal(layer.kernel_scale.numpy(),
                                       np.asarray(jops._kernel_scale(qj)))
+
+
+@pytest.mark.parametrize("bits,mode", [(8, "affine"), (4, "codebook")])
+def test_tree_reuse_surface_matches_jax(bits, mode):
+    """``tests/test_quantization.py``'s predicate tree (a stacked layer,
+    a router, a conv, norms and an embedding that stay dense): both
+    packages quantize the same leaves and count the same surface."""
+    tree = {"layers": {"ln1": {"scale": np.ones((4,), np.float32)},
+                       "attn": {"wq": np.ones((4, 4), np.float32),
+                                "wq_bias": np.zeros((4,), np.float32)},
+                       "ffn": {"gate": np.ones((2, 4, 8), np.float32),
+                               "conv_w": np.ones((4, 4), np.float32)},
+                       "router": np.ones((4, 2), np.float32)},
+            "embed": {"embedding": np.ones((10, 4), np.float32)}}
+
+    def walk(fn, t):
+        return {k: walk(fn, v) for k, v in t.items()} if isinstance(t, dict) \
+            else fn(t)
+
+    cfg = dict(bits=bits, mode=mode)
+    jq = JQ.quantize_tree(walk(jnp.asarray, tree), JQ.QuantConfig(**cfg))
+    tq = TQ.quantize_tree(walk(torch.from_numpy, tree), TQ.QuantConfig(**cfg))
+    assert TQ.tree_reuse_surface(tq) == JQ.tree_reuse_surface(jq) \
+        == 4 * 4 + 2 * 4 * 8
+    assert TQ.tree_reuse_surface(walk(torch.from_numpy, tree)) == 0
+    assert TQ.tree_reuse_surface((tq, [tq])) == 2 * (4 * 4 + 2 * 4 * 8)
