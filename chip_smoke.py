@@ -6,8 +6,8 @@ NVIDIA GPU.
 
 1. Fails (exit 1, no result) unless ``torch.cuda.is_available()``.
 2. Prints the card's name and power limit, then builds every CUDA kernel
-   of the serving paths from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel), prints the build time and the number of HGMMA
+   of the serving and training paths from ``src/repro_torch/csrc`` (one nvcc
+   per source, in parallel), prints the build time and the number of HGMMA
    (wgmma) instructions in each quantized-matmul library and in the flash
    attention library, and fails if there are none.
 3. Kernel phase: each kernel against its plain PyTorch version on the
@@ -204,9 +204,33 @@ NVIDIA GPU.
    ``repro_torch.launch.serve.main`` run in process on the card with the
    same flags, whose launches (counted from 0 just before it) must
    include every kernel of its mode.
-11. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
-   g, in runs h to l and in the launcher phase's in-process
-   ``serve.main`` runs, beside its main run's), then the result line.
+11. Training. The flash backward kernel (``csrc/flash_attention_bwd.cu``,
+   no TPU counterpart) against its plain version
+   ``ref.flash_attention_bwd_ref`` (dQ, dK, dV) at run m's layer (B8 S256
+   H12 Hk4 d64 causal, bf16 and f32), at B8 S512 d128 with H16/Hk16,
+   H64/Hk8 and H32/Hk2, at f32 H4/Hk2 d16, at whisper's non-causal Sq200
+   over Sk1500 and Sk64 and at ragged causal 200 and 511; each with its
+   error, tolerance, time, bound, the plain version's time and SDPA's
+   backward (``enable_gqa``), and a second launch bit-equal. Run m:
+   step 1's gradients through the kernels against the plain path on the
+   card (bf16 at full depth, f32 on a 2-layer cut), then
+   ``repro_torch.launch.train.main`` in process (``--arch repro-100m
+   --batch 8 --seq 256 --steps 40 --lr 1e-3 --save-every 10 --ckpt
+   <dir>``: full width and depth, bf16, remat), launches counted from 0:
+   flash forward exactly 40 x 12 x 2 (remat), all on ``.wgmma``, the
+   backward 40 x 12, the mean loss of the last 5 steps 0.5 nat below step
+   1's; a second run with a failure injected at step 25 restores step 20
+   and ends bit-equal to the first (every parameter and moment). It
+   prints tokens a second, the median step, peak memory and 4 profiled
+   steps split into flash forward, flash backward, matmuls, optimizer and
+   the rest. Then ``python -m repro_torch.launch.train`` with the same
+   flags as a subprocess must print the JAX launcher's lines, and
+   ``python -m repro_torch.launch.serve --ckpt <its dir> --reuse --paged``
+   must restore its step 40.
+12. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
+   g, in runs h to l, in the launcher phase's in-process ``serve.main``
+   runs and in run m, beside its main run's; the backward kernel's row
+   from run m), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -215,6 +239,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -288,22 +313,18 @@ def time_ms(fn, flush, iters: int = 20) -> float:
 MIXER_LABEL = "recurrent_mixer"
 
 
-def annotated_mixers():
-    """Within the block every recurrent mixer call (Mamba2, mLSTM, sLSTM,
-    forward and step) runs inside ``record_function(MIXER_LABEL)``, so a
-    profile can tell the mixers' own kernels apart."""
+def annotated(label, names):
+    """Within the block every call of the functions ``names`` ((module,
+    attribute) pairs) runs inside ``record_function(label)``, so a profile
+    can tell the kernels they launch apart."""
     import contextlib
     from torch.profiler import record_function
-    from repro_torch.models import ssm as S
-    from repro_torch.models import xlstm as X
-    names = ((S, "mamba2_fwd"), (S, "mamba2_step"), (X, "mlstm_fwd"),
-             (X, "mlstm_step"), (X, "slstm_fwd"))
 
     def wrap(fn):
-        def annotated(*args, **kw):
-            with record_function(MIXER_LABEL):
+        def wrapped(*args, **kw):
+            with record_function(label):
                 return fn(*args, **kw)
-        return annotated
+        return wrapped
 
     @contextlib.contextmanager
     def block():
@@ -318,23 +339,39 @@ def annotated_mixers():
     return block()
 
 
-def device_busy_ms(fn, mixers: bool = False) -> tuple:
+def annotated_mixers():
+    """Every recurrent mixer call (Mamba2, mLSTM, sLSTM, forward and step)
+    inside ``record_function(MIXER_LABEL)``."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import xlstm as X
+    return annotated(MIXER_LABEL, (
+        (S, "mamba2_fwd"), (S, "mamba2_step"), (X, "mlstm_fwd"),
+        (X, "mlstm_step"), (X, "slstm_fwd")))
+
+
+def device_busy_ms(fn, mixers: bool = False, annotation=None) -> tuple:
     """(wall ms, device-busy ms, device ms of every kernel by name, the
     largest first) of ``fn`` under torch.profiler: the busy time is the
     sum of the card's kernel, memcpy and memset durations (one stream, so
     they do not overlap). With ``mixers`` a fourth item: the device ms by
     kernel name of the kernels launched inside a recurrent mixer
     (``annotated_mixers``), found by the host time range of the op that
-    launched each."""
+    launched each; with ``annotation`` ((label, names), as ``annotated``
+    takes them) the same for the calls it names."""
     import bisect
     import contextlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    label = MIXER_LABEL
+    block = contextlib.nullcontext()
+    if mixers:
+        block = annotated_mixers()
+    elif annotation is not None:
+        label, block = annotation[0], annotated(*annotation)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
-            (annotated_mixers() if mixers else contextlib.nullcontext()):
+                             ProfilerActivity.CUDA]) as prof, block:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -347,11 +384,12 @@ def device_busy_ms(fn, mixers: bool = False) -> tuple:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    if not mixers:
+    if not mixers and annotation is None:
         return wall, sum(by_name.values()), top
-    # the mixer ranges do not nest, so sorted starts and ends bracket them
+    # the labelled ranges do not nest, so sorted starts and ends bracket
+    # them
     ranges = sorted((e.time_range.start, e.time_range.end)
-                    for e in prof.events() if e.name == MIXER_LABEL
+                    for e in prof.events() if e.name == label
                     and e.device_type == DeviceType.CPU)
     starts = [a for a, _ in ranges]
     in_mixer = {}
@@ -3320,6 +3358,384 @@ def launcher_phase(dev, card):
     return dict(out, checkpoint_mib=size / 2**20, save_s=save_s)
 
 
+# -- training: the flash backward kernel and run m ---------------------------
+
+# the backward kernel phase: (B, Sq, Sk, H, Hk, d, causal, dtype): run m's
+# layer (repro-100m) in bf16 and f32, the wide families' head layouts at d128
+# (chameleon-34b's H64/Hk8, qwen2-moe's H16/Hk16, glm4-9b's H32/Hk2), the
+# chaos harness's f32 d16, whisper's non-causal cross-attention over 1500
+# frames and with Sq 200 > Sk 64, and ragged causal lengths 200 and 511
+BWD_CASES = (
+    (8, 256, 256, 12, 4, 64, True, "bfloat16"),
+    (8, 256, 256, 12, 4, 64, True, "float32"),
+    (8, 512, 512, 16, 16, 128, True, "bfloat16"),
+    (8, 512, 512, 64, 8, 128, True, "bfloat16"),
+    (8, 512, 512, 32, 2, 128, True, "bfloat16"),
+    (8, 256, 256, 4, 2, 16, True, "float32"),
+    (8, 200, 1500, 12, 12, 64, False, "float32"),
+    (8, 200, 64, 12, 12, 64, False, "float32"),
+    (8, 200, 200, 12, 4, 64, True, "bfloat16"),
+    (8, 511, 511, 12, 4, 64, True, "bfloat16"))
+BWD_MAIN = "B8 Sq256 Sk256 H12 Hk4 d64 causal bfloat16"   # run m's layer
+TRAIN_ARGS = ("--arch", "repro-100m", "--batch", "8", "--seq", "256",
+              "--steps", "40", "--lr", "1e-3", "--save-every", "10")
+TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_RESTORED = 40, 25, 20
+GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}   # of each leaf's scale
+
+
+def flash_bwd_case(case, g, dev, flush) -> dict:
+    """The backward kernel at one shape against its plain version on the
+    same q, k, v, o (the forward kernel's) and dO: error within 1e-5 of
+    each gradient's scale in f32, 1e-2 in bf16 (one rounding of the
+    output); a second launch must give the same bits. Timed beside the
+    plain version and SDPA's backward (``enable_gqa``, a yardstick the
+    port never calls); the bound counts q, k, v, o, dO read and dQ, dK, dV
+    written once, and 10 d operations a query-key pair and head (S, dP,
+    dQ, dK, dV) at the type's peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    b, sq, sk, h, hk, d, causal, dtype_name = case
+    dtype = getattr(torch, dtype_name)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    o = flash_attention_cuda(q, k, v, causal)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    scale = max(1.0, max(float(w.float().abs().max()) for w in want))
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * scale
+    kernel = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do,
+                                                      causal), flush)
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                        causal), flush)
+    # SDPA's backward alone: its forward once, then the gradient timed
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=True)
+    dout = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                              retain_graph=True), flush)
+    del out, leaves
+    pairs = sq * sk - (sq * (sq - 1) // 2 if causal else 0)
+    shape = (f"B{b} Sq{sq} Sk{sk} H{h} Hk{hk} d{d} "
+             f"{'causal' if causal else 'full'} {dtype_name}")
+    row = case_row("flash_attention_bwd", shape, err, tol, kernel, plain, lib,
+                   nbytes(q, k, v, o, do, *got), 10.0 * b * h * d * pairs,
+                   dtype_name, "simt")
+    print(f"kernel flash_attention_bwd {shape}: second launch identical "
+          f"{same}", flush=True)
+    check(same, f"flash_attention_bwd {shape}: a second launch gave other "
+          "bits")
+    return dict(row, relaunch_identical=same)
+
+
+def flash_bwd_phase(dev, flush) -> list:
+    import torch
+    g = torch.Generator(device=dev).manual_seed(24)
+    rows = [flash_bwd_case(case, g, dev, flush) for case in BWD_CASES]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def grad_check(cfg, params, batch, dtype_name, card) -> dict:
+    """Step 1's gradients through the kernels against the same step
+    through the plain path on the card (``impl="ref"``: the same params
+    and batch), per leaf: not all zero where the plain leaf is not, zero
+    in at most 1 in 1000 entries where the plain one is nonzero, and
+    within ``GRAD_TOL`` of the plain leaf's largest entry."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import _grad_fn
+    _build.reset_launches()
+    loss, got = _grad_fn(get_model(cfg))(params, batch)
+    launches = dict(_build.LAUNCHES)
+    ref_loss, want = _grad_fn(get_model(cfg, impl="ref"))(params, batch)
+    worst, lost_max, leaves = 0.0, 0.0, 0
+    for a, w in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
+        a, w = a.float(), w.float()
+        scale = float(w.abs().max())
+        check(bool(a.any()) or scale == 0.0, f"grad check {cfg.name}: a "
+              "leaf is all zero on the kernel path and not on the plain one")
+        lost = float(((a == 0) & (w != 0)).float().mean())
+        worst = max(worst, float((a - w).abs().max()) / max(scale, 1e-30))
+        lost_max, leaves = max(lost_max, lost), leaves + 1
+    tol = GRAD_TOL[dtype_name]
+    print(f"train [{card}]: step-1 gradients of {cfg.name} "
+          f"({cfg.n_layers} layers, {dtype_name}) through the kernels vs "
+          f"the plain path: {leaves} leaves, worst |diff| / leaf scale "
+          f"{worst:.3e} (tol {tol:.0e}), largest share of entries zeroed "
+          f"{lost_max:.2e}; loss {float(loss):.6f} vs {float(ref_loss):.6f}"
+          f"; launches {launches}", flush=True)
+    check(worst <= tol and lost_max <= 1e-3, f"grad check {cfg.name} "
+          f"{dtype_name}: worst {worst}, zeroed share {lost_max}")
+    check(launches.get("flash_attention_bwd", 0) == cfg.n_layers,
+          f"grad check {cfg.name}: {launches}")
+    return dict(worst=worst, tolerance=tol, zeroed_share=lost_max,
+                leaves=leaves, loss=float(loss), plain_loss=float(ref_loss),
+                launches=launches)
+
+
+def step_recorder():
+    """A ``StepMonitor`` that also keeps every step's wall time in
+    ``times``."""
+    from repro_torch.train.fault_tolerance import StepMonitor
+
+    class Recorder(StepMonitor):
+        def observe(self, step, dt):
+            self.times.append(dt)
+            return super().observe(step, dt)
+
+    mon = Recorder()
+    mon.times = []
+    return mon
+
+
+def train_main(argv, dev, **kw) -> tuple:
+    """``launch.train.main`` in process: (its stdout lines, the per-step
+    losses of its ``step N  loss X`` lines, wall s)."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv, device=dev, log_every=1, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    losses = [float(m.group(1)) for m in
+              (re.fullmatch(r"step +\d+  loss (\S+)", ln) for ln in lines)
+              if m]
+    return lines, losses, wall
+
+
+def profile_train(cfg, params, dev, card, steps: int = 4) -> dict:
+    """Device-busy and idle share of ``steps`` training steps of run m
+    (batch 8 x 256 of the data pipeline, the launcher's schedule), device
+    ms split into the flash forward, the flash backward, the matmuls
+    (cuBLAS), the optimizer (kernels launched inside ``adamw.update``) and
+    the rest."""
+    from repro_torch.data.pipeline import make_dataset, shard_batch
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import make_train_step
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+    ds = make_dataset(cfg, batch=8, seq=256, seed=0)
+    batches = [shard_batch(ds.batch_at(s), device=dev) for s in range(steps)]
+    with deterministic():
+        step = make_train_step(get_model(cfg), ocfg, total_steps=TRAIN_STEPS,
+                               warmup=5)
+        state = [params, adamw.init(params, ocfg)]
+
+        def run():
+            for s, b in enumerate(batches):
+                state[0], state[1], _ = step(state[0], state[1], b, s)
+
+        run()                                      # warm
+        wall, busy, top, in_opt = device_busy_ms(
+            run, annotation=("optimizer", ((adamw, "update"),)))
+    kinds = dict(flash_forward=0.0, flash_backward=0.0, matmul=0.0,
+                 optimizer=0.0, rest=0.0)
+    for name, ms in top:
+        n = name.lower()
+        opt_ms = min(ms, in_opt.get(name, 0.0))
+        kinds["optimizer"] += opt_ms
+        ms -= opt_ms
+        if "flash_bwd" in n:
+            kinds["flash_backward"] += ms
+        elif "flash" in n:
+            kinds["flash_forward"] += ms
+        elif any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            kinds["matmul"] += ms
+        else:
+            kinds["rest"] += ms
+    idle = 1.0 - busy / wall
+    print(f"train [{card}]: {steps} profiled steps: wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms, idle share {idle:.3f}; by kind (ms) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items()), flush=True)
+    for name, ms in top[:8]:
+        print(f"train [{card}]:   {ms:9.3f} ms  {name[:110]}", flush=True)
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=idle, kinds=kinds,
+                top=top[:12])
+
+
+def end_to_end_train(dev, card) -> dict:
+    """Run m: ``launch.train.main`` in process on full-width, full-depth
+    repro-100m (bf16, its own ``remat=True``) with ``TRAIN_ARGS`` and a
+    checkpoint directory under ``build/``, launches counted from 0 just
+    before it. Before it, step 1's gradients through the kernels against
+    the plain path's on the card, in bf16 at full depth and in f32 on a
+    2-layer cut (the SIMT forward). It requires the flash forward's
+    launches to be 2 (remat) x 12 layers x 40 steps, all on the tensor
+    cores, the backward's 12 x 40, the mean loss of the last 5 steps 0.5
+    nat below step 1's, and a second run with a failure injected at step
+    25 (restored from step 20) to end with every parameter and moment
+    bit-equal to the first run's. It prints tokens a second, the median
+    step, peak memory and a profile of 4 steps."""
+    import dataclasses
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.data.pipeline import make_dataset, shard_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    from repro_torch.train.fault_tolerance import FailureInjector
+    check(CONFIG.dtype == "bfloat16" and CONFIG.remat,
+          "run m: repro-100m is configured bf16 with remat")
+    batch = shard_batch(make_dataset(CONFIG, batch=8, seq=256,
+                                     seed=0).batch_at(0), device=dev)
+    with deterministic():
+        params = get_model(CONFIG).init(seed=0, device=dev)
+        grads = {"bfloat16": grad_check(CONFIG, params, batch, "bfloat16",
+                                        card)}
+        f32 = dataclasses.replace(CONFIG, n_layers=2, dtype="float32")
+        grads["float32"] = grad_check(
+            f32, get_model(f32).init(seed=0, device=dev), batch, "float32",
+            card)
+    del params
+    torch.cuda.empty_cache()
+
+    dirs = [ROOT / "build" / f"train_ckpt_{i}" for i in (1, 2)]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    runs = []
+    for i, d in enumerate(dirs):
+        monitor = step_recorder()
+        hook = FailureInjector([TRAIN_FAIL_AT]) if i else None
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        lines, losses, wall = train_main([*TRAIN_ARGS, "--ckpt", str(d)],
+                                         dev, monitor=monitor,
+                                         fail_hook=hook)
+        launches = dict(_build.LAUNCHES)
+        runs.append(dict(lines=lines, losses=losses, wall_s=wall,
+                         launches=launches, times=monitor.times,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+    first, second = runs
+    n_layers = CONFIG.n_layers
+    want = {"flash_attention": 2 * n_layers * TRAIN_STEPS,
+            "flash_attention.wgmma": 2 * n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": n_layers * TRAIN_STEPS}
+    for name, n in want.items():
+        check(first["launches"].get(name, 0) == n, f"run m: {name} launched "
+              f"{first['launches'].get(name, 0)} times, want {n}")
+    check(first["lines"][-1].startswith("done: restarts=0 "),
+          f"run m: {first['lines'][-1]}")
+    check(second["lines"][-1].startswith("done: restarts=1 "),
+          f"run m with a failure: {second['lines'][-1]}")
+    losses = first["losses"]
+    check(len(losses) == TRAIN_STEPS, f"run m: {len(losses)} loss lines")
+    tail = statistics.fmean(losses[-5:])
+    check(tail <= losses[0] - 0.5, f"run m: loss {losses[0]} -> {tail}")
+    # the second run restored step 20 and ran on: its last checkpoint must
+    # equal the first run's, every parameter and moment
+    like = get_model(CONFIG).init(seed=1, device=dev)
+    like = (like, adamw.init(like, adamw.AdamWConfig()))
+    trees = [checkpoint.restore(str(d), like) for d in dirs]
+    check(trees[0][1] == trees[1][1] == TRAIN_STEPS, "run m: last steps "
+          f"{trees[0][1]}, {trees[1][1]}")
+    flat = [checkpoint._flatten(t[0]) for t in trees]
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(*flat))
+    check(second["losses"][:TRAIN_FAIL_AT] == losses[:TRAIN_FAIL_AT],
+          "run m: the two runs' losses differ before the failure")
+    params = trees[0][0][0]
+    del like, trees, flat
+    step_ms = statistics.median(first["times"]) * 1e3
+    tok_s = 8 * 256 / statistics.median(first["times"])
+    print(f"e2e train [{card}]: repro-100m (12 layers, d768, bf16, remat), "
+          f"batch 8 x 256, {TRAIN_STEPS} steps in {first['wall_s']:.1f} s "
+          f"(checkpoints every 10 included); median step {step_ms:.2f} ms, "
+          f"{tok_s:.0f} training tokens/s; peak memory "
+          f"{first['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> last 5 "
+          f"mean {tail:.4f}; launches {first['launches']}", flush=True)
+    print(f"e2e train [{card}]: losses "
+          + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print(f"e2e train [{card}]: failure injected at step {TRAIN_FAIL_AT}: "
+          f"{second['lines'][-1]}; restored step {TRAIN_RESTORED}, every "
+          f"parameter and moment at step {TRAIN_STEPS} bit-equal to the "
+          f"uninterrupted run's {same}; its wall {second['wall_s']:.1f} s",
+          flush=True)
+    check(same, "run m: the resumed run's parameters or moments differ")
+    profile = profile_train(CONFIG, params, dev, card)
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    return dict(grads=grads, launches=first["launches"],
+                launches_resumed=second["launches"], losses=losses,
+                loss_tail=tail, wall_s=first["wall_s"], step_ms=step_ms,
+                tokens_per_s=tok_s, peak_gib=first["peak_gib"],
+                resumed_bit_equal=same, profile=profile)
+
+
+def train_launcher_phase(dev, card) -> dict:
+    """Run m through the launchers as subprocesses on the card: ``python
+    -m repro_torch.launch.train`` with run m's flags into a fresh
+    checkpoint directory must exit 0 and print the JAX launcher's lines
+    (``arch=repro-100m devices=1 mesh={'data': 1, 'model': 1}``, ``step N
+    loss X`` at steps 10, 20, 30, 40, ``done: restarts=0 ...``); then
+    ``python -m repro_torch.launch.serve --ckpt <that dir> --reuse
+    --paged --stats`` (run b's serving flags) must restore step 40 from it
+    and exit 0."""
+    import os
+    import re
+    import shutil
+    ckpt = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for label, argv in (
+            ("train", ["-m", "repro_torch.launch.train", *TRAIN_ARGS,
+                       "--ckpt", str(ckpt)]),
+            ("serve", ["-m", "repro_torch.launch.serve", "--ckpt", str(ckpt),
+                       *LAUNCH_ARGS, "--reuse", "--paged"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"launcher [{card}] {label}: `python {' '.join(argv)}` exited "
+              f"{proc.returncode} in {wall:.1f} s", flush=True)
+        check(proc.returncode == 0, f"launcher {label}: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        for ln in lines[:8]:
+            print(f"launcher [{card}] {label}: | {ln}", flush=True)
+        out[label] = dict(wall_s=wall, lines=lines)
+    lines = out["train"]["lines"]
+    check(lines[0] == "arch=repro-100m devices=1 mesh={'data': 1, "
+          "'model': 1}", f"launcher train: {lines[0]}")
+    steps = [re.fullmatch(r"step +(\d+)  loss \d+\.\d{4}", ln)
+             for ln in lines[1:-1]]
+    check(all(steps) and [int(m.group(1)) for m in steps] == [10, 20, 30, 40],
+          f"launcher train: step lines {lines[1:-1]}")
+    check(re.fullmatch(r"done: restarts=0 stragglers=\d+", lines[-1]),
+          f"launcher train: {lines[-1]}")
+    check(f"restored step {TRAIN_STEPS} from {ckpt}" in out["serve"]["lines"],
+          "launcher serve: no restore line for the trained checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["serve"]["lines"] = out["serve"]["lines"][:8]
+    return out
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -3349,6 +3765,9 @@ SPEC_RUNS = ("spec dense", "spec reuse+paged")     # runs f and g
 
 
 def main() -> int:
+    # run m trains under deterministic algorithms, whose cuBLAS asks for
+    # this workspace setting before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -3404,6 +3823,8 @@ def main() -> int:
     rows += audio_kernel_phase(dev, flush)
     stamp("the families' kernel phases, the zero-row check and run l's "
           "kernel rows")
+    rows += flash_bwd_phase(dev, flush)
+    stamp("the flash backward kernel phase")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
@@ -3428,6 +3849,10 @@ def main() -> int:
     stamp("run audio")
     e2e["launcher"] = launcher_phase(dev, card)
     stamp("launcher phase")
+    e2e["train"] = end_to_end_train(dev, card)              # run m
+    stamp("run train")
+    e2e["train launcher"] = train_launcher_phase(dev, card)
+    stamp("the training launcher phase")
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
@@ -3448,7 +3873,9 @@ def main() -> int:
             # the launcher phase's in-process serve.main, one per mode
             launches_launcher={r: v["launches"].get(name, 0)
                                for r, v in e2e["launcher"].items()
-                               if r in LAUNCH_RUNS}))
+                               if r in LAUNCH_RUNS},
+            # run m's in-process launch.train.main
+            launches_train=e2e["train"]["launches"].get(name, 0)))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the main row is the decode kernel; beside it the tile kernel
             # at the same shape (for axllm_matmul the path the row took
@@ -3502,6 +3929,20 @@ def main() -> int:
                 was=dict(path="strip", ms=row["was_ms"]),
                 deploy_pass={key: dep[key] for key in (
                     "matrices", "ms", "plain_ms", "bound_ms", "was_ms")})
+    # the backward of flash attention: no TPU counterpart (the Pallas
+    # kernel it differentiates has no VJP); its main row is run m's layer
+    bwd = next(r for r in rows if r["kernel"] == "flash_attention_bwd"
+               and r["shape"] == BWD_MAIN)
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:81",
+        counterpart="none: the backward of flash_attention_pallas, which "
+                    "has no VJP",
+        launches=e2e["train"]["launches"]["flash_attention_bwd"],
+        **{key: bwd[key] for key in ROW_KEYS}, shape=BWD_MAIN,
+        launches_from="train", path="simt",
+        launches_train=e2e["train"]["launches"]["flash_attention_bwd"]))
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
              e2e=e2e, simulator=simulator, chaos=chaos), indent=1,

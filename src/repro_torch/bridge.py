@@ -4,7 +4,9 @@ The tree arrives as nested dicts of numpy arrays (the caller converts any
 framework arrays to numpy first); a quantized weight arrives as a dict of
 the :class:`QTensor` fields. Layouts are kept as they are: weights
 ``[in, out]``, layers stacked on a leading ``L`` axis. An adapter
-registry arrives as its stacked A/B arrays and its row names.
+registry arrives as its stacked A/B arrays and its row names, and an
+AdamW state as its moments (f32 arrays, or a blockwise-int8 moment as a
+dict of the ``Q8`` fields) and its step count.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import torch
 
 from repro_torch.core.axllm_linear import LoRAConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.optim.adamw import Q8
 from repro_torch.serve.adapters import AdapterRegistry
 
 _QTENSOR_FIELDS = frozenset(f.name for f in dataclasses.fields(QTensor)
                             ) - {"kernel_scale"}    # derived, not stored
+_Q8_FIELDS = frozenset(f.name for f in dataclasses.fields(Q8))
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -68,3 +72,23 @@ def registry_from_numpy(cfg, stacked, names, lora_cfg: LoRAConfig = None,
         reg._validate(name, adapter)
         reg._write(row, name, adapter)
     return reg
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """A JAX AdamW state as numpy -> the port's (``optim.adamw.init``'s
+    layout): ``{"m", "v": moment trees, "count": int32 scalar}``. A
+    moment leaf is an f32 array or a dict of the ``Q8`` fields (``codes``
+    int8, ``scale`` f32, ``shape``, ``pad``). Moments go to ``device``;
+    the count stays on the host, as ``init`` keeps it."""
+    def moment(tree):
+        if isinstance(tree, dict) and set(tree) == _Q8_FIELDS:
+            return Q8(tensor_from_numpy(tree["codes"], device),
+                      tensor_from_numpy(tree["scale"], device),
+                      tuple(int(s) for s in tree["shape"]),
+                      int(tree["pad"]))
+        if isinstance(tree, dict):
+            return {k: moment(v) for k, v in tree.items()}
+        return tensor_from_numpy(tree, device)
+
+    return {"m": moment(state["m"]), "v": moment(state["v"]),
+            "count": torch.tensor(int(state["count"]), dtype=torch.int32)}

@@ -52,6 +52,8 @@ SIGNATURES = {
                          _F, _P]),
     "flash_attention.wgmma": ("flash_attention_wgmma_launch",
                               [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_P] * 9 + [_I] * 8 + [_F, _P]),
     "reuse_matmul": ("reuse_matmul_launch",
                      [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
     "reuse_matmul.wgmma": ("reuse_matmul_wgmma_launch",

@@ -10,6 +10,13 @@ head dim 64 or 128, whose arithmetic :func:`ref.flash_attention_tc_ref`
 emulates (P rounded to bf16 before P V), and the SIMT kernel for the
 rest (f32, head dims 16 and 32); the source says what each design does
 about its bound.
+
+Its gradient: :class:`FlashAttentionFn` runs that forward and, as its
+backward, :func:`flash_attention_bwd_cuda`, the kernel of
+``csrc/flash_attention_bwd.cu`` (counted under
+``LAUNCHES["flash_attention_bwd"]``), whose plain version is
+:func:`ref.flash_attention_bwd_ref`. The TPU kernel has no VJP, so the
+backward replaces none.
 """
 
 from __future__ import annotations
@@ -93,3 +100,64 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         out.data_ptr(), b, sq, sk, h, hk, d, int(causal), 1.0 / (d ** 0.5),
         stream)
     return out
+
+
+def _check_bwd(q, k, v, o, do, causal: bool) -> None:
+    _check(q, k, v, causal)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, causal: bool = True):
+    """(dq, dk, dv) of attention of q [B, Sq, H, d] over k, v [B, Sk, Hk,
+    d], given the forward's output ``o`` and its gradient ``do`` (both
+    like q); each gradient in its input's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    backward kernel (any head dim of ``HEAD_DIMS``, f32 or bf16), or
+    raises.
+    """
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    _check_bwd(q, k, v, o, do, causal)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the row statistics (log-sum-exp, then rowsum(dO * O)) the kernel's
+    # first launch writes and its other two read
+    stats = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
+    _build.launch(
+        "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), b, sq, sk, h, hk, d,
+        int(q.dtype == torch.bfloat16), int(causal), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: the forward of
+    :func:`flash_attention_cuda` (the tensor-core or the SIMT kernel),
+    saving q, k, v and its output, and the backward of
+    :func:`flash_attention_bwd_cuda`. On CPU tensors both take their plain
+    versions. ``apply(q, k, v, causal)`` with contiguous q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention_cuda(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, do.contiguous(),
+                                              ctx.causal)
+        return dq, dk, dv, None

@@ -31,7 +31,8 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.axllm_matmul import axllm_matmul_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_cuda
 from repro_torch.kernels.quantize import quantize_cuda
@@ -131,10 +132,20 @@ def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     impl: str = "auto") -> torch.Tensor:
-    """q: [B, Sq, H, d]; k, v: [B, Sk, Hk, d] -> [B, Sq, H, d]."""
+    """q: [B, Sq, H, d]; k, v: [B, Sk, Hk, d] -> [B, Sq, H, d].
+
+    On the card, a call that autograd records (grad enabled and an input
+    requiring grad: training) goes through :class:`FlashAttentionFn`,
+    whose backward is a kernel too; any other call (serving runs under
+    ``torch.inference_mode()``) launches the forward kernel alone, without
+    the Function's host cost. The plain versions are differentiated by
+    autograd."""
     if _use_kernel(impl, q):
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal)
+        return flash_attention_cuda(q, k, v, causal=causal)
     # memory-safe plain version once the [B, H, Sq, Sk] scores grow large
     if q.shape[1] * k.shape[1] > 1024 * 1024:
         return _ref.chunked_attention_ref(q, k, v, causal=causal)

@@ -265,6 +265,46 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            scale: Optional[float] = None):
+    """Backward of :func:`attention_ref` by its formula, not by autograd:
+    (dq, dk, dv) in the dtypes of q, k and v, every sum in f32.
+
+    q, o, do: [B, Sq, H, d]; k, v: [B, Sk, Hk, d]; ``o`` is the forward's
+    output. With the row log-sum-exp ``lse`` of the scaled, masked scores
+    S, P = exp(S - lse) and D = rowsum(dO * O): dP = dO V^T, dS = P (dP -
+    D), dQ = scale dS K, and dK = scale dS^T Q and dV = P^T dO, each
+    summed over the H / Hk query heads of its KV head. Causal queries sit
+    at the last Sq keys (offset Sk - Sq), as in the forward; a
+    non-causal call takes any Sq."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf, of, dof = q.to(torch.float32), o.to(torch.float32), \
+        do.to(torch.float32)
+    kf = _repeat_kv(k.to(torch.float32), rep)
+    vf = _repeat_kv(v.to(torch.float32), rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + (sk - sq)
+        mask = qpos[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(mask[None, None], s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)                       # [B, H, Sq]
+    p = torch.exp(s - lse[..., None])     # a masked score weighs exactly 0
+    delta = (dof * of).sum(-1).permute(0, 2, 1)            # [B, H, Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale   # [B, Sk, H, d]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hk, rep, d).sum(3)
+    dv = dv.reshape(b, sk, hk, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 LOG2E = 1.4426950408889634
 
 

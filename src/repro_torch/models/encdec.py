@@ -100,14 +100,17 @@ def encode(params, frames, cfg, impl: str = "auto"):
                impl=ops._base_impl(impl))
     x = x + _sinusoid(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
     b, f, _ = x.shape
-    for i in range(cfg.n_enc_layers):
-        lp = layer_slice(params["enc_layers"], i)
+
+    def body(lp, x):
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
         q, k, v = A._project_qkv(lp["attn"], h, cfg, impl)
         att = ops.flash_attention(q, k, v, causal=False, impl=impl)
         x = x + linear(att.reshape(b, f, -1), lp["attn"]["wo"], impl=impl)
         h2 = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_fwd(lp["mlp"], h2, cfg, impl=impl)
+        return x + L.mlp_fwd(lp["mlp"], h2, cfg, impl=impl)
+
+    for i in range(cfg.n_enc_layers):   # rematerialized under cfg.remat
+        x = L.remat(cfg, body, layer_slice(params["enc_layers"], i), x)
     return L.norm_fwd(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -197,9 +200,10 @@ def forward(params, batch, cfg, impl: str = "auto"):
     V_padded]."""
     enc_out = encode(params, batch["frames"], cfg, impl=impl)
     x = _embed(params, batch["tokens"], cfg, enc_out.dtype)
-    for i in range(cfg.n_layers):
-        x = _dec_layer(layer_slice(params["dec_layers"], i), x, cfg, impl,
-                       enc_out=enc_out)
+    for i in range(cfg.n_layers):   # rematerialized under cfg.remat
+        x = L.remat(cfg, lambda lp, x, enc: _dec_layer(lp, x, cfg, impl,
+                                                       enc_out=enc),
+                    layer_slice(params["dec_layers"], i), x, enc_out)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
     return L.head_fwd(params["embed"], x, cfg, impl=impl)
 

@@ -98,16 +98,26 @@ def forward(params, tokens, cfg, impl: str = "auto"):
     """tokens: [B, S] -> logits [B, S, V_padded]."""
     n_full, rem, every = _groups(cfg)
     x = x0 = _embed(params, tokens, cfg)
+
+    def mamba_body(p, x):
+        return x + S.mamba2_fwd(p, x, cfg, impl=impl)
+
     for g in range(n_full):
         x = _shared_fwd(params["shared"], x, x0, cfg, impl)
         gp = layer_slice(params["mamba"], g)
-        for j in range(every):
-            x = x + S.mamba2_fwd(layer_slice(gp, j), x, cfg, impl=impl)
-    for j in range(rem):
-        x = x + S.mamba2_fwd(layer_slice(params["mamba_rem"], j), x, cfg,
-                             impl=impl)
+        for j in range(every):   # rematerialized as in the JAX package
+            x = L.remat(cfg, mamba_body, layer_slice(gp, j), x)
+    for j in range(rem):         # the remainder is not, there as here
+        x = mamba_body(layer_slice(params["mamba_rem"], j), x)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
     return L.head_fwd(params["embed"], x, cfg, impl=impl)
+
+
+def loss_fn(params, batch, cfg, impl: str = "auto"):
+    """Mean cross-entropy of ``forward`` on ``batch["tokens"]`` against
+    ``batch["targets"]``."""
+    logits = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.cross_entropy(logits, batch["targets"], cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

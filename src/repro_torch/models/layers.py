@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.axllm_linear import concat_weights, linear
 from repro_torch.core.quantization import QTensor, dequantize
@@ -25,6 +26,18 @@ def truncated_normal(gen: torch.Generator, shape, std: float,
 
 def init_linear(gen, n_in: int, n_out: int, dtype=torch.float32, lead=()):
     return truncated_normal(gen, (*lead, n_in, n_out), n_in ** -0.5, dtype)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat``
+    and autograd records the call: its activations are recomputed in the
+    backward instead of kept (the JAX package's ``jax.checkpoint`` around
+    the same bodies). The bodies draw no random numbers, so no RNG state
+    is saved."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@
     api = get_model(cfg)
     params = api.init(seed, device)
     logits = api.forward(params, {"tokens": tokens})
+    loss = api.loss(params, {"tokens": tokens, "targets": targets})
     cache = api.init_cache(batch, max_len, device)
     logits, cache = api.prefill(params, {"tokens": tokens}, cache, lengths)
     # all_positions=True: [B, S, V] logits of every position
@@ -46,6 +47,7 @@ class ModelAPI:
     cfg: ModelConfig
     init: Callable[..., Any]
     forward: Callable[..., Any]
+    loss: Callable[..., Any]
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
@@ -74,6 +76,7 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
             init=lambda seed=0, device="cuda": mod.init_params(cfg, seed,
                                                                device),
             forward=lambda p, b: mod.forward(p, b["tokens"], cfg, impl=impl),
+            loss=lambda p, b: mod.loss_fn(p, b, cfg, impl=impl),
             init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
                 cfg, batch, max_len, device),
             prefill=lambda p, b, c, lengths=None, all_positions=False:
@@ -91,6 +94,7 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
             init=lambda seed=0, device="cuda": mod.init_params(cfg, seed,
                                                                device),
             forward=lambda p, b: mod.forward(p, b, cfg, impl=impl),
+            loss=lambda p, b: mod.loss_fn(p, b, cfg, impl=impl),
             init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
                 cfg, batch, max_len, device),
             prefill=lambda p, b, c, lengths=None, all_positions=False:
@@ -108,6 +112,7 @@ def get_model(cfg: ModelConfig, impl: str = "auto") -> ModelAPI:
         cfg=cfg,
         init=lambda seed=0, device="cuda": mod.init_params(cfg, seed, device),
         forward=lambda p, b: mod.forward(p, b["tokens"], cfg, impl=impl),
+        loss=lambda p, b: mod.loss_fn(p, b, cfg, impl=impl),
         init_cache=lambda batch, max_len, device="cuda": mod.init_cache(
             cfg, batch, max_len, device),
         prefill=lambda p, b, c, lengths=None, adapters=None,

@@ -70,17 +70,29 @@ def _ffn_fwd(p, x, cfg, impl):
     return L.mlp_fwd(p, x, cfg, impl=impl)
 
 
+def _layer_fwd(lp, x, cfg, impl):
+    h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
+    x = x + A.attention_fwd(lp["attn"], h, cfg, impl=impl)
+    h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
+    return x + _ffn_fwd(lp["ffn"], h, cfg, impl)
+
+
 def forward(params, tokens, cfg, impl: str = "auto"):
-    """tokens: [B, S] -> logits [B, S, V_padded]."""
+    """tokens: [B, S] -> logits [B, S, V_padded]. Each layer is
+    rematerialized under ``cfg.remat`` (``layers.remat``)."""
     x = L.embed_fwd(params["embed"], tokens).to(param_dtype(cfg))
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
-        h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
-        x = x + A.attention_fwd(lp["attn"], h, cfg, impl=impl)
-        h = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
-        x = x + _ffn_fwd(lp["ffn"], h, cfg, impl)
+        x = L.remat(cfg, _layer_fwd, layer_slice(params["layers"], i), x,
+                    cfg, impl)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
     return L.head_fwd(params["embed"], x, cfg, impl=impl)
+
+
+def loss_fn(params, batch, cfg, impl: str = "auto"):
+    """Mean cross-entropy of ``forward`` on ``batch["tokens"]`` against
+    ``batch["targets"]``."""
+    logits = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.cross_entropy(logits, batch["targets"], cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

@@ -323,11 +323,19 @@ def forward(params, tokens, cfg, impl: str = "auto"):
     x = _embed(params, tokens, cfg)
     for si in range(n_super):
         mp = layer_slice(params["mlstm"], si)
-        for j in range(m_per):
-            x = x + mlstm_fwd(layer_slice(mp, j), x, cfg, impl=impl)
+        for j in range(m_per):     # rematerialized as in the JAX package
+            x = L.remat(cfg, lambda p, x: x + mlstm_fwd(p, x, cfg, impl=impl),
+                        layer_slice(mp, j), x)
         x = slstm_fwd(layer_slice(params["slstm"], si), x, cfg, impl=impl)
     x = L.norm_fwd(params["final_norm"], x, cfg.norm_eps)
     return L.head_fwd(params["embed"], x, cfg, impl=impl)
+
+
+def loss_fn(params, batch, cfg, impl: str = "auto"):
+    """Mean cross-entropy of ``forward`` on ``batch["tokens"]`` against
+    ``batch["targets"]``."""
+    logits = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.cross_entropy(logits, batch["targets"], cfg.vocab_size)
 
 
 def init_cache(cfg, batch: int, max_len: int = 0, device="cuda"):

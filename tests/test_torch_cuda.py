@@ -36,7 +36,14 @@ exactly, on every route of its plan and on columns that hold a NaN, an
 inf or only zeros. The decode kernels also run at 16 query heads a KV
 head (two groups) and head dim 16, flash's SIMT kernel at head dim 16,
 and a reduced moe engine (paged, reuse, speculating) against its plain
-path.
+path. Training: the flash backward kernel against its plain version
+(``ref.flash_attention_bwd_ref``) at GQA ratios 1 to 16, head dims 16 to
+128, causal and not, Sq > Sk, bit-equal on relaunch; ``FlashAttentionFn``
+gradients against autograd of the plain path (2e-2 of the scale in
+bf16: the tensor-core forward rounds P to bf16 and the backward
+recomputes it in f32; 1e-5 in f32); the backward wrapper's refusals; and
+a reduced bf16 training step against the plain path, per leaf, and
+repeating bit for bit under the launcher's deterministic mode.
 """
 
 import dataclasses
@@ -1006,3 +1013,166 @@ def test_audio_model_kernel_path_matches_plain_path(card):
     gate = token_gate(cfg, params, prompts, generated, impl="ref",
                       tol_rel=5e-2, device=card, frames=list(frames))
     assert gate.ok, gate.failures[:5]
+
+
+# -- training: the flash backward kernel and the step on the card ------------
+
+# (B, Sq, Sk, H, Hk, d, causal): the training step's GQA 3, the families'
+# 1, 8 and 16, head dims 16 to 128, ragged lengths, whisper's non-causal
+# Sq < Sk and Sq > Sk
+BWD_CASES = [(2, 256, 256, 12, 4, 64, True), (1, 130, 130, 16, 16, 128, True),
+             (1, 200, 200, 64, 8, 128, True), (1, 96, 96, 32, 2, 128, True),
+             (2, 70, 190, 4, 2, 16, True), (2, 33, 33, 6, 2, 32, True),
+             (1, 200, 1500, 12, 12, 64, False),
+             (2, 200, 64, 12, 12, 64, False),
+             (1, 1, 40, 4, 4, 64, True)]
+
+
+def _bwd_inputs(card, case, dtype, seed):
+    b, sq, sk, h, hk, d, _ = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, sq, h, d, generator=g, device=card).to(dtype)
+    k = torch.randn(b, sk, hk, d, generator=g, device=card).to(dtype)
+    v = torch.randn(b, sk, hk, d, generator=g, device=card).to(dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device=card).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=[
+    "B{}-Sq{}-Sk{}-H{}-Hk{}-d{}-{}".format(*c[:6], "causal" if c[6]
+                                           else "full") for c in BWD_CASES])
+def test_flash_attention_bwd_kernel(card, case, dtype):
+    """The backward kernel against its plain version on the same q, k, v,
+    o (the forward kernel's) and dO: within 1e-5 of each gradient's scale
+    in f32, 1e-2 in bf16 (one rounding of the output); a second launch
+    gives the same bits; one launch a call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _bwd_inputs(card, case, dtype, sum(case[:6]))
+    causal = case[-1]
+    o = flash_attention_cuda(q, k, v, causal)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    for g_, w, a in zip(got, want, again):
+        assert g_.dtype == dtype and g_.shape == w.shape
+        assert bool(torch.isfinite(g_.float()).all())
+        assert _rel_err(g_, w) < _tol(dtype)
+        assert torch.equal(g_, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-simt", "bf16-wgmma"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_fn_gradients(card, dtype, causal):
+    """``ops.flash_attention`` under autograd takes ``FlashAttentionFn``
+    (forward kernel, then the backward kernel): its gradients against
+    autograd of the plain path, to 1e-5 of the scale in f32 and 2e-2 in
+    bf16 (the tensor-core forward rounds P to bf16 before P V; the
+    backward recomputes P in f32). Under ``inference_mode`` the same call
+    launches the forward alone."""
+    from repro_torch.kernels import ops
+    case = (2, 128, 128, 12, 4, 64, causal)
+    q, k, v, do = _bwd_inputs(card, case, dtype, 7)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ops.flash_attention(*plain, causal=causal,
+                                                   impl="ref"), plain, do)
+    kern = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    out = ops.flash_attention(*kern, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, kern, do)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before.get(
+        "flash_attention", 0) + 1
+    assert _build.LAUNCHES["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 1
+    for g_, w in zip(got, want):
+        assert _rel_err(g_, w) < (1e-5 if dtype == torch.float32 else 2e-2)
+        assert bool((g_ != 0).any())
+    with torch.inference_mode():
+        served = ops.flash_attention(*kern, causal=causal)
+    assert served.grad_fn is None
+    assert _build.LAUNCHES["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 1
+
+
+def test_flash_attention_bwd_refusals(card):
+    """The backward wrapper checks like the forward's and launches
+    nothing for what the kernel does not take."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _bwd_inputs(card, (1, 16, 16, 4, 2, 64, True),
+                              torch.float32, 1)
+    o = flash_attention_cuda(q, k, v, True)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError):      # causal Sq > Sk
+        flash_attention_bwd_cuda(q, k[:, :8], v[:, :8], o, do, True)
+    with pytest.raises(ValueError):      # dO of another shape
+        flash_attention_bwd_cuda(q, k, v, o, do[:, :8].contiguous(), True)
+    with pytest.raises(ValueError):      # dO of another dtype
+        flash_attention_bwd_cuda(q, k, v, o, do.to(torch.bfloat16), True)
+    with pytest.raises(ValueError):      # a non-contiguous dO
+        flash_attention_bwd_cuda(q, k, v, o, do.transpose(1, 2)
+                                 .contiguous().transpose(1, 2), True)
+    with pytest.raises(ValueError):      # head dim 48
+        flash_attention_bwd_cuda(q[..., :48].contiguous(),
+                                 k[..., :48].contiguous(),
+                                 v[..., :48].contiguous(),
+                                 o[..., :48].contiguous(),
+                                 do[..., :48].contiguous(), True)
+    assert _build.LAUNCHES["flash_attention_bwd"] == before
+
+
+def _grad_close(got, want, tol):
+    """A gradient leaf of the kernel path against the plain path's: not
+    all zero where the plain one is not, zero in at most 1 in 1000
+    entries where the plain one is nonzero, and within ``tol`` of the
+    plain leaf's largest entry."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    assert bool(got.any()) or scale == 0.0
+    lost = ((got == 0) & (want != 0)).float().mean()
+    assert float(lost) <= 1e-3
+    assert float((got - want).abs().max()) <= tol * max(scale, 1e-30)
+
+
+def test_train_step_on_card_matches_plain_and_repeats(card):
+    """One training step of a reduced bf16 repro-100m (remat on) through
+    the kernels against the same step through the plain path on the card
+    (``_grad_close`` at 5e-2: bf16 activations, the forward's P in bf16);
+    under the launcher's deterministic mode two steps give the same
+    bits."""
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import _grad_fn, make_train_step
+    cfg = CONFIG.reduced(head_dim=64, n_heads=4, n_kv_heads=2)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    params = get_model(cfg).init(seed=0, device=card)
+    g = torch.Generator(device=card).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
+                        device=card, dtype=torch.int32)
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    with deterministic():
+        before = dict(_build.LAUNCHES)
+        _, got = _grad_fn(get_model(cfg))(params, batch)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention_bwd"] == before.get(
+            "flash_attention_bwd", 0) + cfg.n_layers
+        # remat: each layer's forward runs twice
+        assert _build.LAUNCHES["flash_attention"] == before.get(
+            "flash_attention", 0) + 2 * cfg.n_layers
+        _, want = _grad_fn(get_model(cfg, impl="ref"))(params, batch)
+        for a, b in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
+            _grad_close(a, b, 5e-2)
+        ocfg = adamw.AdamWConfig(lr=1e-3)
+        step = make_train_step(get_model(cfg), ocfg, total_steps=10,
+                               warmup=2)
+        outs = [step(params, adamw.init(params, ocfg), batch, 1)
+                for _ in range(2)]
+    for a, b in zip(adamw.tree_leaves(outs[0][:2]),
+                    adamw.tree_leaves(outs[1][:2])):
+        assert torch.equal(a, b)
