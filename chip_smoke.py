@@ -203,7 +203,32 @@ NVIDIA GPU.
    7" and print the token lines and stats of
    ``repro_torch.launch.serve.main`` run in process on the card with the
    same flags, whose launches (counted from 0 just before it) must
-   include every kernel of its mode.
+   include every kernel of its mode. A third run adds ``--mesh-shape 2``:
+   the launcher spawns two ranks on the card (gloo), restores every leaf
+   the layout cuts onto them, and must print the ``, mesh 2`` tag
+   and its in-process run's token lines and stats, every rank the same
+   tokens; its launches are rank 0's.
+10b. Tensor-parallel serving, ranks sharing the one card over gloo (the
+   kernels on the card, the collectives through the host: correctness,
+   not a tensor-parallel rate). Run n: full-width, full-depth repro-100m
+   at mesh 1x2 (head-sharded: a rank holds 6 q and 2 KV heads), int8 per
+   channel, serving run a's requests plainly, run b's with ``impl="reuse",
+   paged=True`` and run c's with ``impl="reuse", fuse_qkv=True`` and its
+   adapters. Run o: glm4-9b at full width cut to 4 of 40 layers (the cut
+   printed) at mesh 1x4, sequence-sharded (2 KV heads do not divide 4:
+   wk/wv whole, the dense cache cut along its rows, decode through
+   ``kernels.sharded_decode``), run a's requests. Both serve
+   ``MESH_MAX_NEW`` tokens a request, and each rank's engine quantizes
+   only its own blocks: the engine's memory by rank is printed beside the
+   single-card engine's. Each rank's launch
+   counts are set to 0 just before it serves and read just after; every
+   rank must serve rank 0's tokens and stats and launch the mode's kernels
+   at its shapes; every token must pass the token gate on the unsharded
+   model; the share of tokens equal to runs a's and b's is printed. Their
+   kernel rows (the rank shapes no earlier row has: both quantized matmuls
+   at repro-100m's model-2 blocks, axllm_matmul at glm4-9b's model-4
+   blocks and its head's quarter, decode attention at 6/2 heads, flash at
+   6/2 heads of 64 and 8/1 of 128) follow the backward kernel's.
 11. Training. The flash backward kernel (``csrc/flash_attention_bwd.cu``,
    no TPU counterpart) against its plain version
    ``ref.flash_attention_bwd_ref`` (dQ, dK, dV) at run m's layer (B8 S256
@@ -229,8 +254,8 @@ NVIDIA GPU.
    must restore its step 40.
 12. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
    g, in runs h to l, in the launcher phase's in-process ``serve.main``
-   runs and in run m, beside its main run's; the backward kernel's row
-   from run m), then the result line.
+   runs, in runs n and o (rank 0) and in run m, beside its main run's; the
+   backward kernel's row from run m), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1969,25 +1994,8 @@ def end_to_end_lora(dev, card):
     """Run c: run a's prompts on the reuse pipeline with fused projections
     and four LoRA adapters, the requests cycling base/a0/a1/a2/a3; the
     counted reuse rate of layer 0's fused wqkv and gate_up."""
-    import numpy as np
-    from repro_torch.bridge import registry_from_numpy
     from repro_torch.configs.repro_100m import CONFIG
-    from repro_torch.core.axllm_linear import LoRAConfig
-    from repro_torch.serve.adapters import target_dims
-
-    lcfg = LoRAConfig()
-    rng = np.random.default_rng(3)
-    nl, r, n_ad = CONFIG.n_layers, lcfg.rank, len(ADAPTERS)
-    stacked = {}
-    for t in lcfg.targets:
-        n_in, n_out = target_dims(CONFIG, t)
-        stacked[t] = {
-            "lora_a": (rng.standard_normal((nl, n_ad, n_in, r))
-                       / np.sqrt(r)).astype(np.float32),
-            "lora_b": (rng.standard_normal((nl, n_ad, r, n_out))
-                       * LORA_B_STD).astype(np.float32)}
-    registry = registry_from_numpy(CONFIG, stacked, list(ADAPTERS), lcfg,
-                                   device=dev)
+    registry = run_c_registry(CONFIG, dev)
     prompts = run_a_prompts()
     cycle = (None,) + ADAPTERS
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
@@ -2297,7 +2305,7 @@ FAMILY_RUNS = {
             "plus 34 GB of codes) do not fit in 80 GB"),
     "ssm": ("xlstm-1.3b", 8, "chip time (run l and the launcher phase "
             "joined the call; at 48 layers run j alone took 157 s, at 16 "
-            "55-70 s)"),
+            "55-70 s); 8 layers keep one super-block, 7 mLSTM and the sLSTM"),
     "hybrid": ("zamba2-1.2b", 20, "chip time (run l and the launcher "
                "phase joined the call; at 38 layers run k took 65-102 s); "
                "20 layers keep 3 of its 6 attention sites and a "
@@ -3239,7 +3247,11 @@ LAUNCH_ARGS = ("--arch", "repro-100m", "--slots", str(N_SLOTS), "--max-len",
                str(MAX_LEN), "--requests", str(N_REQUESTS), "--max-new",
                str(MAX_NEW), "--prompt-lens",
                ",".join(map(str, PROMPT_LENS)), "--stats")
-LAUNCH_RUNS = {"default": (), "reuse+paged": ("--reuse", "--paged")}
+# the mesh run serves half the requests, a quarter of the tokens each: its
+# ranks share the card over gloo, about 60 tok/s (chip time)
+LAUNCH_RUNS = {"default": (), "reuse+paged": ("--reuse", "--paged"),
+               "mesh 2": ("--mesh-shape", "2", "--requests", "8",
+                          "--max-new", "16")}
 LAUNCH_KERNELS = {
     "default": ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
                 "decode_attention", "flash_attention",
@@ -3248,6 +3260,7 @@ LAUNCH_KERNELS = {
                     "paged_decode_attention", "flash_attention",
                     "flash_attention.wgmma"),
 }
+LAUNCH_KERNELS["mesh 2"] = LAUNCH_KERNELS["default"]   # rank 0's launches
 LAUNCH_STEP = 7     # the step the checkpoint is saved at
 
 
@@ -3328,10 +3341,18 @@ def launcher_phase(dev, card):
         _build.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            serve.main(flags, device=dev)
+            ranks = serve.main(flags, device=dev)
         torch.cuda.synchronize()
         in_wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        # a mesh run's launches are its ranks' (rank 0's reported)
+        launches = dict(_build.LAUNCHES) if ranks is None else \
+            ranks[0]["launches"]
+        if ranks is not None:
+            summary = [ln for ln in lines if ln.startswith("[axllm")]
+            check(summary and summary[0].endswith(", mesh 2"),
+                  f"launcher {label}: no mesh tag in {summary}")
+            check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
+                  f"launcher {label}: the ranks' tokens differ")
         in_lines, want = split(buf.getvalue())
         want_lines = [ln for ln in in_lines if ln.startswith("  -> ")]
         print(f"launcher [{card}] {label}: in process, `serve.main` in "
@@ -3356,6 +3377,323 @@ def launcher_phase(dev, card):
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(out, checkpoint_mib=size / 2**20, save_s=save_s)
+
+
+# -- tensor-parallel serving: runs n and o -----------------------------------
+
+# run -> (config, depth (None: full), mesh model size, why the depth)
+MESH_RUNS = {
+    "n": ("repro-100m", None, 2, ""),
+    "o": ("glm4-9b", 4, 4, "chip time and memory: the four ranks share one "
+          "card, and each makes the whole raw bf16 tree before its engine "
+          "keeps and quantizes its blocks"),
+}
+# tokens a request of runs n and o: enough for rank agreement, the gate and
+# every kernel's launches (gloo on one card serves some 70 tokens a second)
+MESH_MAX_NEW = 16
+# run -> mode -> (the run whose prompts and requests it serves, engine
+# keywords, the kernels every rank must launch)
+MESH_MODES = {
+    "n": {
+        "a int8": ("a", {}, ("axllm_matmul.gemv", "axllm_matmul.wgmma",
+                             "decode_attention", "flash_attention",
+                             "flash_attention.wgmma")),
+        "b reuse+paged": ("b", dict(impl="reuse", paged=True,
+                                    kv_block_size=KV_BLOCK),
+                          ("reuse_matmul.gemv", "reuse_matmul.wgmma",
+                           "paged_decode_attention", "flash_attention")),
+        "c lora+reuse+fused": ("c", dict(impl="reuse", fuse_qkv=True),
+                               ("reuse_matmul.gemv", "reuse_matmul.wgmma",
+                                "decode_attention", "flash_attention")),
+    },
+    "o": {
+        "a int8": ("a", {}, ("axllm_matmul.gemv", "axllm_matmul.wgmma",
+                             "flash_attention", "flash_attention.wgmma")),
+    },
+}
+# the rank shapes of runs n and o that no earlier row has: repro-100m at
+# model 2 (wq, wk/wv, wo, gate/up, down, run c's fused wqkv) and glm4-9b at
+# model 4 (wq, wk/wv whole, wo, gate/up, down; the untied head's quarter)
+MESH_MATMULS = {"n": ((768, 384), (768, 128), (384, 768), (768, 1024),
+                      (1024, 768), (768, 640)),
+                "o": ((4096, 1024), (4096, 256), (1024, 4096), (4096, 3424),
+                      (3424, 4096))}
+MESH_HEAD = (4096, 151552 // 4)
+MESH_ATTN = {"n": (6, 2, 64), "o": (8, 1, 128)}    # a rank's q / KV heads
+
+
+def run_c_registry(cfg, dev):
+    """Run c's four rank-16 adapters (``LoRAConfig()``, A and B from numpy
+    seed 3) for ``cfg``, carried in by ``bridge.registry_from_numpy``."""
+    import numpy as np
+    from repro_torch.bridge import registry_from_numpy
+    from repro_torch.core.axllm_linear import LoRAConfig
+    from repro_torch.serve.adapters import target_dims
+    lcfg = LoRAConfig()
+    rng = np.random.default_rng(3)
+    nl, r, n_ad = cfg.n_layers, lcfg.rank, len(ADAPTERS)
+    stacked = {}
+    for t in lcfg.targets:
+        n_in, n_out = target_dims(cfg, t)
+        stacked[t] = {
+            "lora_a": (rng.standard_normal((nl, n_ad, n_in, r))
+                       / np.sqrt(r)).astype(np.float32),
+            "lora_b": (rng.standard_normal((nl, n_ad, r, n_out))
+                       * LORA_B_STD).astype(np.float32)}
+    return registry_from_numpy(cfg, stacked, list(ADAPTERS), lcfg,
+                               device=dev)
+
+
+def mesh_requests(run):
+    """(prompts, adapter names) of run a, b or c."""
+    if run == "b":
+        return run_b_prompts(), [None] * N_REQUESTS
+    cycle = (None,) + ADAPTERS
+    names = [cycle[i % len(cycle)] if run == "c" else None
+             for i in range(N_REQUESTS)]
+    return run_a_prompts(), names
+
+
+def mesh_config(run):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, _, _ = MESH_RUNS[run]
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def collective_probe(mesh, n: int = 50) -> dict:
+    """Host ms a call, on this rank, of what a decode step on a shared card
+    repeats: an all-reduce of a decode step's activation ([8, 768] f32) on
+    the card (gloo stages it through the host) and on the host, and one
+    small op followed by a device sync (the ranks time-share the card)."""
+    import torch
+    import torch.distributed as dist
+    dev = mesh.device
+    x = torch.randn(N_SLOTS, 768, device=dev)
+    h = torch.randn(N_SLOTS, 768)
+    calls = {"all_reduce_card": lambda: dist.all_reduce(x, group=mesh.group),
+             "all_reduce_host": lambda: dist.all_reduce(h, group=mesh.group),
+             "op_and_sync": lambda: (x.mul_(1.0), torch.cuda.synchronize(dev))}
+    out = {}
+    for name, call in calls.items():
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize(dev)
+        dist.barrier(group=mesh.host_group)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) / n * 1e3
+    return out
+
+
+def held_gib(*trees) -> float:
+    """GiB of the tensors ``trees`` hold (QTensors' children, nested dicts),
+    each storage once: an engine's weights and cache, whether it copied
+    them or shares them with its caller."""
+    import dataclasses
+    import torch
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+    for t in trees:
+        walk(t)
+    return total / 2**30
+
+
+def mesh_rank(mesh, run):
+    """One rank of run n or o (spawned by ``launch.mesh.run_ranks``):
+    the config's weights from seed 0 on this rank's card, then each mode's
+    engine on the mesh serving its run's requests, every launch count set
+    to 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg, dev = mesh_config(run), mesh.device
+    params = get_model(cfg).init(seed=0, device=dev)
+    out = {"probe": collective_probe(mesh)}
+    for label, (req_run, kw, _) in MESH_MODES[run].items():
+        prompts, names = mesh_requests(req_run)
+        registry = run_c_registry(cfg, dev) if req_run == "c" else None
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        eng = ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          quantize=True, decode_chunk=DECODE_CHUNK,
+                          adapters=registry, mesh=mesh, device=dev, **kw)
+        engine_gib = held_gib(eng.params, eng.cache)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for p, name in zip(prompts, names):
+            eng.submit(p, max_new=MESH_MAX_NEW, adapter=name)
+        eng.run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        tokens = served_tokens(eng)
+        out[label] = dict(
+            tokens=tokens, launches=dict(_build.LAUNCHES), wall_s=wall,
+            tok_s=sum(map(len, tokens)) / wall,
+            stats={k: v for k, v in eng.stats.as_dict().items()
+                   if k != "prefill_wall_s"},
+            layout={k: getattr(eng._layout, k) for k in
+                    ("heads", "kv_heads", "seq", "mlp", "vocab")},
+            engine_gib=engine_gib,
+            raw_gib=before / 2**30,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def end_to_end_mesh(dev, card, run, ref_tokens):
+    """Run n or o: ``MESH_RUNS[run]``'s config at full width on a (1, P)
+    mesh of P ranks that share the card (gloo: the kernels on the card,
+    each collective through the host), serving each mode's requests. Every
+    rank must serve rank 0's tokens and launch the mode's kernels at its
+    shapes; every token must pass the token gate on the unsharded model
+    (built here, quantized whole); the share of tokens equal to the
+    single-card run of the same requests in this call (``ref_tokens``:
+    {request run: tokens}) is printed. The host figures measure gloo on
+    one card: correctness, not tensor-parallel speed."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.token_gate import token_gate
+    from repro_torch.configs import get_config
+    arch, layers, world, why = MESH_RUNS[run]
+    cfg = mesh_config(run)
+    depth = "full depth" if layers is None else \
+        f"depth cut to {layers} of {get_config(arch).n_layers} layers: {why}"
+    print(f"e2e mesh {run} [{card}]: {arch} at full width (d_model "
+          f"{cfg.d_model}, H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab padded "
+          f"{cfg.padded_vocab}, {cfg.dtype}, int8 per channel), {depth}; "
+          f"{cfg.n_params() / 1e9:.3f} G parameters at this depth; mesh "
+          f"1x{world}, {world} ranks on one card", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # one intra-op thread a rank: the ranks do no host math but the
+    # schedule, and their collectives' host halves share the machine's cores
+    ranks = run_ranks(mesh_rank, world, "cuda", run, threads=1)
+    spawn_wall = time.perf_counter() - t0
+    probe = [r["probe"] for r in ranks]
+    print(f"e2e mesh {run} [{card}]: host ms a call on rank 0 (rank "
+          f"{world - 1}): all-reduce of [8, 768] f32 on the card "
+          f"{probe[0]['all_reduce_card']:.3f} ({probe[-1]['all_reduce_card']:.3f}),"
+          f" on the host {probe[0]['all_reduce_host']:.3f} "
+          f"({probe[-1]['all_reduce_host']:.3f}); an op and a device sync "
+          f"{probe[0]['op_and_sync']:.3f} ({probe[-1]['op_and_sync']:.3f})",
+          flush=True)
+    params = get_model(cfg).init(seed=0, device=dev)
+    out = {"probe_by_rank": probe}
+    for label, (req_run, kw, kernels) in MESH_MODES[run].items():
+        tag = f"e2e mesh {run} {label} [{card}]"
+        res = [r[label] for r in ranks]
+        tokens = res[0]["tokens"]
+        agree = all(r["tokens"] == tokens for r in res)
+        print(f"{tag}: layout {res[0]['layout']}; {sum(map(len, tokens))} "
+              f"tokens, every rank's equal to rank 0's {agree}; "
+              f"{res[0]['tok_s']:.1f} tok/s on rank 0 ({res[0]['wall_s']:.2f}"
+              f" s; gloo on one card: not a tensor-parallel rate); GiB by "
+              f"rank: its engine's weights and cache "
+              f"{[round(r['engine_gib'], 3) for r in res]}, held before it "
+              f"(the whole raw tree) {[round(r['raw_gib'], 3) for r in res]}"
+              f", peak {[round(r['peak_gib'], 3) for r in res]}",
+              flush=True)
+        check(agree, f"mesh {run} {label}: the ranks' tokens differ")
+        for rank, r in enumerate(res):
+            print(f"{tag}: rank {rank} launches {r['launches']}", flush=True)
+            for name in kernels:
+                check(r["launches"].get(name, 0) > 0, f"mesh {run} {label}: "
+                      f"rank {rank} never launched {name}")
+            check(r["stats"] == res[0]["stats"], f"mesh {run} {label}: rank "
+                  f"{rank}'s stats differ")
+        prompts, names = mesh_requests(req_run)
+        registry = run_c_registry(cfg, dev) if req_run == "c" else None
+        plain = ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                            quantize=True, adapters=registry, device=dev,
+                            **{k: v for k, v in kw.items()
+                               if k in ("fuse_qkv", "paged",
+                                        "kv_block_size")})
+        one_card_gib = held_gib(plain.params, plain.cache)
+        impl = "reuse_ref" if kw.get("impl") == "reuse" else "ref"
+        gate = token_gate(cfg, plain.params, prompts, tokens, impl=impl,
+                          tol_rel=LOGIT_TOL, device=dev, registry=registry,
+                          names=names)
+        del plain
+        torch.cuda.empty_cache()
+        ref = ref_tokens.get(req_run)
+        same = None if ref is None else sum(
+            a == b for x, y in zip(tokens, ref) for a, b in zip(x, y)) / max(
+            1, sum(min(len(x), len(y)) for x, y in zip(tokens, ref)))
+        print(f"{tag}: token gate: {gate.positions} positions, "
+              f"{gate.differ} off the plain argmax, smallest slack "
+              f"{gate.min_slack:.4f}; share of tokens equal to the first "
+              f"{MESH_MAX_NEW} of each of run {req_run}'s on one card "
+              f"{same}; the single-card engine of the same mode holds "
+              f"{one_card_gib:.3f} GiB of weights and cache, a rank's "
+              f"{res[0]['engine_gib']:.3f}", flush=True)
+        check(gate.ok, f"mesh {run} {label}: the token gate failed at "
+              f"{gate.failures[:3]}")
+        out[label] = dict(res[0], tokens=None, gate_positions=gate.positions,
+                          gate_off_argmax=gate.differ,
+                          gate_min_slack=gate.min_slack, same_as_one_card=same,
+                          launches_by_rank=[r["launches"] for r in res],
+                          peak_gib_by_rank=[r["peak_gib"] for r in res],
+                          engine_gib_by_rank=[r["engine_gib"] for r in res],
+                          one_card_engine_gib=one_card_gib)
+    del params
+    torch.cuda.empty_cache()
+    print(f"e2e mesh {run} [{card}]: {world} ranks spawned, served and "
+          f"joined in {spawn_wall:.1f} s", flush=True)
+    return dict(out, config=arch, layers=cfg.n_layers, mesh=f"1x{world}",
+                wall_s=spawn_wall)
+
+
+def mesh_kernel_phase(dev, flush):
+    """The rank shapes of runs n and o that earlier rows do not cover: both
+    quantized matmuls at repro-100m's model-2 blocks and axllm_matmul at
+    glm4-9b's model-4 blocks (M8, decode; M4096, a wave) and its head's
+    quarter (M8); decode attention (dense and paged) at a run-n rank's 6/2
+    heads; flash at run n's 6/2 heads of 64 and run o's 8/1 heads of 128."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = []
+    for run, shapes in MESH_MATMULS.items():
+        kernels = ("axllm_matmul", "reuse_matmul") if run == "n" else \
+            ("axllm_matmul",)
+        for kernel in kernels:
+            for m in (N_SLOTS, 4096):
+                for k, n in shapes:
+                    rows.append(matmul_case(kernel, m, k, n, g, dev, flush))
+    rows.append(matmul_case("axllm_matmul", N_SLOTS, *MESH_HEAD, g, dev,
+                            flush))
+    h, hk, d = MESH_ATTN["n"]
+    for paged in (False, True):
+        for quant in (False, True):
+            rows.append(decode_case(paged, h, hk, d, quant, g, dev, flush))
+    for h, hk, d in MESH_ATTN.values():
+        rows += flash_case(h, hk, d, "bfloat16", g, dev, flush)
+    return rows
 
 
 # -- training: the flash backward kernel and run m ---------------------------
@@ -3825,6 +4163,8 @@ def main() -> int:
           "kernel rows")
     rows += flash_bwd_phase(dev, flush)
     stamp("the flash backward kernel phase")
+    rows += mesh_kernel_phase(dev, flush)
+    stamp("the mesh runs' kernel rows")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
@@ -3849,6 +4189,11 @@ def main() -> int:
     stamp("run audio")
     e2e["launcher"] = launcher_phase(dev, card)
     stamp("launcher phase")
+    e2e["mesh n"] = end_to_end_mesh(dev, card, "n", {
+        "a": dense_tokens, "b": reuse_paged_tokens})
+    stamp("run n")
+    e2e["mesh o"] = end_to_end_mesh(dev, card, "o", {})
+    stamp("run o")
     e2e["train"] = end_to_end_train(dev, card)              # run m
     stamp("run train")
     e2e["train launcher"] = train_launcher_phase(dev, card)
@@ -3871,9 +4216,14 @@ def main() -> int:
             launches_families={r: e2e[r]["launches"].get(name, 0)
                                for r in (*FAMILY_RUNS, "audio")},
             # the launcher phase's in-process serve.main, one per mode
+            # (the mesh run's rank 0)
             launches_launcher={r: v["launches"].get(name, 0)
                                for r, v in e2e["launcher"].items()
                                if r in LAUNCH_RUNS},
+            # runs n and o by mode, rank 0's (every rank's in the details)
+            launches_mesh={f"mesh {r}": {
+                mode: e2e[f"mesh {r}"][mode]["launches"].get(name, 0)
+                for mode in MESH_MODES[r]} for r in MESH_RUNS},
             # run m's in-process launch.train.main
             launches_train=e2e["train"]["launches"].get(name, 0)))
         if name in ("axllm_matmul", "reuse_matmul"):

@@ -177,17 +177,24 @@ def unpack_int4(packed: torch.Tensor, out_dim: int) -> torch.Tensor:
 # Quantize / dequantize
 # ---------------------------------------------------------------------------
 
-def quantize(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
+def quantize(w: torch.Tensor, cfg: QuantConfig,
+             amax: Optional[torch.Tensor] = None) -> QTensor:
     """Quantize a weight of shape [..., in, out] per ``cfg``.
 
     A stacked weight is quantized one leading entry at a time (every scale
     reduces within one matrix, so the result is the same): the f32
     temporaries of a whole stacked leaf, such as a full-width expert bank
-    of 2.2 G weights, would not fit on the card beside the model."""
+    of 2.2 G weights, would not fit on the card beside the model.
+
+    ``amax`` (per channel or per tensor: the float32 max of ``|w|`` over
+    the scale's reduced dims, keepdim) replaces the max ``w`` itself
+    gives: a block of a weight cut along its rows quantizes with the whole
+    weight's scale."""
     if w.ndim < 2:
         raise ValueError("quantize expects [..., in, out]")
     if w.ndim > 2:
-        parts = [quantize(w[i], cfg) for i in range(w.shape[0])]
+        parts = [quantize(w[i], cfg, None if amax is None else amax[i])
+                 for i in range(w.shape[0])]
         return dataclasses.replace(
             parts[0], codes=torch.stack([q.codes for q in parts]),
             scale=torch.stack([q.scale for q in parts]),
@@ -207,7 +214,9 @@ def quantize(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
         nd = w.ndim
         dims = (nd - 2, nd - 1) if cfg.granularity == "per_tensor" \
             else (nd - 2,)
-        scale = torch.clamp(w.abs().amax(dim=dims, keepdim=True), min=eps)
+        if amax is None:
+            amax = w.abs().amax(dim=dims, keepdim=True)
+        scale = torch.clamp(amax, min=eps)
         normed = w / scale
 
     if cfg.mode == "codebook" and cfg.bits == 4:
@@ -257,6 +266,38 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     else:
         w = normed * qt.scale
     return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cutting (tensor-parallel blocks)
+# ---------------------------------------------------------------------------
+
+def qslice(qt: QTensor, codes: torch.Tensor, scale: torch.Tensor) -> QTensor:
+    """The QTensor of a block of ``qt``: ``codes`` and ``scale`` are the
+    block's children, cut out of ``qt``'s (``dist.sharding.local_shard``).
+
+    The logical shape follows the codes (packed int4 codes hold two columns
+    a byte, so they are cut in whole bytes). A per-channel scale must have
+    been cut with its output columns and a per-group scale's group rows with
+    the codes' input rows; a block whose scale does not cover its codes
+    raises, rather than scale a column or a group by another's value. The
+    codebook stays whole and the kernel scale is derived again."""
+    n = codes.shape[-1] * (2 if qt.packed else 1)
+    shape = (*codes.shape[:-1], n)
+    if qt.granularity == "per_group":
+        ok = (scale.shape[-1] == n
+              and scale.shape[-3] * qt.group_size == shape[-2])
+    elif qt.granularity == "per_channel":
+        ok = scale.shape[-1] == n
+    else:
+        ok = scale.shape[-1] == 1
+    if not ok or scale.shape[:-3 if qt.granularity == "per_group" else -2] \
+            != codes.shape[:-2]:
+        raise ValueError(
+            f"a {qt.granularity} scale {tuple(scale.shape)} does not cover "
+            f"codes {tuple(codes.shape)} (logical {shape})")
+    return dataclasses.replace(qt, codes=codes, scale=scale, shape=shape,
+                               kernel_scale=None)
 
 
 # ---------------------------------------------------------------------------

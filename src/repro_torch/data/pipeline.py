@@ -129,6 +129,6 @@ def shard_batch(batch: Dict[str, np.ndarray], mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "shard_batch(mesh=): sharding a batch over a mesh is not ported "
-            "yet (ROADMAP queue 1 item 12)")
+            "yet (ROADMAP queue 1 item 12c)")
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

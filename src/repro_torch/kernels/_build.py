@@ -5,7 +5,9 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 repository's ``build/`` directory at its first use, and loaded with
 ``ctypes``. The library's file name carries a hash of its sources and
 flags, so an edited source is rebuilt and a stale build is never loaded.
-``build()`` starts one ``nvcc`` per source, all at once.
+``build()`` starts one ``nvcc`` per source, all at once, under a file
+lock: ranks that reach a fresh tree together (``torchrun``) build each
+library once, and the others wait for it and load it.
 
 A library may hold more than one entry point: ``<library>.<path>`` names
 a second one (``axllm_matmul.wgmma``, ``flash_attention.wgmma``: the
@@ -20,7 +22,9 @@ path went through the kernels, and through which of them.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -99,11 +103,29 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory (released when the
+    process ends, so a killed build leaves none behind)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` per source in parallel. Returns the compiler output (register
-    and spill counts from ``-Xptxas -v``) of each library it built."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ``nvcc`` per source in parallel, holding the build lock. Returns the
+    compiler output (register and spill counts from ``-Xptxas -v``) of
+    each library it built."""
+    with _build_lock():
+        return _build(names)
+
+
+def _build(names) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = target(name)

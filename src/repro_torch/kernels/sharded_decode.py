@@ -1,0 +1,108 @@
+"""Sequence-sharded decode attention: fused cache update and flash-decode
+with a cross-rank softmax combine (PyTorch port of the JAX package's
+``kernels/sharded_decode.py``, which is ``shard_map`` code in plain
+``jnp``, not a Pallas kernel).
+
+Why: when the KV heads are too few to cut over the "model" axis (glm4-9b
+has 2), the dense cache is cut along its sequence axis instead. Then:
+
+  * every rank owns rows [lo, hi) of the sequence; the new token's K/V
+    (and its int8 scales) is written only by the owner, in place;
+  * each rank computes a partial flash-decode (m, l, acc) over its rows;
+  * the combine is the flash-decode reduction: m* = all-reduce MAX of m,
+    then l* = SUM of l e^{m - m*} and acc* = SUM of acc e^{m - m*} (one
+    all-reduce of both); communication is O(B H d) a layer, not O(B S Hk d).
+
+A row of length 0 gives exactly 0 (acc / max(l, 1e-30)). The body is plain
+PyTorch, as JAX's is plain ``jnp``: a partial-output mode of the decode
+kernel (m and l beside acc) would put it on the card's kernel (ROADMAP 2b).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tp
+
+NEG_INF = -1e30
+
+
+def _local_update(cache: torch.Tensor, new_val: torch.Tensor,
+                  pos: torch.Tensor, lo: int) -> None:
+    """Write new_val [B, Hk, d] at sequence row pos[b] - lo of the local
+    cache [B, S_loc, Hk, d], in place, where this rank owns it."""
+    s_local = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    local = pos.long() - lo
+    owned = ((local >= 0) & (local < s_local))[:, None, None]
+    idx = torch.clamp(local, 0, s_local - 1)
+    cache[rows, idx] = torch.where(owned, new_val.to(cache.dtype),
+                                   cache[rows, idx])
+
+
+def _partial_attend(q, k, v, k_scale, v_scale, lo, length, scale):
+    """Local flash-decode over this rank's rows. q: [B, H, d]; k/v: [B,
+    S_loc, Hk, d]; returns (m [B, H], l [B, H], acc [B, H, d]) in f32."""
+    b, h, d = q.shape
+    s_loc, hk = k.shape[1], k.shape[2]
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale
+        vf = vf * v_scale
+    qg = q.to(torch.float32).reshape(b, hk, h // hk, d)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, kf).reshape(b, h, s_loc) * scale
+    kpos = lo + torch.arange(s_loc, device=q.device)
+    valid = kpos[None, None, :] < length.to(q.device)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * valid.to(torch.float32)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgrs,bsgd->bgrd", p.reshape(b, hk, h // hk, s_loc),
+                       vf).reshape(b, h, d)
+    return m, l, acc
+
+
+def decode_attention_seqsharded(q, k_cache, v_cache, new_k, new_v, pos,
+                                length, mesh, seq_axes: Tuple[str, ...],
+                                batch_axes: Tuple[str, ...],
+                                k_scale=None, v_scale=None,
+                                new_k_scale=None, new_v_scale=None):
+    """Fused update and attend on this rank's block. Shapes: q: [B, H, d]
+    (all heads, on every rank); new_k, new_v: [B, Hk, d]; caches: the
+    rank's rows [B, S/P, Hk, d] of the [B, S, Hk, d] cache (int8 codes with
+    f32 scales [B, S/P, Hk, 1] when quantized); pos, length: [B]. The
+    caches are updated in place. Returns (out [B, H, d], k_cache, v_cache)
+    and, quantized, the two scale caches after them: JAX's results.
+
+    ``mesh`` is the rank's ``launch.mesh.Mesh``; the sequence is cut over
+    its "model" axis (``seq_axes == ("model",)``, no batch axes: serving
+    meshes have data 1)."""
+    if tuple(seq_axes) != ("model",) or tuple(batch_axes):
+        raise NotImplementedError(
+            f"sequence axes {seq_axes} and batch axes {batch_axes}: the "
+            "port cuts the sequence over 'model' only (a data axis is "
+            "ROADMAP queue 1 item 12b)")
+    d = q.shape[-1]
+    s_local = k_cache.shape[1]
+    lo = shd.mesh_coords(mesh, mesh.rank)["model"] * s_local
+    quantized = k_scale is not None
+    _local_update(k_cache, new_k, pos, lo)
+    _local_update(v_cache, new_v, pos, lo)
+    if quantized:
+        _local_update(k_scale, new_k_scale, pos, lo)
+        _local_update(v_scale, new_v_scale, pos, lo)
+    m, l, acc = _partial_attend(q, k_cache, v_cache, k_scale, v_scale, lo,
+                                length, 1.0 / (d ** 0.5))
+    m_g = tp.all_reduce_max(m, mesh)
+    corr = torch.exp(m - m_g)
+    both = torch.cat([acc * corr[..., None], (l * corr)[..., None]], -1)
+    both = tp.all_reduce_sum(both, mesh)
+    acc, l = both[..., :d], both[..., d]
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    if quantized:
+        return out, k_cache, v_cache, k_scale, v_scale
+    return out, k_cache, v_cache
+

@@ -30,27 +30,47 @@ are the lines it prints. Of note:
   --speculate       self-speculative decoding (--spec-k, --draft-bits,
                     --draft-mode)
   --stats           the engine's stats as JSON
+  --mesh-shape N    tensor-parallel serving over N ranks ('1xN'; a data
+                    axis above 1 is ROADMAP queue 1 item 12b)
 
-As in the JAX launcher, ``--mesh-shape`` above 1 raises (here: no
-tensor-parallel serving on one card, ROADMAP queue 1 item 12) and an
-encoder-decoder ``--arch`` (whisper-small) raises the engine's error. The
-launcher runs on the card, and fails where there is none; a caller may
-ask for the CPU with ``main(argv, device="cpu")`` (a Python keyword, not
-a flag), as the tests do.
+As in the JAX launcher, ``--mesh-shape`` above 1 serves on a mesh, and
+its summary line carries a ``, mesh N`` tag. Under ``torchrun`` (``RANK``
+and ``WORLD_SIZE`` set) each process joins the group as one rank;
+otherwise the launcher spawns its N ranks itself
+(``launch.mesh.run_ranks``; NCCL with a card per rank, gloo when ranks
+share a card). Every rank serves the same requests and rank 0 prints;
+``--ckpt`` restores onto the shards (each rank reads its block of every
+leaf the layout cuts, and the engine quantizes its blocks; with a
+shiftadd draft, derived from the whole weights, they restore whole). An
+encoder-decoder ``--arch``
+(whisper-small) raises the engine's error. The launcher runs on the card,
+and fails where there is none; a caller may ask for the CPU with
+``main(argv, device="cpu")`` (a Python keyword, not a flag), as the tests
+do.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh-shape 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh-shape 2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
-import math
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import apply_overrides, get_config
-from repro_torch.launch.mesh import make_serve_mesh, parse_mesh_shape
+from repro_torch.core.quantization import QuantConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.kernels import _build
+from repro_torch.launch.mesh import (init_from_env, make_serve_mesh,
+                                     parse_mesh_shape, run_ranks)
 from repro_torch.models.model import get_model
 from repro_torch.optim import adamw
 from repro_torch.serve.adapters import make_synthetic_adapters
@@ -178,6 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, device="cuda"):
+    """Serve as the flags say; returns, for a mesh this call spawned, each
+    rank's result (see :func:`_rank`), else None."""
     args = build_parser().parse_args(argv)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -185,8 +207,45 @@ def main(argv=None, device="cuda"):
                            "torch.cuda.is_available() is false (callers "
                            "that want the CPU pass main(argv, "
                            "device='cpu'))")
-    if math.prod(parse_mesh_shape(args.mesh_shape)) > 1:
-        make_serve_mesh(args.mesh_shape)    # raises: no mesh on one card
+    data, model = parse_mesh_shape(args.mesh_shape)
+    if data > 1:                        # before any rank is started
+        raise NotImplementedError(
+            f"--mesh-shape {args.mesh_shape}: a 'data' axis above 1 in "
+            "serving waits for ROADMAP queue 1 item 12b")
+    if data * model == 1:
+        serve(args, device)
+        return None
+    rank_device = init_from_env(device)
+    if rank_device is not None:         # one rank of torchrun's group
+        serve(args, rank_device,
+              make_serve_mesh(args.mesh_shape, device=rank_device))
+        return None
+    argv = sys.argv[1:] if argv is None else list(argv)
+    results = run_ranks(_rank, data * model, device, argv,
+                        mesh_shape=(data, model))
+    print(results[0]["out"], end="")
+    return results
+
+
+def _rank(mesh, argv):
+    """One spawned rank: serve, and return rank 0's printed lines
+    (``out``), this rank's kernel launches and every request's tokens."""
+    _build.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        reqs = serve(build_parser().parse_args(argv), mesh.device, mesh)
+    return {"out": buf.getvalue(), "launches": dict(_build.LAUNCHES),
+            "tokens": [[int(t) for t in r.tokens] for r in reqs]}
+
+
+def serve(args, device, mesh=None):
+    """The launcher's body on ``device``, on ``mesh`` when given (each
+    rank runs it; rank 0 prints). Returns the finished requests."""
+    rank0 = mesh is None or mesh.rank == 0
+
+    def say(*a, **k):
+        if rank0:
+            print(*a, **k)
 
     cfg = get_config(args.arch)
     overrides = dict(kv.split("=", 1) for kv in args.set)
@@ -200,9 +259,24 @@ def main(argv=None, device="cuda"):
     params = api.init(seed=0, device=device)
     if args.ckpt and C.latest_step(args.ckpt) is not None:
         opt = adamw.init(params, adamw.AdamWConfig())
+        shardings = None
+        if mesh is not None and not (args.speculate
+                                     and args.draft_mode == "shiftadd"):
+            # each rank reads its blocks (a shiftadd draft is derived
+            # from the whole weights: those restore whole)
+            _, lay, whole = ServeEngine.mesh_layout(
+                cfg, mesh, params, n_slots=args.slots, max_len=args.max_len,
+                paged=args.paged, quant=None if args.no_quantize else
+                QuantConfig(bits=cfg.quant_bits if args.quant_bits is None
+                            else args.quant_bits, mode=args.quant_mode),
+                speculate=args.speculate, draft_bits=args.draft_bits,
+                draft_mode=args.draft_mode)
+            if lay is not None:
+                shardings = (tp.layout_specs(whole, shd.param_specs(
+                    whole, lay.mesh, lay.rules), lay), None)
         (params, _), step = C.restore(args.ckpt, (params, opt),
-                                      device=device)
-        print(f"restored step {step} from {args.ckpt}")
+                                      shardings=shardings, device=device)
+        say(f"restored step {step} from {args.ckpt}")
 
     eos_id = args.eos_id
     if eos_id is not None and eos_id < 0:
@@ -217,7 +291,7 @@ def main(argv=None, device="cuda"):
             targets=tuple(t for t in args.lora_targets.split(",") if t),
             max_loras=args.max_loras, device=device)
         adapter_cycle = [None] + names
-        print(f"registered {len(names)} LoRA adapters "
+        say(f"registered {len(names)} LoRA adapters "
               f"(rank {args.lora_rank}, targets {args.lora_targets}); "
               f"requests cycle over base + {names}")
 
@@ -237,7 +311,8 @@ def main(argv=None, device="cuda"):
                       speculate=args.speculate, spec_k=args.spec_k,
                       draft_bits=args.draft_bits,
                       draft_mode=args.draft_mode,
-                      prefill_budget=args.prefill_budget, device=device)
+                      prefill_budget=args.prefill_budget, mesh=mesh,
+                      device=device)
     rng = np.random.default_rng(0)
     lens = [int(x) for x in args.prompt_lens.split(",") if x]
     prompts = [rng.integers(0, cfg.vocab_size,
@@ -263,6 +338,8 @@ def main(argv=None, device="cuda"):
         i = 0
         while True:
             now = time.time() - t0
+            if mesh is not None:        # one arrival clock for every rank
+                now = tp.broadcast_host(now, mesh)
             while i < len(prompts) and at[i] <= now:
                 eng.submit(prompts[i], max_new=args.max_new,
                            adapter=adapters[i],
@@ -297,32 +374,33 @@ def main(argv=None, device="cuda"):
         + ("+reuse" if args.reuse else ""))
     lora_tag = f", {eng.stats.lora_requests} LoRA requests" if args.lora \
         else ""
-    print(f"[{mode}] {len(reqs)} requests, {toks} tokens, "
-          f"{toks/dt:.1f} tok/s, occupancy "
-          f"{eng.stats.mean_occupancy:.2f}{lora_tag}")
+    mesh_tag = f", mesh {args.mesh_shape}" if mesh is not None else ""
+    say(f"[{mode}] {len(reqs)} requests, {toks} tokens, "
+        f"{toks/dt:.1f} tok/s, occupancy "
+        f"{eng.stats.mean_occupancy:.2f}{lora_tag}{mesh_tag}")
     st = eng.stats
     if args.arrival_rate:
-        print(f"  open-loop [{args.arrival_rate}, admission="
+        say(f"  open-loop [{args.arrival_rate}, admission="
               f"{args.admission}]: rejected={st.rejected} "
               f"expired={st.expired} preempted={st.preempted} "
               f"restored={st.restored} ({st.fast_restores} fast)")
     if args.stream:
-        print(f"  streaming: {streamed['tokens']} tokens emitted across "
+        say(f"  streaming: {streamed['tokens']} tokens emitted across "
               f"{len(streamed['streams'])} streams at chunk harvest "
               f"(cancelled={st.cancelled}, expired={st.expired})")
     if args.prefill_budget:
-        print(f"  chunked prefill [budget={args.prefill_budget}]: "
+        say(f"  chunked prefill [budget={args.prefill_budget}]: "
               f"{st.prefill_chunks} chunks over {st.prefill_waves} waves, "
               f"{st.preempted_prefill} mid-prefill preemptions")
     if args.speculate:
-        print(f"  speculative [k={args.spec_k}, "
+        say(f"  speculative [k={args.spec_k}, "
               f"{args.draft_mode}{args.draft_bits} draft]: "
               f"{st.accepted_draft_tokens}/{st.drafted_tokens} drafts "
               f"accepted ({st.acceptance_rate:.2f}), "
               f"{st.accepted_tokens_per_step:.2f} tokens/slot-round "
               f"over {st.spec_rounds} rounds")
     if args.paged:
-        print(f"  paged: {st.prefix_hit_tokens} prefix-hit tokens, "
+        say(f"  paged: {st.prefix_hit_tokens} prefix-hit tokens, "
               f"{st.blocks_in_use} blocks cached, "
               f"{st.cow_copies} CoW copies "
               f"(block={args.kv_block_size}, "
@@ -330,9 +408,10 @@ def main(argv=None, device="cuda"):
     for r in reqs[:3]:
         tag = " [truncated]" if r.truncated else ""
         ad = f" [{r.adapter}]" if r.adapter else ""
-        print(f"  -> {r.tokens[:12]}{tag}{ad}")
+        say(f"  -> {r.tokens[:12]}{tag}{ad}")
     if args.stats:
-        print(json.dumps(eng.stats.as_dict(), indent=2, sort_keys=True))
+        say(json.dumps(eng.stats.as_dict(), indent=2, sort_keys=True))
+    return reqs
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ writes (``train/checkpoint.py``, the JAX layout) are what
 
 One card is a mesh of one: ``--mesh auto`` and any shape whose sizes
 multiply to 1 run; a larger mesh and ``--distributed`` raise until
-distribution is ported (ROADMAP queue 1 item 12).
+distribution is ported (ROADMAP queue 1 item 12c).
 
 The step is deterministic on the card, so a run that crashes and resumes
 from a checkpoint ends bit-equal to one that did not:
@@ -73,7 +73,7 @@ def build_mesh(spec: str) -> dict:
     if math.prod(dims) != 1:
         raise NotImplementedError(
             f"a {spec} training mesh: sharded training is not ported yet "
-            "(ROADMAP queue 1 item 12); one card is a mesh of one")
+            "(ROADMAP queue 1 item 12c); one card is a mesh of one")
     return dict(zip(axes, dims))
 
 
@@ -102,7 +102,7 @@ def configure(args):
     if args.distributed:
         raise NotImplementedError(
             "--distributed: multi-host training is not ported yet (ROADMAP "
-            "queue 1 item 12)")
+            "queue 1 item 12c)")
     cfg = get_config(args.arch)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:

@@ -10,6 +10,14 @@ The block-paged variant (:func:`init_paged_cache`) keeps KV in a pool
 shared by every slot, {"k"/"v": [L, NB, bs, Hk, hd]} (+ scales), with
 per-slot "block_tables" [B, MB]; decode reads and writes it through the
 tables (:func:`attention_decode_paged`).
+
+Under a tensor-parallel layout (``dist/tensor_parallel.py``, bound by the
+serving engine's mesh) a rank projects its own q heads and, when the KV
+heads divide the mesh, its own KV heads into its block of the cache; wo is
+row-parallel and ends the block in one all-reduce. When the KV heads stay
+whole, prefill reads the KV heads its q heads need, and decode gathers q
+over all heads, attends (through ``kernels.sharded_decode`` when the cache
+is cut along its sequence) and keeps its heads of the output.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 
 from repro_torch.core.axllm_linear import (concat_weights, linear,
                                            lora_delta_batched)
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -77,7 +86,7 @@ def _project_qkv(p, x, cfg, impl, adapters=None, adapter_idx=None,
     per-row LoRA delta to its column block; the base matmul is untouched.
     """
     b, s, _ = x.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    (h, hk), hd = tp.local_heads(cfg, tp.active()), cfg.resolved_head_dim
     if "wqkv" in p:
         qkv = linear(x, p["wqkv"], impl=impl)
         if "wqkv_bias" in p:
@@ -196,10 +205,53 @@ def _kv_entries(cfg, k, v):
     return {"k": k, "v": v}
 
 
-def _wo_project(p, out, impl, adapters, adapter_idx, lora_scaling):
-    """Output projection with the gathered LoRA delta of wo, if any."""
-    return _lora(linear(out, p["wo"], impl=impl), out, adapters, "wo",
-                 adapter_idx, lora_scaling)
+def _wo_project(p, out, impl, adapters, adapter_idx, lora_scaling, cfg):
+    """Output projection with the gathered LoRA delta of wo, if any. Under
+    a layout that cuts the heads wo is row-parallel: a rank adds its
+    heads' rows of the delta, ``(x_r @ A[rows_r]) @ B``, to its partial
+    product, and the block's one all-reduce sums both."""
+    lay = tp.active()
+    if lay is None or not lay.heads:
+        return _lora(linear(out, p["wo"], impl=impl), out, adapters, "wo",
+                     adapter_idx, lora_scaling)
+    y = linear(out, p["wo"], impl=impl, out_dtype=torch.float32)
+    if adapters is not None and "wo" in adapters:
+        lo, n = tp.head_range(cfg, lay)
+        hd = cfg.resolved_head_dim
+        a = adapters["wo"]["lora_a"]
+        rows = {"lora_a": a.narrow(-2, lo * hd, n * hd),
+                "lora_b": adapters["wo"]["lora_b"]}
+        y = y + lora_delta_batched(out, rows, adapter_idx, lora_scaling)
+    return tp.all_reduce_sum(y, lay.mesh).to(out.dtype)
+
+
+def _regroup(lay) -> bool:
+    """Whether this rank's q heads are a subset of whole KV heads that it
+    holds all of (KV heads not cut, q heads cut)."""
+    return lay is not None and lay.heads and not lay.kv_heads
+
+
+def _decode_whole_heads(lay) -> bool:
+    """Whether decode attends over all q heads (gathered when cut): the
+    cache's KV heads are not this rank's own."""
+    return lay is not None and not lay.kv_heads and (lay.heads or lay.seq)
+
+
+def _gather_heads(q, lay):
+    """[B, 1, h, d] of each rank's heads -> [B, 1, H, d] on every rank."""
+    if not lay.heads:
+        return q
+    b, s, h, d = q.shape
+    return tp.gather_last(q.reshape(b, s, h * d), lay.mesh).reshape(
+        b, s, -1, d)
+
+
+def _own_heads(out, cfg, lay):
+    """The rank's q heads of an all-heads output [B, H, d]."""
+    if not lay.heads:
+        return out
+    lo, n = tp.head_range(cfg, lay)
+    return out[:, lo:lo + n]
 
 
 def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
@@ -229,18 +281,25 @@ def attention_prefill(p, x, cfg, layer_cache, *, impl: str = "auto",
                            lora_scaling)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    lay = tp.active()
+    regroup = _regroup(lay)
+    ka, va = (tp.kv_for_heads(k, cfg, lay), tp.kv_for_heads(v, cfg, lay)) \
+        if regroup else (k, v)
     if prefix is None:
-        out = ops.flash_attention(q, k, v, causal=True, impl=impl)
+        out = ops.flash_attention(q, ka, va, causal=True, impl=impl)
     else:
         kp, vp = prefix["k"], prefix["v"]
         if cfg.quant_kv:      # the pool holds int8 codes + scales
             kp = kp.to(torch.float32) * prefix["k_scale"]
             vp = vp.to(torch.float32) * prefix["v_scale"]
-        out = ops.prefix_attention(q, kp, vp, prefix_len, k, v, impl=impl)
+        if regroup:
+            kp, vp = tp.kv_for_heads(kp, cfg, lay), tp.kv_for_heads(vp, cfg,
+                                                                     lay)
+        out = ops.prefix_attention(q, kp, vp, prefix_len, ka, va, impl=impl)
     for name, new in _kv_entries(cfg, k, v).items():
         layer_cache[name][:, :s] = new.to(layer_cache[name].dtype)
     return _wo_project(p, out.reshape(b, s, -1), impl, adapters, adapter_idx,
-                       lora_scaling)
+                       lora_scaling, cfg)
 
 
 def _write_at(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
@@ -269,15 +328,34 @@ def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto",
                            lora_scaling)                # [B, 1, ...]
     q = L.rope(q, pos[:, None], cfg.rope_theta)
     k = L.rope(k, pos[:, None], cfg.rope_theta)
-    for name, new in _kv_entries(cfg, k, v).items():
-        _write_at(layer_cache[name], pos, new[:, 0])
+    lay = tp.active()
+    whole = _decode_whole_heads(lay)
+    if whole:
+        q = _gather_heads(q, lay)
     length = (pos + 1).to(torch.int32)
-    out = ops.decode_attention(
-        q[:, 0], layer_cache["k"], layer_cache["v"], length,
-        k_scale=layer_cache.get("k_scale"),
-        v_scale=layer_cache.get("v_scale"), impl=impl)
+    entries = _kv_entries(cfg, k, v)
+    if lay is not None and lay.seq:
+        # the cache's sequence is cut over the ranks: the owner writes,
+        # every rank attends over its rows, the partials combine
+        from repro_torch.kernels import sharded_decode as SD
+        new = {name: t[:, 0] for name, t in entries.items()}
+        out = SD.decode_attention_seqsharded(
+            q[:, 0], layer_cache["k"], layer_cache["v"], new["k"], new["v"],
+            pos, length, lay.mesh, ("model",), (),
+            k_scale=layer_cache.get("k_scale"),
+            v_scale=layer_cache.get("v_scale"),
+            new_k_scale=new.get("k_scale"), new_v_scale=new.get("v_scale"))[0]
+    else:
+        for name, new in entries.items():
+            _write_at(layer_cache[name], pos, new[:, 0])
+        out = ops.decode_attention(
+            q[:, 0], layer_cache["k"], layer_cache["v"], length,
+            k_scale=layer_cache.get("k_scale"),
+            v_scale=layer_cache.get("v_scale"), impl=impl)
+    if whole:
+        out = _own_heads(out, cfg, lay)
     return _wo_project(p, out.reshape(b, 1, -1), impl, adapters, adapter_idx,
-                       lora_scaling)
+                       lora_scaling, cfg)
 
 
 def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
@@ -310,9 +388,15 @@ def attention_decode_paged(p, x, cfg, layer_pool, pos, block_tables, *,
     off = torch.where(in_range, pos % bs, 0).long()
     for name, new in _kv_entries(cfg, k, v).items():
         layer_pool[name][bid, off] = new[:, 0].to(layer_pool[name].dtype)
+    lay = tp.active()
+    whole = _decode_whole_heads(lay)
+    if whole:
+        q = _gather_heads(q, lay)
     out = ops.decode_attention(
         q[:, 0], layer_pool["k"], layer_pool["v"], (pos + 1).to(torch.int32),
         k_scale=layer_pool.get("k_scale"), v_scale=layer_pool.get("v_scale"),
         block_tables=block_tables, impl=impl)
+    if whole:
+        out = _own_heads(out, cfg, lay)
     return _wo_project(p, out.reshape(b, 1, -1), impl, adapters, adapter_idx,
-                       lora_scaling)
+                       lora_scaling, cfg)

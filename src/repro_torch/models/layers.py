@@ -15,6 +15,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.axllm_linear import concat_weights, linear
 from repro_torch.core.quantization import QTensor, dequantize
+from repro_torch.dist import tensor_parallel as tp
 
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
@@ -93,7 +94,20 @@ def fuse_mlp_params(p):
     return p2
 
 
+def row_parallel(x, w, impl: str, lay) -> torch.Tensor:
+    """``linear(x, w)`` for a row-parallel weight: with a layout (``lay``),
+    each rank's partial product in float32, summed over the ranks by one
+    all-reduce and cast to x's type once."""
+    if lay is None:
+        return linear(x, w, impl=impl)
+    y = linear(x, w, impl=impl, out_dtype=torch.float32)
+    return tp.all_reduce_sum(y, lay.mesh).to(x.dtype)
+
+
 def mlp_fwd(p, x, cfg, impl: str = "auto"):
+    """The MLP block; under a tensor-parallel layout that cuts it, gate/up
+    hold the rank's d_ff columns and down its rows (one all-reduce)."""
+    lay = tp.active()
     if "gate_up" in p:   # fused: one activation pass over [d, 2·d_ff]
         g, u = torch.chunk(linear(x, p["gate_up"], impl=impl), 2, dim=-1)
         h = F.silu(g) * u
@@ -102,7 +116,8 @@ def mlp_fwd(p, x, cfg, impl: str = "auto"):
             * linear(x, p["up"], impl=impl)
     else:   # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(linear(x, p["up"], impl=impl), approximate="tanh")
-    return linear(h, p["down"], impl=impl)
+    return row_parallel(h, p["down"], impl,
+                        lay if lay is not None and lay.mlp else None)
 
 
 # ---------------------------------------------------------------------------
@@ -138,18 +153,30 @@ def init_embed(gen, cfg, dtype=torch.float32):
 
 
 def embed_fwd(p, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows; under a layout that cuts the vocabulary, each rank
+    reads the ids in its range and one all-reduce completes the rows."""
+    lay = tp.active()
+    if lay is not None and lay.vocab:
+        return tp.vocab_embed(p["embedding"], tokens, lay)
     return p["embedding"][tokens]
 
 
 def head_fwd(p, x, cfg, impl: str = "auto"):
     """Logits over the padded vocab. The tied head is a plain product on
-    the (dense) embedding, as in the JAX package; it runs no AxLLM kernel."""
+    the (dense) embedding, as in the JAX package; it runs no AxLLM kernel.
+    Under a layout that cuts the vocabulary, each rank computes its columns
+    and the logits are gathered on every rank."""
     if cfg.tie_embeddings:
         w = p["embedding"]
         if isinstance(w, QTensor):
             w = dequantize(w, x.dtype)
-        return torch.matmul(x, w.T.to(x.dtype))
-    return linear(x, p["lm_head"], impl=impl)
+        logits = torch.matmul(x, w.T.to(x.dtype))
+    else:
+        logits = linear(x, p["lm_head"], impl=impl)
+    lay = tp.active()
+    if lay is not None and lay.vocab:
+        logits = tp.gather_last(logits, lay.mesh)
+    return logits
 
 
 def cross_entropy(logits, targets, vocab_size: int):

@@ -19,7 +19,9 @@ leaf is refused, since quantizing the delta would merge the two
 pipelines.
 
 ``add``/``evict`` swap adapters between waves in place: the stacked
-shapes never change. The engine ``acquire``s an adapter at ``submit`` and
+shapes never change. On a mesh, :meth:`place` keeps this rank's block of
+the stacked tensors, and later swaps cut each incoming adapter the same
+way. The engine ``acquire``s an adapter at ``submit`` and
 ``release``s it when the request finishes, so evicting an adapter that
 requests still hold raises.
 """
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core.axllm_linear import LoRAConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.dist import sharding as shd
 
 #: targets the serve path can apply (the attention projections)
 SUPPORTED_TARGETS = ("wq", "wk", "wv", "wo")
@@ -83,6 +86,7 @@ class AdapterRegistry:
             }
         self._names: List[Optional[str]] = [None] * max_loras
         self._refs: List[int] = [0] * max_loras
+        self._specs = None      # the mesh placement, once placed
 
     # -- introspection --------------------------------------------------------
     @property
@@ -159,8 +163,16 @@ class AdapterRegistry:
         # rows are zero from __init__ and evict)
         for t in adapter:
             for key in ("lora_a", "lora_b"):
-                self._stacked[t][key][:, row] = torch.as_tensor(
-                    adapter[t][key]).to(device=self.device, dtype=self.dtype)
+                new = torch.as_tensor(adapter[t][key]).to(
+                    device=self.device, dtype=self.dtype)
+                if self._specs is not None:
+                    # [L, n_in, r] / [L, r, n_out]: the placement's spec
+                    # without its max_loras entry
+                    s = self._specs[t][key]
+                    spec = tuple(s.spec) + (None,) * (4 - len(s.spec))
+                    new = shd.local_shard(new, spec[:1] + spec[2:], s.mesh,
+                                          s.mesh.rank)
+                self._stacked[t][key][:, row] = new
         self._names[row] = name
         self._refs[row] = 0
 
@@ -195,10 +207,19 @@ class AdapterRegistry:
         self._refs[row] = 0
 
     def place(self, specs) -> None:
-        """Mesh placement of the stacked tensors; tensor-parallel serving
-        is not ported yet (ROADMAP queue 1 item 12)."""
-        raise NotImplementedError("adapter placement on a mesh is not "
-                                  "ported yet (ROADMAP queue 1 item 12)")
+        """Keep this rank's block of the stacked tensors under ``specs``
+        ({target: {"lora_a": NamedSharding, "lora_b": ...}}, as
+        ``dist.sharding.adapter_specs`` or the engine's layout gives; each
+        sharding's mesh says the rank), once, at engine init. Later
+        ``add``/``evict`` cut each incoming adapter the same way, so the
+        layout holds across hot swaps."""
+        if self._specs is not None:
+            raise RuntimeError("the registry is placed already")
+        for t, mats in specs.items():
+            for key, s in mats.items():
+                self._stacked[t][key] = shd.local_shard(
+                    self._stacked[t][key], s, s.mesh, s.mesh.rank)
+        self._specs = specs
 
     # -- engine lifecycle -----------------------------------------------------
     def acquire(self, name: str) -> int:

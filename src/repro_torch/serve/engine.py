@@ -129,13 +129,29 @@ scheduler keeps ``n_slots`` request slots full:
   ``drafted_tokens``, ``accepted_draft_tokens``, ``acceptance_rate``,
   ``accepted_tokens_per_step``.
 
-Tensor parallelism is not ported yet: asking for it raises
-``NotImplementedError`` naming the ROADMAP item.
+- **Tensor-parallel serving (``mesh=``).** Given a ``launch.mesh.Mesh``
+  of P ranks over "model" (each rank runs its own engine, with the same
+  arguments and the same requests), the engine picks the rules
+  (``dist.sharding.serve_rules_for``) and the layout
+  (``dist.tensor_parallel.plan``), keeps its rank's block of the raw
+  weights (column-parallel wq/wk/wv and gate/up, row-parallel wo and
+  down, the vocabulary cut; ``params`` whole or as those blocks), quantizes
+  its blocks into the single-device codes (a row block's per-column scale
+  from one all-reduce MAX), fuses them, and cuts the dense
+  cache or the paged pool along KV heads, or the dense cache along its
+  sequence when the KV heads do not divide P (decode then runs
+  ``kernels.sharded_decode``); the adapters and the draft follow the same
+  layout. Block tables, the pager and every host decision are whole on
+  every rank, and the clock reads rank 0's, so the ranks keep one
+  schedule; each rank swaps out its own shard. A mesh of size 1 is the
+  single-device engine. The moe, ssm, hybrid and audio families and a
+  "data" axis above 1 raise (ROADMAP queue 1 item 12b).
 """
 
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -145,7 +161,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.axllm_linear import deploy_quantize
-from repro_torch.core.quantization import QuantConfig, derive_draft_params
+from repro_torch.core.quantization import (QuantConfig, derive_draft_params,
+                                           quantize_tree)
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.model import ATTENTION_FAMILIES, ModelAPI, get_model
 from repro_torch.serve.adapters import AdapterRegistry, target_dims
@@ -324,6 +343,12 @@ def _leaves(tree, spec):
         yield tree, spec
 
 
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
@@ -365,6 +390,10 @@ class ServeEngine:
     ``draft_mode``: "affine", "codebook" or "shiftadd") and verifies them
     with the target (see the module docstring).
 
+    ``mesh`` (a ``launch.mesh.Mesh``, one engine a rank) serves tensor
+    parallel over its "model" axis (see the module docstring); every rank
+    gets the same arguments and requests and gives the same tokens.
+
     Serve with ``submit`` + ``step()`` / ``run()``, ``stream()``, or the
     one-shot ``generate(prompts)``; ``cancel(rid)`` ends a request.
     """
@@ -404,8 +433,16 @@ class ServeEngine:
                     "floored to whole blocks, so no chunk could ever make "
                     "progress")
         if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not "
-                                      "ported yet (ROADMAP queue 1 item 12)")
+            if cfg.family not in ("dense", "vlm"):
+                raise NotImplementedError(
+                    f"family {cfg.family!r} under a mesh: tensor-parallel "
+                    "serving covers the dense and vlm transformers; the moe "
+                    "(expert-parallel), ssm, hybrid and audio families wait "
+                    "for ROADMAP queue 1 item 12b")
+            if mesh.shape.get("data", 1) > 1:
+                raise NotImplementedError(
+                    f"mesh {dict(mesh.shape)}: a 'data' axis above 1 in "
+                    "serving waits for ROADMAP queue 1 item 12b")
         self.api: ModelAPI = get_model(cfg, impl=impl)
         if paged and self.api.init_paged_cache is None:
             raise ValueError(
@@ -439,34 +476,43 @@ class ServeEngine:
                              f"{impl!r}")
         self.cfg = cfg
         self.device = torch.device(device)
-        params = raw_params = _params_to(params, self.device)
-        if quantize:
-            bits = cfg.quant_bits if quant_bits is None else quant_bits
-            params = deploy_quantize(
-                params, QuantConfig(bits=bits, mode=quant_mode,
-                                    granularity="per_channel"))
+        params = _params_to(params, self.device)
+        qcfg = QuantConfig(
+            bits=cfg.quant_bits if quant_bits is None else quant_bits,
+            mode=quant_mode, granularity="per_channel") if quantize else None
         fuse = cfg.fuse_qkv if fuse_qkv is None else fuse_qkv
-        if fuse:
-            params = self.api.fuse_params(params)
-        self.params = params
         self.speculate = speculate
         self.spec_k = spec_k
         self.draft_bits = draft_bits
         self.draft_mode = draft_mode
-        self.draft_params = self.draft_cache = None
-        if speculate:
-            # from the raw weights: a draft of quantized target weights
-            # would compound two quantization errors
-            draft = derive_draft_params(raw_params, bits=draft_bits,
-                                        mode=draft_mode)
-            self.draft_params = self.api.fuse_params(draft) if fuse \
-                else draft
-            # always dense, even when the target pages: draft KV is private
-            # scratch (never shared, published or swapped)
-            self.draft_cache = self.api.init_cache(n_slots, max_len,
-                                                   self.device)
+        self.mesh = mesh
+        self._rules = self._layout = None
+        if mesh is not None:
+            self._rules, self._layout, whole = self.mesh_layout(
+                cfg, mesh, params, n_slots=n_slots, max_len=max_len,
+                paged=paged, quant=qcfg, speculate=speculate,
+                draft_bits=draft_bits, draft_mode=draft_mode)
+        if self._layout is None:
+            # the draft from the raw weights: a draft of quantized target
+            # weights would compound two quantization errors
+            draft = derive_draft_params(params, bits=draft_bits,
+                                        mode=draft_mode) if speculate \
+                else None
+            if quantize:
+                params = deploy_quantize(params, qcfg)
+        else:
+            params, draft = self._cut_params(params, whole, qcfg)
+        if fuse:
+            params = self.api.fuse_params(params)
+            draft = draft if draft is None else self.api.fuse_params(draft)
+        self.params = params
+        self.draft_params = draft
         self.n_slots = n_slots
         self.max_len = max_len
+        # always dense, even when the target pages: draft KV is private
+        # scratch (never shared, published or swapped)
+        self.draft_cache = self._new_cache(n_slots, max_len) if speculate \
+            else None
         self.greedy = greedy
         self.eos_id = eos_id if eos_id is not None else cfg.eos_id
         self.long_prompt = long_prompt
@@ -477,6 +523,10 @@ class ServeEngine:
         self.registry = adapters
         if adapters is not None:
             self._validate_adapters(adapters)
+            if self._layout is not None:
+                adapters.place(tp.layout_specs(
+                    adapters.stacked, shd.adapter_specs(
+                        adapters.stacked, mesh, self._rules), self._layout))
         # per-slot adapter row into registry.stacked; -1 = base only
         self.adapter_slots = np.full((n_slots,), -1, np.int32)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
@@ -498,12 +548,15 @@ class ServeEngine:
                 prefix_cache=prefix_cache)
             self.cache = self.api.init_paged_cache(
                 n_slots, self.num_blocks, kv_block_size, self.max_blocks,
-                self.device)
+                self.device if self._layout is None else "meta")
+            if self._layout is not None:
+                self.cache = tp.local_cache(self.cache, tp.cache_layout_specs(
+                    self.cache, self._layout, paged=True), self.device)
             self._pool_leaves = [k for k, ax in
                                  self.api.paged_cache_spec.items() if ax == 1]
         else:
             self.pager = None
-            self.cache = self.api.init_cache(n_slots, max_len, self.device)
+            self.cache = self._new_cache(n_slots, max_len)
         self._validate_cache_spec()
         self.slots: List[Optional[Request]] = [None] * n_slots
         # bounded priority wait queue; max_queue=None with "block" is the
@@ -561,6 +614,74 @@ class ServeEngine:
             raise ValueError(f"adapter registry lives on {reg.device}, the "
                              f"engine on {self.device}")
 
+    def _new_cache(self, batch: int, length: int, wave: bool = False):
+        """A dense KV cache of ``batch`` slots and ``length`` positions: this
+        rank's block under a layout, its sequence cut only for the serving
+        cache (a prefill wave keeps every position on every rank: each rank
+        computes them all and ``_write_wave`` keeps its rows)."""
+        if self._layout is None:
+            return self.api.init_cache(batch, length, self.device)
+        meta = self.api.init_cache(batch, length, "meta")
+        return tp.local_cache(meta, tp.cache_layout_specs(
+            meta, self._layout, paged=False, wave=wave), self.device)
+
+    @staticmethod
+    def mesh_layout(cfg, mesh, params, *, n_slots: int, max_len: int,
+                    paged: bool, quant: Optional[QuantConfig] = None,
+                    speculate: bool = False, draft_bits: int = 4,
+                    draft_mode: str = "affine"):
+        """(rules, layout, whole) of serving ``params`` (whole, or this
+        rank's blocks) on ``mesh`` with these engine arguments
+        (``quant``: the target's QuantConfig, None for dense): the serving
+        rules, the tensor-parallel layout (None on a mesh of size 1) and
+        the single-device tree (``tp.whole_like``). The launcher restores
+        a checkpoint onto the blocks of the same layout."""
+        rules = shd.serve_rules_for(mesh, cfg.n_kv_heads)
+        if mesh.shape["model"] == 1:
+            return rules, None, params
+        whole = tp.whole_like(params, cfg, mesh, rules)
+        trees = [whole if quant is None else quantize_tree(whole, quant)]
+        if speculate:
+            trees.append(quantize_tree(whole, QuantConfig(
+                bits=draft_bits, mode=draft_mode))
+                if draft_mode in ("affine", "codebook") else whole)
+        return rules, tp.plan(cfg, mesh, rules, n_slots=n_slots,
+                              max_len=max_len, paged=paged,
+                              trees=trees), whole
+
+    def _cut_params(self, params, whole, qcfg):
+        """(target, draft) as this rank's blocks: the raw leaves cut (or
+        taken as given), then quantized into the single-device codes
+        (``tp.quantize_blocks``); the draft likewise, or, for a shiftadd
+        draft, derived from the whole raw weights and cut (its column
+        means span the rows a rank cuts)."""
+        lay = self._layout
+        specs = tp.layout_specs(whole, shd.param_specs(whole, lay.mesh,
+                                                       lay.rules), lay)
+        blocks = tp.shard_params(params, whole, specs)
+        draft = None
+        if self.speculate and self.draft_mode in ("affine", "codebook"):
+            draft = tp.quantize_blocks(blocks, specs, QuantConfig(
+                bits=self.draft_bits, mode=self.draft_mode))
+        elif self.speculate:
+            if _shapes(params) != _shapes(whole):
+                raise ValueError("a shiftadd draft on a mesh is derived "
+                                 "from the whole raw weights: give them "
+                                 "whole")
+            draft = tp.shard_params(derive_draft_params(
+                params, bits=self.draft_bits, mode=self.draft_mode),
+                whole, specs)
+        if qcfg is not None:
+            blocks = tp.quantize_blocks(blocks, specs, qcfg)
+        return blocks, draft
+
+    def _mesh_ctx(self):
+        """The engine's (mesh, rules, layout) for the model code; nothing
+        without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shd.activate(self.mesh, self._rules, self._layout)
+
     def _lora_kw(self, aidx: np.ndarray) -> dict:
         """The multi-LoRA kwargs of a prefill or decode call for per-row
         adapter rows ``aidx`` (none without a registry)."""
@@ -576,7 +697,11 @@ class ServeEngine:
 
     # -- request management ---------------------------------------------------
     def _now(self) -> float:
-        return self._clock()
+        """The clock; under a layout, rank 0's reading on every rank, so
+        that every rank takes the same deadline decisions."""
+        if self._layout is None:
+            return self._clock()
+        return tp.broadcast_host(self._clock(), self.mesh)
 
     def submit(self, prompt, max_new: int = 32, adapter=None,
                priority: int = 0, deadline_s: Optional[float] = None,
@@ -968,7 +1093,7 @@ class ServeEngine:
         kw = self._lora_kw(aidx)
         if ragged:
             kw["lengths"] = torch.from_numpy(lengths).to(self.device)
-        wave_cache = self.api.init_cache(wb, pl, self.device)
+        wave_cache = self._new_cache(wb, pl, wave=True)
         try:
             if self.fault_hook is not None:
                 self.fault_hook("prefill")
@@ -1002,7 +1127,7 @@ class ServeEngine:
                 # the draft prefills the same wave (its logits are unused:
                 # the first token is the target's), so seated slots start
                 # each round with draft KV covering the target's positions
-                dwave = self.api.init_cache(wb, pl, self.device)
+                dwave = self._new_cache(wb, pl, wave=True)
                 _, dwave = self.api.prefill(
                     self.draft_params,
                     {"tokens": torch.from_numpy(toks).to(self.device)},
@@ -1151,7 +1276,7 @@ class ServeEngine:
         dev = self.device
         _, dwave = self.api.prefill(
             self.draft_params, {"tokens": torch.from_numpy(toks).to(dev)},
-            self.api.init_cache(wb, pl, dev),
+            self._new_cache(wb, pl, wave=True),
             lengths=torch.from_numpy(lengths).to(dev), **self._lora_kw(aidx))
         self._write_wave(self.draft_cache, dwave, list(range(len(keep))),
                          [slot for _, slot in keep])
@@ -1278,7 +1403,7 @@ class ServeEngine:
         indices; nobody reads the trash block, so any winner is fine."""
         dev, bs = self.device, self.kv_block_size
         wb, pl = toks.shape
-        wave = self.api.init_cache(wb, pl, dev)
+        wave = self._new_cache(wb, pl, wave=True)
         kw = {"lengths": torch.from_numpy(lengths).to(dev),
               **self._lora_kw(aidx)}
         if pbt is not None:
@@ -1313,15 +1438,23 @@ class ServeEngine:
         leaf of the wave covers its padded length only, so only the wave's
         leading entries of each axis after the batch axis are written;
         slot entries past them are never read before decode overwrites
-        them."""
+        them. A cache cut along its sequence over the ranks takes the
+        wave's positions in this rank's rows."""
         s = torch.tensor(src, device=self.device)
         d = torch.tensor(dst, device=self.device)
         spec = self.api.cache_spec
         for (full, ax), (one, _) in zip(_leaves(cache, spec),
                                         _leaves(wave_cache, spec)):
-            idx = (slice(None),) * ax + (d,) + tuple(
-                slice(0, n) for n in one.shape[ax + 1:])
-            full[idx] = one.index_select(ax, s).to(full.dtype)
+            one = one.index_select(ax, s)
+            rows = [slice(0, n) for n in one.shape[ax + 1:]]
+            if rows and self._layout is not None and self._layout.seq \
+                    and full.shape[ax + 1] < self.max_len:
+                lo = self._layout.rank * full.shape[ax + 1]
+                n = max(0, min(full.shape[ax + 1], one.shape[ax + 1] - lo))
+                rows[0] = slice(0, n)
+                one = one.narrow(ax + 1, min(lo, one.shape[ax + 1]), n)
+            idx = (slice(None),) * ax + (d,) + tuple(rows)
+            full[idx] = one.to(full.dtype)
 
     # -- sampling and stopping ------------------------------------------------
     def _sample(self, logits) -> np.ndarray:
@@ -1383,7 +1516,7 @@ class ServeEngine:
         """Admit a prefill wave, then run ONE chunked decode dispatch of up
         to min(decode_chunk, max_n, largest remaining budget) steps.
         Returns False when no work is left."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._mesh_ctx():
             return self._step(max_n)
 
     def _decoding(self) -> List[int]:

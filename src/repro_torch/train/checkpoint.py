@@ -22,11 +22,14 @@ through float32.
 A QTensor's table is a function of its mode and bits in both packages
 (``resolve_codebook``), and ``quantize`` stores none, so its
 ``@qt_codebook`` is written only when a QTensor carries one explicitly.
-``restore`` has no mesh to reshard onto: it takes a ``device``.
+``restore`` takes a ``device``, or ``shardings``: then each rank reads
+each leaf (through ``mmap``) and keeps its block, as JAX's ``device_put``
+against shardings lays a restored tree onto a mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -36,7 +39,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quantization import QTensor
+from repro_torch.core.quantization import QTensor, qslice
+from repro_torch.dist import sharding as shd
 from repro_torch.optim.adamw import Q8
 
 _SEP = "__"
@@ -188,16 +192,41 @@ def _device_of(leaf, device):
     return leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
 
 
+def _leaf_shardings(like, shardings) -> dict:
+    """{leaf path: sharding} for the leaves ``shardings`` cuts: a tree of
+    ``like``'s structure whose nodes are NamedSharding (a tensor),
+    QSharding (a QTensor) or None (whole), None at a subtree leaving it
+    whole."""
+    out = {}
+
+    def visit(path, node, spec):
+        if spec is None:
+            return
+        if isinstance(node, dict):
+            for k in node:
+                visit(path + [str(k)], node[k], spec[k])
+        elif isinstance(node, (list, tuple)) and not hasattr(node, "shape"):
+            for i, v in enumerate(node):
+                visit(path + [str(i)], v, spec[i])
+        elif isinstance(node, QTensor):
+            out[_SEP.join(path + ["@qt_codes"])] = spec.codes
+            out[_SEP.join(path + ["@qt_scale"])] = spec.scale
+        else:
+            out[_SEP.join(path)] = spec
+
+    visit([], like, shardings)
+    return out
+
+
 def restore(ckpt_dir: str, like, step: Optional[int] = None,
             shardings: Optional[Any] = None, device=None):
     """Restore into the structure of ``like``. Each leaf comes back in the
     dtype it was saved in, on ``device`` (default: the device of
-    ``like``'s leaf). ``shardings`` reshards onto a mesh in the JAX
-    package; one card has none. Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError("restore(shardings=) reshards onto a "
-                                  "mesh, which is not ported yet (ROADMAP "
-                                  "queue 1 item 12); pass device=")
+    ``like``'s leaf). ``shardings`` (a tree of ``like``'s structure, see
+    :func:`_leaf_shardings`) restores onto a mesh: each leaf it cuts comes
+    back as this rank's block (``dist.sharding.local_shard``, the rank
+    and its device from the sharding's mesh), read through ``mmap``.
+    Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -206,10 +235,20 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         saved_dtypes = {k: v["dtype"]
                         for k, v in json.load(f)["leaves"].items()}
-    loaded = {
-        name: _tensor(np.load(os.path.join(d, name + ".npy")),
-                      saved_dtypes.get(name), _device_of(node, device))
-        for name, node in _flatten(like)}
+    cuts = {} if shardings is None else _leaf_shardings(like, shardings)
+    loaded = {}
+    for name, node in _flatten(like):
+        path = os.path.join(d, name + ".npy")
+        spec = cuts.get(name)
+        if spec is None:
+            loaded[name] = _tensor(np.load(path), saved_dtypes.get(name),
+                                   _device_of(node, device))
+            continue
+        mesh = spec.mesh
+        block = shd.local_shard(np.load(path, mmap_mode="r"), spec, mesh,
+                                mesh.rank)
+        loaded[name] = _tensor(np.asarray(block), saved_dtypes.get(name),
+                               mesh.device if device is None else device)
     return _unflatten_like(like, loaded), step
 
 
@@ -224,12 +263,11 @@ def _unflatten_like(like, loaded: dict):
             cb = None
             if node.codebook is not None:
                 cb = loaded[_SEP.join(path + ["@qt_codebook"])]
-            return QTensor(
-                codes=loaded[_SEP.join(path + ["@qt_codes"])],
-                scale=loaded[_SEP.join(path + ["@qt_scale"])],
-                codebook=cb, bits=node.bits, mode=node.mode,
-                granularity=node.granularity, group_size=node.group_size,
-                packed=node.packed, shape=node.shape)
+            # the logical shape follows the codes: a restored block's own
+            return dataclasses.replace(
+                qslice(node, loaded[_SEP.join(path + ["@qt_codes"])],
+                       loaded[_SEP.join(path + ["@qt_scale"])]),
+                codebook=cb)
         if isinstance(node, Q8):
             return Q8(loaded[_SEP.join(path + ["@q8_codes"])],
                       loaded[_SEP.join(path + ["@q8_scale"])], node.shape,

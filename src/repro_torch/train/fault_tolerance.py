@@ -13,7 +13,7 @@ auto-restart driver (PyTorch port of ``repro.train.fault_tolerance``).
 Where JAX blocks on the loss (``jax.block_until_ready``), the port
 synchronises the loss's device, so a step's time is its device time and
 a fault inside the step raises inside it. Restoring onto a mesh
-(``shardings=``) is not ported (ROADMAP queue 1 item 12).
+(``shardings=``) is not ported (ROADMAP queue 1 item 12c).
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def resilient_train(*, train_step: Callable, params, opt_state, dataset,
     if shardings is not None:
         raise NotImplementedError(
             "resilient_train(shardings=): restoring onto a mesh is not "
-            "ported yet (ROADMAP queue 1 item 12)")
+            "ported yet (ROADMAP queue 1 item 12c)")
     saver = ckpt_lib.AsyncSaver()
     monitor = monitor or StepMonitor()
     restarts = 0

@@ -13,7 +13,7 @@ in JAX.
 Not ported: ``grad_specs`` (sharding constraints on the gradients; any
 value other than None raises) and ``jit_train_step`` (``jax.jit`` with
 shardings and donation), whose parts wait for distribution (ROADMAP
-queue 1 item 12); PyTorch runs the step eagerly.
+queue 1 item 12c); PyTorch runs the step eagerly.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def make_train_step(api, opt_cfg: adamw.AdamWConfig, total_steps: int = 10000,
     if grad_specs is not None:
         raise NotImplementedError(
             "make_train_step(grad_specs=): sharding constraints on the "
-            "gradients are not ported yet (ROADMAP queue 1 item 12)")
+            "gradients are not ported yet (ROADMAP queue 1 item 12c)")
     cfg = api.cfg
     accum = max(cfg.grad_accum, 1)
     grad_fn = _grad_fn(api)

@@ -43,7 +43,11 @@ gradients against autograd of the plain path (2e-2 of the scale in
 bf16: the tensor-core forward rounds P to bf16 and the backward
 recomputes it in f32; 1e-5 in f32); the backward wrapper's refusals; and
 a reduced bf16 training step against the plain path, per leaf, and
-repeating bit for bit under the launcher's deterministic mode.
+repeating bit for bit under the launcher's deterministic mode. Tensor
+parallel serving, two ranks sharing the card over gloo: the
+sequence-sharded decode against the same ranks on the CPU, and a reduced
+bf16 engine at mesh 1x2 whose ranks agree, launch the kernels at their
+shapes and pass the token gate on the unsharded model.
 """
 
 import dataclasses
@@ -1176,3 +1180,80 @@ def test_train_step_on_card_matches_plain_and_repeats(card):
     for a, b in zip(adamw.tree_leaves(outs[0][:2]),
                     adamw.tree_leaves(outs[1][:2])):
         assert torch.equal(a, b)
+
+
+def _seqsharded_case(lengths, quantized, seed=0):
+    b, s, h, hk, d = len(lengths), 32, 4, 2, 16
+    rng = np.random.default_rng(seed)
+    c = dict(q=rng.normal(size=(b, h, d)).astype(np.float32))
+    if quantized:
+        for k, shape in (("k", (b, s, hk, d)), ("v", (b, s, hk, d)),
+                         ("nk", (b, hk, d)), ("nv", (b, hk, d))):
+            c[k] = rng.integers(-127, 128, size=shape).astype(np.int8)
+        for k, shape in (("ks", (b, s, hk, 1)), ("vs", (b, s, hk, 1)),
+                         ("nks", (b, hk, 1)), ("nvs", (b, hk, 1))):
+            c[k] = rng.uniform(0.01, 0.05, size=shape).astype(np.float32)
+    else:
+        for k, shape in (("k", (b, s, hk, d)), ("v", (b, s, hk, d)),
+                         ("nk", (b, hk, d)), ("nv", (b, hk, d))):
+            c[k] = rng.normal(size=shape).astype(np.float32)
+    c["length"] = np.asarray(lengths, np.int32)
+    c["pos"] = c["length"] - 1
+    return c
+
+
+def test_sharded_decode_on_shared_card_matches_cpu(card):
+    """``decode_attention_seqsharded`` on 2 ranks sharing the card (gloo
+    carrying CUDA tensors: all-reduce MAX and SUM) against the same ranks
+    on the CPU: int8 codes and bf16 K/V, a length-0 row exactly 0. The
+    caches' rows are bit-equal; the outputs agree within 1e-5 of the
+    scale (f32 sums in other orders; the bf16 case within one bf16
+    rounding, 1e-2)."""
+    import torch_tp_ranks
+    from repro_torch.launch.mesh import run_ranks
+    cases = [(_seqsharded_case([5, 32, 0, 1], True), "float32"),
+             (_seqsharded_case([0, 9, 32, 17], False, seed=1), "bfloat16")]
+    got = run_ranks(torch_tp_ranks.run_jobs, 2, "cuda",
+                    [("seqsharded", (cases,))])
+    want = run_ranks(torch_tp_ranks.run_jobs, 2, "cpu",
+                     [("seqsharded", (cases,))], threads=1)
+    for rank in range(2):
+        for (_, dtype), g, w in zip(cases, got[rank][0], want[rank][0]):
+            for gc, wc in zip(g[1:], w[1:]):
+                np.testing.assert_array_equal(gc, wc)
+            tol = 1e-2 if dtype == "bfloat16" else 1e-5
+            assert _rel_err(torch.from_numpy(g[0]),
+                            torch.from_numpy(w[0])) < tol
+    assert np.all(got[0][0][0][0][2] == 0)      # the length-0 row
+    assert np.all(got[0][0][1][0][0] == 0)
+
+
+def test_mesh_engine_on_shared_card_passes_the_token_gate(card):
+    """A reduced bf16 repro-100m at mesh 1x2, both ranks on the card over
+    gloo: every rank serves the same tokens, launches the matmul's `.gemv`
+    and `.wgmma` entry points, decode attention and flash at its shapes,
+    and every token passes the token gate on the unsharded model."""
+    import torch_tp_ranks
+    from repro_torch.launch.mesh import run_ranks
+    cfg = CONFIG.reduced(remat=False)
+    lens = (8, 12, 31, 5, 40, 17)
+    modes = {"int8": dict(quantize=True, decode_chunk=8)}
+    res = run_ranks(torch_tp_ranks.run_jobs, 2, "cuda",
+                    [("serve_modes", (cfg, 0, modes, lens, 24))])
+    got = [r[0]["int8"] for r in res]
+    assert got[0]["tokens"] == got[1]["tokens"]
+    assert got[0]["layout"]["heads"] and got[0]["layout"]["kv_heads"]
+    for r in got:
+        for name in ("axllm_matmul.gemv", "axllm_matmul.wgmma",
+                     "decode_attention", "flash_attention"):
+            assert r["launches"].get(name, 0) > 0, (name, r["launches"])
+    params = get_model(cfg).init(seed=0, device=card)
+    plain = ServeEngine(cfg, params, n_slots=2, max_len=64, quantize=True,
+                        device=card)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    gate = token_gate(cfg, plain.params, prompts, got[0]["tokens"],
+                      impl="ref", tol_rel=5e-2, device=card)
+    assert gate.positions == sum(map(len, got[0]["tokens"]))
+    assert gate.ok, gate.failures[:5]

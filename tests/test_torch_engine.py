@@ -117,13 +117,18 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 
 def test_unported_options_raise(weights):
-    """Tensor parallelism is not ported: asking for it raises and names
-    the ROADMAP item. Speculation and the overload options (a bounded
-    queue, a prefill budget, priorities, streaming, deadlines) are ported
-    and take the JAX engine's checks instead."""
+    """A mesh with a data axis above 1 is not ported: asking for it raises
+    and names the ROADMAP item (12b); a (1, 1) mesh is the single-device
+    engine (tensor-parallel meshes: tests/test_torch_sharded_serve.py).
+    Speculation and the overload options (a bounded queue, a prefill
+    budget, priorities, streaming, deadlines) are ported and take the JAX
+    engine's checks instead."""
+    from repro_torch.launch.mesh import Mesh, single_device_mesh
     _, _, tcfg, tparams = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tcfg, tparams, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
+        ServeEngine(tcfg, tparams, device="cpu", mesh=Mesh(2, 1))
+    one = ServeEngine(tcfg, tparams, device="cpu", mesh=single_device_mesh())
+    assert one._layout is None and one.mesh.shape["model"] == 1
     spec = ServeEngine(tcfg, tparams, device="cpu", speculate=True)
     assert spec.draft_cache is not None and spec.spec_k == 4
     eng = ServeEngine(tcfg, tparams, device="cpu", max_queue=4,

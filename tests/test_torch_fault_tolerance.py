@@ -7,7 +7,7 @@ tests' tiny dense model (2 layers, d64, f32).
   every parameter and moment bit-equal to the uninterrupted run's, two
   failures within the budget, a failure before the first checkpoint
   restarts from step 0, a budget exceeded raises, the straggler monitor,
-  random access by step, and ``shardings=`` raises (item 12).
+  random access by step, and ``shardings=`` raises (item 12c).
 - The launcher: the two launchers' parsers have the same flags (option
   strings, dest, action, type, default, choices, help);
   ``main(argv, device="cpu")`` prints the JAX launcher's lines (``arch=
@@ -16,7 +16,7 @@ tests' tiny dense model (2 layers, d64, f32).
   ``--ckpt`` resumes from the first's last step and runs only the new
   steps; its checkpoint is one the serving launcher restores; a mesh of
   one in any form runs, and a larger mesh and ``--distributed`` raise
-  (item 12); without a card and without ``device="cpu"`` it fails.
+  (item 12c); without a card and without ``device="cpu"`` it fails.
 """
 
 import contextlib

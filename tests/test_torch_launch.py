@@ -5,7 +5,8 @@
 - The two launchers' parsers have the same flags: option strings, dest,
   action, type, default, choices and help, read from both parsers.
 - ``parse_mesh_shape``'s doctests pass and it parses (and refuses) as the
-  JAX function does; ``--mesh-shape 2`` raises; an encoder-decoder arch
+  JAX function does; a data axis above 1 and a moe arch on a mesh raise
+  (item 12b); an encoder-decoder arch
   raises the JAX engine's text; without a card and without
   ``device="cpu"`` the launcher fails.
 - ``adamw.init`` builds the JAX moments' leaves (names, shapes, dtypes),
@@ -110,12 +111,25 @@ def test_parse_mesh_shape_doctests_and_refusals():
 
 
 def test_mesh_shape_above_one_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """A model axis above 1 serves (tests/test_torch_sharded_launch.py);
+    outside the ranks' process group the mesh cannot be made, and a data
+    axis above 1, or a family the mesh engine does not take, raises naming
+    ROADMAP item 12b before any weights are cut."""
+    with pytest.raises(RuntimeError, match="run_ranks or torchrun"):
         TM.make_serve_mesh("2")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TS.main(["--mesh-shape", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TS.main(["--mesh-shape", "1x2"], device="cpu")
+    assert TM.make_serve_mesh("1").shape == {"data": 1, "model": 1}
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        TS.main(["--mesh-shape", "2x2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        TS.main(["--mesh-shape", "2x1"], device="cpu")
+    moe = ["--arch", "qwen2-moe-a2.7b", "--set", "n_layers=1", "--set",
+           "d_model=64", "--set", "n_heads=4", "--set", "n_kv_heads=4",
+           "--set", "head_dim=16", "--set", "d_ff=32", "--set",
+           "vocab_size=256", "--set", "n_experts=4", "--set", "top_k=2",
+           "--set", "n_shared_experts=1", "--set", "dtype=float32"]
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        TS.serve(TS.build_parser().parse_args(moe), torch.device("cpu"),
+                 TM.Mesh(1, 2))
 
 
 def test_encoder_decoder_arch_raises_the_engine_error():
@@ -270,8 +284,16 @@ def test_checkpoint_async_saver_and_shardings(tmp_path):
     TC.save(str(tmp_path / "s"), 3, ttree)
     a, s = _files(str(tmp_path / "a")), _files(str(tmp_path / "s"))
     assert all(a.get(k) == v for k, v in s.items())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TC.restore(str(tmp_path / "s"), ttree, shardings={})
+    # onto a (1, 1) mesh every leaf comes back whole (a mesh of ranks:
+    # tests/test_torch_sharded_launch.py)
+    from repro_torch.dist import sharding as shd
+    one = TM.single_device_mesh()
+    whole = (shd.param_specs(ttree[0], one), None)   # moments: whole
+    got, step = TC.restore(str(tmp_path / "s"), ttree, shardings=whole)
+    want, _ = TC.restore(str(tmp_path / "s"), ttree)
+    assert step == 3
+    for (name, a), (_, b) in zip(TC._flatten(got), TC._flatten(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 @pytest.fixture(scope="module")

@@ -231,9 +231,31 @@ def test_registry_pins_and_place():
     reg.release("fr")
     with pytest.raises(RuntimeError, match="without a matching acquire"):
         reg.release("fr")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        reg.place({})
     reg.evict("fr")
+    # on a (1, 2) mesh each rank keeps its block (A whole, B cut by the
+    # target's output name), and a later add cuts the adapter the same way
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    full = _reg()
+    full.add("fr", make_adapter(1))
+    full.add("de", make_adapter(2))
+    for rank in range(2):
+        reg = _reg()
+        reg.add("fr", make_adapter(1))
+        mesh = Mesh(1, 2, rank)
+        specs = shd.adapter_specs(reg.stacked, mesh, shd.SERVE_HEAD_RULES)
+        reg.place(specs)
+        reg.add("de", make_adapter(2))
+        for t in TLCFG.targets:
+            for k in ("lora_a", "lora_b"):
+                want = shd.local_shard(full.stacked[t][k], specs[t][k], mesh,
+                                       rank)
+                torch.testing.assert_close(reg.stacked[t][k], want, rtol=0,
+                                           atol=0)
+        assert reg.stacked["wq"]["lora_b"].shape[-1] == 32
+        assert reg.stacked["wo"]["lora_b"].shape[-1] == 64     # embed: whole
+        with pytest.raises(RuntimeError, match="placed already"):
+            reg.place(specs)
 
 
 def test_bridge_keeps_rows_and_values():

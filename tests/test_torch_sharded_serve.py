@@ -1,0 +1,226 @@
+"""Tensor-parallel serving of the port (``ServeEngine(..., mesh=...)``) on
+the CPU: ranks spawned over gloo by ``launch.mesh.run_ranks``, once per
+mesh for the module (the rank bodies, ``tests/torch_tp_ranks.py``, import
+no JAX).
+
+The model and requests are ``tests/test_sharded_serve.py``'s (2 layers,
+d 64, H4/Hk2, head dim 16, vocab 256, float32; prompts 5/9/3/12/7/4, 8 new
+tokens, 2 slots, max_len 64). The JAX mesh engine produces no tokens under
+the installed JAX (a ShardingTypeError on the vocab-sharded embedding
+gather, ROADMAP §3), so the port's mesh engine is held against the
+single-device JAX engine, whose tokens the JAX docstring says a mesh
+engine gives:
+
+- at mesh (1, 2) (head-sharded: Hk 2 divides 2) and (1, 4)
+  (sequence-sharded: wk/wv whole, decode through
+  ``kernels.sharded_decode``), on every rank, in the six modes of
+  ``tests/test_sharded_serve.py`` (fp32, int8, reuse, fused, lora, paged)
+  and LoRA on all four attention projections (wo row-parallel): tokens
+  and stats equal the JAX engine's;
+- chunked prefill, priority preemption with swap-out, speculation (dense
+  and paged, affine and shift-add drafts), sampled decoding, an int8 KV
+  cache and per-group weights whose row cut misses the group boundary
+  (d_ff 96, groups of 32): tokens and stats equal the port's
+  single-device engine;
+- each rank quantizes its own raw blocks into the codes and scales of the
+  whole weights quantized and then cut;
+- mesh (1, 1) equals ``mesh=None`` in every token and counter;
+- the moe family and a data axis above 1 raise, naming item 12b.
+"""
+
+import concurrent.futures
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.launch.serve import make_synthetic_adapters as j_adapters
+from repro.models.model import get_model as j_get_model
+from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as TM
+from repro_torch.models.model import get_model
+from repro_torch.serve.engine import ServeEngine
+
+import torch_tp_ranks as R
+from test_torch_engine import jax_tree_to_numpy
+
+TINY = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=2, d_ff=128, vocab_size=256, head_dim=16,
+            vocab_pad_multiple=64, dtype="float32")
+CFG = ModelConfig(**TINY)
+PROMPT_LENS = (5, 9, 3, 12, 7, 4)
+ALL4 = ("wq", "wk", "wv", "wo")
+
+# the modes held against the JAX engine: tests/test_sharded_serve.py's six
+# and LoRA on every attention projection
+JAX_MODES = {
+    "fp32": {},
+    "int8": dict(quantize=True),
+    "reuse": dict(quantize=True, impl="reuse"),
+    "fused": dict(quantize=True, fuse_qkv=True),
+    "lora": dict(quantize=True, lora=("wq", "wv")),
+    "paged": dict(quantize=True, paged=True, kv_block_size=8),
+    "lora-all": dict(quantize=True, lora=ALL4, fuse_qkv=True),
+}
+# the modes held against the port's single-device engine
+PORT_MODES = {
+    "chunked": dict(quantize=True, paged=True, kv_block_size=8,
+                    prefill_budget=8, lora=ALL4),
+    "preempt": dict(quantize=True, paged=True, kv_block_size=8, late=2,
+                    decode_chunk=2),
+    "spec": dict(quantize=True, speculate=True, spec_k=3),
+    "spec-paged": dict(quantize=True, paged=True, kv_block_size=8,
+                       impl="reuse", speculate=True, spec_k=2,
+                       draft_mode="shiftadd", draft_bits=8),
+    "sampled": dict(quantize=True, greedy=False, seed=3, kv_block_size=8,
+                    paged=True),
+}
+KV_MODES = {"kv-int8": dict(quantize=True, fuse_qkv=True)}
+GROUP_CFG = ModelConfig(**dict(TINY, d_ff=96, quant_kv=True))
+GROUP_MODES = {"per-group": dict(per_group=32),
+               "per-group-paged": dict(per_group=32, paged=True,
+                                       kv_block_size=8)}
+KV_CFG = ModelConfig(**dict(TINY, quant_kv=True))
+
+
+def _jax_serve(jcfg, jparams, mode):
+    kw = dict(JAX_MODES[mode])
+    targets = kw.pop("lora", None)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jcfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    reg, names = None, [None] * len(prompts)
+    if targets:
+        reg, ns = j_adapters(jcfg, 2, targets=targets)
+        names = [None if i % 3 == 0 else ns[i % 2]
+                 for i in range(len(prompts))]
+    eng = JServeEngine(jcfg, jparams, n_slots=2, max_len=64, adapters=reg,
+                       **kw)
+    for p, a in zip(prompts, names):
+        eng.submit(p, max_new=8, adapter=a)
+    eng.run()
+    reqs = sorted(eng.finished, key=lambda r: r.rid)
+    st = eng.stats.as_dict()
+    st.pop("prefill_wall_s")
+    st.pop("prefill_compiles")
+    return {"tokens": [list(map(int, r.tokens)) for r in reqs], "stats": st}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The JAX engine's runs, the port's single-device runs and every
+    rank's runs at mesh (1, 2) and (1, 4): both spawns run beside the JAX
+    engines."""
+    jcfg = JModelConfig(**TINY)
+    jparams = j_get_model(jcfg).init(jax.random.PRNGKey(0))
+    params = jax_tree_to_numpy(jparams)
+    gparams = _np(get_model(GROUP_CFG).init(seed=1, device="cpu"))
+    jobs = [("serve_modes", (CFG, params, JAX_MODES, PROMPT_LENS)),
+            ("serve_modes", (CFG, params, PORT_MODES, PROMPT_LENS)),
+            ("serve_modes", (GROUP_CFG, gparams, GROUP_MODES, PROMPT_LENS)),
+            ("serve_modes", (KV_CFG, params, KV_MODES, PROMPT_LENS)),
+            ("quantized_blocks", (CFG, params))]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = {w: pool.submit(TM.run_ranks, R.run_jobs, w, "cpu", jobs,
+                               threads=1) for w in (2, 4)}
+        jax_out = {m: _jax_serve(jcfg, jparams, m) for m in JAX_MODES}
+        single = [R.run_jobs(None, [job])[0] for job in jobs]
+        meshes = {w: f.result() for w, f in futs.items()}
+    merged = {}
+    for w, res in meshes.items():
+        merged[w] = [{k: v for job in rank for k, v in job.items()}
+                     for rank in res]
+    one = {k: v for job in single for k, v in job.items()}
+    return jax_out, one, merged
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", sorted(JAX_MODES))
+def test_mesh_engine_matches_single_device_jax_engine(runs, mode, world):
+    jax_out, one, meshes = runs
+    want = jax_out[mode]
+    assert one[mode]["tokens"] == want["tokens"]
+    for rank, res in enumerate(meshes[world]):
+        got = res[mode]
+        assert got["tokens"] == want["tokens"], (mode, world, rank)
+        assert got["stats"] == want["stats"], (mode, world, rank)
+    lay = meshes[world][0][mode]["layout"]
+    if world == 2:      # Hk 2 divides 2: heads cut, cache along heads
+        assert lay == dict(heads=True, kv_heads=True, seq=False, mlp=True,
+                           vocab=True)
+    else:               # 2 % 4: wk/wv whole; the dense cache along its rows
+        assert lay == dict(heads=True, kv_heads=False,
+                           seq=mode != "paged", mlp=True, vocab=True)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", sorted(PORT_MODES) + sorted(GROUP_MODES)
+                         + sorted(KV_MODES))
+def test_mesh_engine_modes_match_single_device(runs, mode, world):
+    _, one, meshes = runs
+    want = one[mode]
+    for rank, res in enumerate(meshes[world]):
+        assert res[mode]["tokens"] == want["tokens"], (mode, world, rank)
+        assert res[mode]["stats"] == want["stats"], (mode, world, rank)
+    st = want["stats"]
+    assert st["finished"] == len(PROMPT_LENS) and st["decode_tokens"] > 0
+    if mode == "chunked":
+        assert st["prefill_chunks"] > len(PROMPT_LENS)   # some took two
+    if mode == "preempt":
+        assert st["preempted"] > 0 and st["restored"] == st["preempted"]
+    if mode.startswith("spec"):
+        assert st["spec_rounds"] > 0 and st["drafted_tokens"] > 0
+    if mode.startswith("per-group"):
+        # down's K/P (48, 24) misses the groups of 32: the MLP stays whole;
+        # wo's K/4 (16) too, so at 4 attention stays whole as well
+        lay = meshes[world][0][mode]["layout"]
+        assert not lay["mlp"] and lay["heads"] == (world == 2)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_rank_quantization_gives_the_single_device_codes(runs, world):
+    """Each rank quantizes only its raw blocks, wo and down cut along
+    their rows (one all-reduce MAX of the per-column maxima), and gets the
+    codes and scales of the whole weights quantized and then cut."""
+    _, _, meshes = runs
+    for rank, res in enumerate(meshes[world]):
+        got = res["quantized_blocks"]
+        assert got == {"int8": True, "int8_row_cut": True, "int4": True,
+                       "int4_row_cut": True, "nf4": True,
+                       "nf4_row_cut": True}, (world, rank)
+
+
+def test_mesh_1x1_is_the_single_device_engine():
+    """A (1, 1) mesh has no layout: every token and counter equal
+    ``mesh=None``'s, in a mode that touches every path (paged, reuse,
+    LoRA on all four projections)."""
+    params = _np(get_model(CFG).init(seed=2, device="cpu"))
+    modes = {"all": dict(quantize=True, paged=True, kv_block_size=8,
+                         impl="reuse", lora=ALL4),
+             "dense": dict(quantize=True, fuse_qkv=True)}
+    a = R.serve_modes(None, CFG, params, modes, PROMPT_LENS)
+    b = R.serve_modes(TM.single_device_mesh(), CFG, params, modes,
+                      PROMPT_LENS)
+    assert a == b
+    assert b["all"]["layout"] is None
+
+
+def test_unserved_meshes_raise_item_12b():
+    moe = get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ServeEngine(moe, get_model(moe).init(seed=0, device="cpu"),
+                    device="cpu", mesh=TM.Mesh(1, 2))
+    params = get_model(CFG).init(seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ServeEngine(CFG, params, device="cpu", mesh=TM.Mesh(2, 2))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ServeEngine(CFG, params, device="cpu", mesh=TM.Mesh(2, 1))

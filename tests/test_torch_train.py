@@ -5,7 +5,7 @@ training tests' tiny dense model (2 layers, d64, f32).
 - The data: ``SyntheticLM`` (with and without frames) and ``ByteCorpus``
   batches equal the JAX package's bit for bit at several steps;
   ``make_dataset`` picks the same source; ``shard_batch`` gives tensors
-  on the device and refuses a mesh (item 12).
+  on the device and refuses a mesh (item 12c).
 - ``tests/test_train.py``'s cases on the port: the loss falls, int8
   moments track f32, two accumulated microbatches equal the full batch,
   clipping shrinks the update and the norm is reported before the clip,
