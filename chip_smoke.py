@@ -62,9 +62,10 @@ NVIDIA GPU.
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
    dense engine through the plain versions.
-5. End-to-end runs on full-width repro-100m (bf16, random weights from a
-   seed), each with every launch count set to 0 just before it and read
-   just after, and each checking its own kernels:
+5. End-to-end runs on full-width repro-100m cut to ``E2E_LAYERS`` (4) of
+   its 12 layers (bf16, random weights from a seed), each with every
+   launch count set to 0 just before it and read just after, and each
+   checking its own kernels:
    a. dense: ``ServeEngine(quantize=True, n_slots=8, max_len=1024,
       decode_chunk=8)`` serves 16 requests (prompts 64/200/511 tokens,
       ``max_new=64``): axllm_matmul, decode_attention, flash_attention;
@@ -141,7 +142,8 @@ NVIDIA GPU.
    requires each adapter row's first-wave logits to differ from the same
    prompt's base logits by more than the tolerance.
 6. Simulator phase: the paper's cycle model (``core.simulator``) on run
-   b's served int8 codes, 84 matrices: each one's multiply count from the
+   b's served int8 codes, 7 matrices a layer: each one's multiply count
+   from the
    reuse kernel (M 8, segment 256) must equal ``simulate_matrix(codes,
    SimConfig(), tokens=8).mults``; prints the computation reduction,
    simulated speedup and ``energy.power_report`` reduction, the cycle
@@ -154,7 +156,7 @@ NVIDIA GPU.
    must inject faults, preempt a speculating slot, restore none fast and
    give every request the fault-free target-only run's tokens.
 8. Runs h (moe) and i (vlm): qwen2-moe-a2.7b and chameleon-34b at full
-   width, each cut to 6 layers (the cut printed), serve run a's requests
+   width, each cut to 4 layers (the cut printed), serve run a's requests
    as run a does (its checks: launches on ``.wgmma`` / ``.gemv``, the
    token gate, first-wave logits, greedy agreement, profiles split into
    attention, quantized matmul, expert products and the rest, peak
@@ -165,7 +167,8 @@ NVIDIA GPU.
    (token, choice) pairs its first wave dropped at capacity. Runs j (ssm)
    and k (hybrid): xlstm-1.3b (float32, ``impl="auto"``; cut to 8 of its
    48 layers, one super-block) and zamba2-1.2b (bf16, ``impl="reuse"``;
-   cut to 20 of its 38 layers, 3 attention sites), the cuts printed, both
+   cut to 14 of its 38 layers: 2 attention sites and the 2 remainder
+   Mamba2 layers the whole model has), the cuts printed, both
    at full width, serve run a's
    requests the same way, their waves split into equal-length sub-waves;
    their profiles label the recurrent mixers' kernels apart
@@ -203,32 +206,58 @@ NVIDIA GPU.
    7" and print the token lines and stats of
    ``repro_torch.launch.serve.main`` run in process on the card with the
    same flags, whose launches (counted from 0 just before it) must
-   include every kernel of its mode. A third run adds ``--mesh-shape 2``:
-   the launcher spawns two ranks on the card (gloo), restores every leaf
-   the layout cuts onto them, and must print the ``, mesh 2`` tag
-   and its in-process run's token lines and stats, every rank the same
-   tokens; its launches are rank 0's.
+   include every kernel of its mode. A third run adds ``--mesh-shape 2``
+   and a fourth ``--mesh-shape 2x2``: the launcher spawns two (four)
+   ranks on the card (gloo), restores every leaf the layout cuts onto
+   them, and must print the ``, mesh 2`` (``, mesh 2x2``) tag and the
+   token lines and stats of the launcher's rank body (what ``serve.main``
+   runs on each rank it spawns) run with the same flags in run n's (run
+   q's) spawn, every rank the same tokens; its launches are rank 0's.
+   The subprocesses run one after another on a lane beside the main
+   thread (``CliLane``) from the in-process runs on; run q starts once
+   they have ended, and their checks follow it.
 10b. Tensor-parallel serving, ranks sharing the one card over gloo (the
    kernels on the card, the collectives through the host: correctness,
-   not a tensor-parallel rate). Run n: full-width, full-depth repro-100m
-   at mesh 1x2 (head-sharded: a rank holds 6 q and 2 KV heads), int8 per
-   channel, serving run a's requests plainly, run b's with ``impl="reuse",
-   paged=True`` and run c's with ``impl="reuse", fuse_qkv=True`` and its
-   adapters. Run o: glm4-9b at full width cut to 4 of 40 layers (the cut
-   printed) at mesh 1x4, sequence-sharded (2 KV heads do not divide 4:
-   wk/wv whole, the dense cache cut along its rows, decode through
-   ``kernels.sharded_decode``), run a's requests. Both serve
+   not a tensor-parallel rate). Run n: full-width repro-100m at runs a
+   to g's depth at mesh 1x2 (head-sharded: a rank holds 6 q and 2 KV
+   heads), int8 per channel, serving run a's requests plainly, run b's
+   with ``impl="reuse", paged=True`` and run c's with ``impl="reuse",
+   fuse_qkv=True`` and its adapters. Run o: glm4-9b at full width cut to
+   4 of 40 layers (the cut printed) at mesh 1x4, sequence-sharded (2 KV
+   heads do not divide 4: wk/wv whole, the dense cache cut along its
+   rows, decode through ``kernels.sharded_decode``), run a's requests;
+   its ranks spawn beside run n's (``start_mesh``). Both serve
    ``MESH_MAX_NEW`` tokens a request, and each rank's engine quantizes
    only its own blocks: the engine's memory by rank is printed beside the
    single-card engine's. Each rank's launch
    counts are set to 0 just before it serves and read just after; every
    rank must serve rank 0's tokens and stats and launch the mode's kernels
    at its shapes; every token must pass the token gate on the unsharded
-   model; the share of tokens equal to runs a's and b's is printed. Their
+   model; the share of tokens equal to runs a's and b's (of run n's
+   depth) is printed. Their
    kernel rows (the rank shapes no earlier row has: both quantized matmuls
    at repro-100m's model-2 blocks, axllm_matmul at glm4-9b's model-4
    blocks and its head's quarter, decode attention at 6/2 heads, flash at
    6/2 heads of 64 and 8/1 of 128) follow the backward kernel's.
+   Run p, one spawn at mesh 1x2 serving in turn (each freed before the
+   next): qwen2-moe-a2.7b at full width cut to 6 of 24 layers,
+   int8, expert-parallel (a rank holds 32 of the 64 padded experts; rank
+   0 records the served expert choices, and the moe gate replays the
+   serving schedule with them); zamba2-1.2b cut to 14 of 38 layers (2
+   shared-attention sites and the 2 remainder layers), bf16,
+   ``impl="reuse"``; xlstm-1.3b cut to 8 of 48, float32, as run j;
+   each on run a's requests. Run q, one spawn at mesh 2x2: full-width,
+   full-depth repro-100m serving run a's requests (int8; a data
+   rank runs 4 of the 8 slots' rows) and run b's (reuse + paged, whose
+   pool and rows are whole on each data rank; its prefix hits must equal
+   run b's), then the module phase: ``decode_attention_seqsharded`` with
+   batch axes ("data",) at glm4-9b's layer (B8 S1024 H32 Hk2 d128, bf16
+   and int8 KV), each rank's rows held against the single-card
+   ``decode_attention`` kernel on the same rows, its call, its local
+   part and the kernel timed. Runs p and q hold what n and o hold, print
+   each rank's slot rows, and run q checks them. Their kernel rows (run
+   p's rank blocks at model 2, run q's at a data rank's M4, and their
+   decode and flash layouts) follow run o's.
 11. Training. The flash backward kernel (``csrc/flash_attention_bwd.cu``,
    no TPU counterpart) against its plain version
    ``ref.flash_attention_bwd_ref`` (dQ, dK, dV) at run m's layer (B8 S256
@@ -251,10 +280,11 @@ NVIDIA GPU.
    the rest. Then ``python -m repro_torch.launch.train`` with the same
    flags as a subprocess must print the JAX launcher's lines, and
    ``python -m repro_torch.launch.serve --ckpt <its dir> --reuse --paged``
-   must restore its step 40.
+   must restore its step 40. These two subprocesses run on a second
+   lane beside runs n to p, and are checked before run q.
 12. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
    g, in runs h to l, in the launcher phase's in-process ``serve.main``
-   runs, in runs n and o (rank 0) and in run m, beside its main run's; the
+   runs, in runs n to q (rank 0) and in run m, beside its main run's; the
    backward kernel's row from run m), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -278,6 +308,9 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 N_SLOTS, MAX_LEN, DECODE_CHUNK = 8, 1024, 8
+# runs a to g and n serve full-width repro-100m cut to this many of its 12
+# layers (chip time: the script must end well within its 1200 s limit)
+E2E_LAYERS = 4
 PROMPT_LENS, N_REQUESTS, MAX_NEW = (64, 200, 511), 16, 64
 SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
@@ -311,6 +344,77 @@ E_STREAM, E_HANGUP, E_HANGUP_AFTER, E_CANCEL = 1, 4, 10, 19
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+class CliLane:
+    """Command lines of the launcher phases, run one after another in a
+    background thread beside the main thread's runs (they check what the
+    entry points print, not how fast). Each runs in a session of its own
+    (a mesh launcher's spawned ranks with it), with ``src`` on the path
+    and a time limit of ``timeout`` seconds. ``result(label)`` waits for
+    a job and gives (exit code, stdout, stderr, wall s); ``stop()`` kills
+    the one running, its ranks included, and runs no other."""
+
+    def __init__(self, timeout: float = 600.0):
+        import queue
+        import threading
+        self._jobs = queue.Queue()
+        self._done = {}
+        self._cv = threading.Condition()
+        self._proc = None
+        self._stopped = False
+        self._timeout = timeout
+        threading.Thread(target=self._loop, daemon=True).start()
+
+    def submit(self, label, argv) -> None:
+        self._jobs.put((label, list(argv)))
+
+    def _loop(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        while True:
+            label, argv = self._jobs.get()
+            t0 = time.perf_counter()
+            with self._cv:
+                if self._stopped:
+                    return
+                try:
+                    self._proc = proc = subprocess.Popen(
+                        argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True,
+                        start_new_session=True)
+                except OSError as e:
+                    proc = None
+                    rc, out, err = None, "", f"did not start: {e}"
+            if proc is not None:
+                try:
+                    out, err = proc.communicate(timeout=self._timeout)
+                    rc = proc.returncode
+                except subprocess.TimeoutExpired:
+                    self._kill(proc)
+                    out, err = proc.communicate()
+                    rc, err = None, f"timed out after {self._timeout} s\n{err}"
+            with self._cv:
+                self._done[label] = (rc, out, err, time.perf_counter() - t0)
+                self._cv.notify_all()
+
+    @staticmethod
+    def _kill(proc):
+        import signal
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    def result(self, label) -> tuple:
+        with self._cv:
+            self._cv.wait_for(lambda: label in self._done)
+            return self._done[label]
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            if self._proc is not None and self._proc.poll() is None:
+                self._kill(self._proc)
 
 
 def time_ms(fn, flush, iters: int = 20) -> float:
@@ -999,8 +1103,9 @@ DECODE_LENGTHS = (0, 64, 200, 511, 700, 1000, MAX_LEN, MAX_LEN + 300)
 
 def decode_case(paged, h, hk, d, quant, g, dev, flush,
                 lengths=DECODE_LENGTHS, s=MAX_LEN) -> dict:
-    """One decode step of the 8 slots at S = ``s`` (dense cache; 1024 but
-    for run l's shapes) or through shuffled, shared 16-key block tables
+    """One decode step of a row a length (the 8 slots, or a data rank's 4
+    in run q) at S = ``s`` (dense cache; 1024 but for run l's shapes) or
+    through shuffled, shared 16-key block tables
     (paged), at ``lengths`` (0 to past the end), against the plain version
     and the split emulation; every length-0 row must be exactly 0."""
     import torch
@@ -1011,7 +1116,7 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush,
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_cuda
     bf16 = torch.bfloat16
-    b, bs = N_SLOTS, KV_BLOCK
+    b, bs = len(lengths), KV_BLOCK      # a row a length (8: the slots)
     mb = s // bs
     n_rows = 2 * N_SLOTS * mb + 2 if paged else b   # pool blocks or rows
     inner = (bs,) if paged else (s,)
@@ -1088,16 +1193,16 @@ def decode_case(paged, h, hk, d, quant, g, dev, flush,
 
 
 def flash_case(h, hk, d, dtype_name, g, dev, flush, sq=512, sk=None,
-               causal=True) -> list:
-    """Flash attention of a prefill wave (8 x ``sq`` queries, ``sk`` keys,
-    default ``sq``) at this head layout, causal or not: the wrapper's path
-    and, for bf16, the SIMT kernel beside it."""
+               causal=True, b=N_SLOTS) -> list:
+    """Flash attention of a prefill wave (``b`` x ``sq`` queries, ``sk``
+    keys, default ``sq``) at this head layout, causal or not: the
+    wrapper's path and, for bf16, the SIMT kernel beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
-    b, sk = N_SLOTS, sk or sq
+    sk = sk or sq
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
     v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
@@ -1576,7 +1681,7 @@ def split_by_kind(top, in_mixer=None) -> dict:
 def serve_run(dev, card, label, prompts, kernels, names=None,
               registry=None, cfg=None, after=None, tile_expect=None,
               **engine_kw):
-    """One end-to-end run, on full-width repro-100m unless ``cfg`` says
+    """One end-to-end run, on ``e2e_config()`` unless ``cfg`` says
     otherwise: ``prompts`` through ``ServeEngine(quantize=True, n_slots=8,
     max_len=1024, decode_chunk=8, adapters=registry, **engine_kw)``,
     request i with adapter ``names[i]``, with every launch count set to 0
@@ -1590,13 +1695,12 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
     (metrics, the engine)."""
     import numpy as np
     import torch
-    from repro_torch.configs.repro_100m import CONFIG
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine, _pow2_bucket
     from repro_torch.serve.token_gate import Routes, token_gate
 
-    cfg = cfg or CONFIG
+    cfg = cfg or e2e_config()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = get_model(cfg).init(seed=0, device=dev)
@@ -1656,8 +1760,8 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
               f"{launches.get(f'{lib}.wgmma', 0)} + gemv "
               f"{launches.get(f'{lib}.gemv', 0)} + tile {tile}, not the "
               f"{tile_want.get(lib, 0)} tile launches expected")
-    # bf16 prefill: every flash launch takes the tensor cores, 12 (one a
-    # layer) per wave that runs flash attention
+    # bf16 prefill: every flash launch takes the tensor cores, one a layer
+    # per wave that runs flash attention
     check(launches.get("flash_attention.wgmma") ==
           launches.get("flash_attention"), f"{label}: flash launches "
           f"{launches.get('flash_attention')} of which "
@@ -1895,6 +1999,14 @@ def serve_run(dev, card, label, prompts, kernels, names=None,
                                      by_kind=wave_split)), eng
 
 
+def e2e_config():
+    """The config runs a to g and n serve: full-width repro-100m, cut to
+    ``E2E_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs.repro_100m import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=E2E_LAYERS)
+
+
 def run_a_prompts() -> list:
     """Run a's 16 prompts (64/200/511 tokens, numpy seed 0), which runs c
     and d serve too."""
@@ -1994,8 +2106,7 @@ def end_to_end_lora(dev, card):
     """Run c: run a's prompts on the reuse pipeline with fused projections
     and four LoRA adapters, the requests cycling base/a0/a1/a2/a3; the
     counted reuse rate of layer 0's fused wqkv and gate_up."""
-    from repro_torch.configs.repro_100m import CONFIG
-    registry = run_c_registry(CONFIG, dev)
+    registry = run_c_registry(e2e_config(), dev)
     prompts = run_a_prompts()
     cycle = (None,) + ADAPTERS
     names = [cycle[i % len(cycle)] for i in range(N_REQUESTS)]
@@ -2018,7 +2129,6 @@ def end_to_end_nf4(dev, card):
     projection takes the codebook route of the tensor cores and every
     decode projection the split-K table kernel; layer 0's counted reuse
     rates on both paths."""
-    from repro_torch.configs.repro_100m import CONFIG
     from repro_torch.core.quantization import QTensor
 
     e2e, eng = serve_run(dev, card, "nf4+reuse", run_a_prompts(), (
@@ -2032,7 +2142,7 @@ def end_to_end_nf4(dev, card):
           "packed NF4 weights")
     # one launch per projection and layer: every prefill one on the tensor
     # cores, every decode one on the split-K kernel
-    n_proj = 7 * CONFIG.n_layers
+    n_proj = 7 * eng.cfg.n_layers
     got = e2e["launches"]
     check(got.get("reuse_matmul.wgmma") == n_proj * e2e["prefill_waves"],
           f"nf4+reuse: {got.get('reuse_matmul.wgmma')} tensor-core launches "
@@ -2140,7 +2250,7 @@ def timed_drafts():
 
 
 def spec_run(dev, card, label, prompts, ref_tokens, kernels, **engine_kw):
-    """One speculative end-to-end run on full-width repro-100m: ``prompts``
+    """One speculative end-to-end run on ``e2e_config()``: ``prompts``
     through ``ServeEngine(quantize=True, n_slots=8, max_len=1024,
     decode_chunk=8, speculate=True, **engine_kw)``, every launch count set
     to 0 just before and read just after, each of ``kernels`` required to
@@ -2150,12 +2260,11 @@ def spec_run(dev, card, label, prompts, ref_tokens, kernels, **engine_kw):
     prefill's must have come from a round. Returns (metrics, the
     engine)."""
     import torch
-    from repro_torch.configs.repro_100m import CONFIG
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = CONFIG
+    cfg = e2e_config()
     params = get_model(cfg).init(seed=0, device=dev)
     tag = f"e2e {label} [{card}]"
     drafts, restore = timed_drafts()
@@ -2298,18 +2407,18 @@ def end_to_end_spec_paged(dev, card, ref_tokens):
 # runs h, i, j and k: (config, layers kept, why the rest are cut; None:
 # full depth)
 FAMILY_RUNS = {
-    "moe": ("qwen2-moe-a2.7b", 6, "chip time (runs j to l serve in the "
-            "same call); at 24 layers the raw bf16 tree alone is 30.3 GB"),
-    "vlm": ("chameleon-34b", 6, "chip time (runs j to l serve in the "
-            "same call); at 48 layers its 34.3 B parameters (68.6 GB raw "
-            "plus 34 GB of codes) do not fit in 80 GB"),
+    "moe": ("qwen2-moe-a2.7b", 4, "chip time: the script must finish within "
+            "1080 s with runs p and q; at 24 layers the raw bf16 tree alone "
+            "is 30.3 GB"),
+    "vlm": ("chameleon-34b", 4, "chip time, as run h; at 48 layers its "
+            "34.3 B parameters (68.6 GB raw plus 34 GB of codes) do not fit "
+            "in 80 GB"),
     "ssm": ("xlstm-1.3b", 8, "chip time (run l and the launcher phase "
             "joined the call; at 48 layers run j alone took 157 s, at 16 "
             "55-70 s); 8 layers keep one super-block, 7 mLSTM and the sLSTM"),
-    "hybrid": ("zamba2-1.2b", 20, "chip time (run l and the launcher "
-               "phase joined the call; at 38 layers run k took 65-102 s); "
-               "20 layers keep 3 of its 6 attention sites and a "
-               "remainder of 2 Mamba2 layers"),
+    "hybrid": ("zamba2-1.2b", 14, "chip time, as run h; 14 layers keep 2 "
+               "of its 6 attention sites and its remainder of 2 Mamba2 "
+               "layers"),
 }
 FAMILY_KERNELS = ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
                   "decode_attention", "flash_attention",
@@ -2497,8 +2606,8 @@ def end_to_end_family(dev, card, family):
 
 
 def simulator_phase(eng, card) -> dict:
-    """The paper's cycle model on the int8 codes run b serves (84 matrices,
-    full width): each matrix's multiply count from the reuse kernel
+    """The paper's cycle model on the int8 codes run b serves (7 matrices a
+    layer, full width): each matrix's multiply count from the reuse kernel
     (``reuse_matmul_cuda(with_stats=True)`` at M = 8, its counting segment
     256 for every N here; the port's wrapper counts per activation row, so
     times 8) must equal ``simulate_matrix(codes, SimConfig(),
@@ -2546,7 +2655,8 @@ def simulator_phase(eng, card) -> dict:
                          speedup=rep.speedup))
     wall = time.perf_counter() - t0
     matrices = sum(len(v) for v in per.values())
-    check(matrices == 84, f"simulator: {matrices} matrices, not 84")
+    check(matrices == 7 * eng.cfg.n_layers,
+          f"simulator: {matrices} matrices, not 7 a layer")
     pr = power_report(total)
     reduction = 1.0 - total.mults / total.total_ops
     print(f"{tag}: {matrices} int8 matrices of run b's served model: each "
@@ -2628,14 +2738,13 @@ def end_to_end_overload(dev, card):
     kernels, and a profiled step that holds a continuation chunk."""
     import numpy as np
     import torch
-    from repro_torch.configs.repro_100m import CONFIG
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as plain
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine, StopStream
     from repro_torch.serve.token_gate import token_gate
 
-    cfg = CONFIG
+    cfg = e2e_config()
     params = get_model(cfg).init(seed=0, device=dev)
     prompts = prompt_cycle(E_REQUESTS)
     tag = f"e2e overload+chunked [{card}]"
@@ -3251,7 +3360,9 @@ LAUNCH_ARGS = ("--arch", "repro-100m", "--slots", str(N_SLOTS), "--max-len",
 # ranks share the card over gloo, about 60 tok/s (chip time)
 LAUNCH_RUNS = {"default": (), "reuse+paged": ("--reuse", "--paged"),
                "mesh 2": ("--mesh-shape", "2", "--requests", "8",
-                          "--max-new", "16")}
+                          "--max-new", "16"),
+               "mesh 2x2": ("--mesh-shape", "2x2", "--requests", "8",
+                            "--max-new", "16")}
 LAUNCH_KERNELS = {
     "default": ("axllm_matmul", "axllm_matmul.wgmma", "axllm_matmul.gemv",
                 "decode_attention", "flash_attention",
@@ -3261,24 +3372,29 @@ LAUNCH_KERNELS = {
                     "flash_attention.wgmma"),
 }
 LAUNCH_KERNELS["mesh 2"] = LAUNCH_KERNELS["default"]   # rank 0's launches
+LAUNCH_KERNELS["mesh 2x2"] = LAUNCH_KERNELS["default"]
+# the mesh run whose spawn (the same mesh) runs a mesh mode's in-process
+# reference, the launcher's rank body
+LAUNCH_MESH_RUN = {"mesh 2": "n", "mesh 2x2": "q"}
 LAUNCH_STEP = 7     # the step the checkpoint is saved at
 
 
-def launcher_phase(dev, card):
+def launcher_phase(dev, card, lane):
     """The launcher from a checkpoint: the port's full-width repro-100m
     init from seed 1 and ``adamw.init`` saved by ``train/checkpoint.save``
     under ``build/`` (seed 1, where the launcher's own init is seed 0, so a
     restore that did nothing would show), then ``python -m
-    repro_torch.launch.serve --ckpt <dir> ...`` as a subprocess on the
-    card for each of ``LAUNCH_RUNS``. Each must exit 0, print ``restored
-    step 7``, and print the token lines and stats JSON (all stats but the
-    timing field) of ``repro_torch.launch.serve.main`` run in process on
-    the card with the same flags. The launch counts are that in-process
-    run's: the entry point itself, counted from 0 just before it."""
+    repro_torch.launch.serve --ckpt <dir> ...`` for each of
+    ``LAUNCH_RUNS``, queued on ``lane`` (subprocesses on the card, beside
+    the main thread), and ``repro_torch.launch.serve.main`` run in process
+    on the card with the same flags; a mesh mode's in-process run is the
+    launcher's rank body in the spawn of the mesh run of its shape
+    (``LAUNCH_MESH_RUN``; ``serve.main`` spawns ranks that run just that
+    body). Returns what ``launcher_check`` holds the subprocesses to. The
+    launch counts are the in-process run's: the entry point itself,
+    counted from 0 just before it."""
     import contextlib
     import io
-    import json as _json
-    import os
     import shutil
     import torch
     from repro_torch.configs.repro_100m import CONFIG
@@ -3295,6 +3411,10 @@ def launcher_phase(dev, card):
                     (params, adamw.init(params, adamw.AdamWConfig())))
     save_s = time.perf_counter() - t0
     size = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+    for label, extra in LAUNCH_RUNS.items():
+        lane.submit(("launcher", label),
+                    [sys.executable, "-m", "repro_torch.launch.serve",
+                     *launch_flags(ckpt, extra)])
     like = get_model(CONFIG).init(seed=0, device=dev)
     (got, _), step = checkpoint.restore(
         str(ckpt), (like, adamw.init(like, adamw.AdamWConfig())))
@@ -3309,86 +3429,142 @@ def launcher_phase(dev, card):
           "differs from the saved tree")
     del got, params
 
-    def split(stdout):
-        """(the lines before the stats JSON, the stats without timing)"""
-        start = stdout.find("\n{")     # the stats JSON ends the output
-        stats = _json.loads(stdout[start:])
-        stats.pop("prefill_wall_s")
-        return stdout[:start].splitlines(), stats
-
     out = {}
     for label, extra in LAUNCH_RUNS.items():
-        flags = ["--ckpt", str(ckpt), *LAUNCH_ARGS, *extra]
-        argv = [sys.executable, "-m", "repro_torch.launch.serve", *flags]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        print(f"launcher [{card}] {label}: `python -m "
-              f"repro_torch.launch.serve {' '.join(flags)}` exited "
-              f"{proc.returncode} in {wall:.1f} s", flush=True)
-        check(proc.returncode == 0, f"launcher {label}: exit "
-              f"{proc.returncode}: {proc.stderr[-2000:]}")
-        lines, stats = split(proc.stdout)
-        for ln in lines:
-            print(f"launcher [{card}] {label}: | {ln}", flush=True)
-        check(f"restored step {LAUNCH_STEP} from {ckpt}" in lines,
-              f"launcher {label}: no restore line")
-        token_lines = [ln for ln in lines if ln.startswith("  -> ")]
-
+        if label in LAUNCH_MESH_RUN:
+            continue
         buf = io.StringIO()
         _build.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            ranks = serve.main(flags, device=dev)
+            serve.main(launch_flags(ckpt, extra), device=dev)
         torch.cuda.synchronize()
-        in_wall = time.perf_counter() - t0
-        # a mesh run's launches are its ranks' (rank 0's reported)
-        launches = dict(_build.LAUNCHES) if ranks is None else \
-            ranks[0]["launches"]
-        if ranks is not None:
+        out[label] = launcher_in_process(
+            card, label, ckpt, buf.getvalue(), dict(_build.LAUNCHES),
+            time.perf_counter() - t0, "`serve.main`")
+    return dict(out, ckpt=ckpt, checkpoint_mib=size / 2**20, save_s=save_s)
+
+
+def launcher_in_process(card, label, ckpt, stdout, launches, wall,
+                        where) -> dict:
+    """Hold the in-process run of launcher mode ``label`` (its printed
+    ``stdout`` and ``launches``) to the restore line and the mode's
+    kernels; returns what ``launcher_check`` compares."""
+    lines, stats = split_stats(stdout)
+    print(f"launcher [{card}] {label}: in process, {where} in {wall:.1f} s: "
+          f"restore line {lines[0] if lines else None!r}; prefix-hit tokens "
+          f"{stats['prefix_hit_tokens']}, admitted {stats['admitted']}, "
+          f"finished {stats['finished']}; launches {launches}", flush=True)
+    check(f"restored step {LAUNCH_STEP} from {ckpt}" in lines,
+          f"launcher {label}: no restore line in process")
+    for name in LAUNCH_KERNELS[label]:
+        check(launches.get(name, 0) > 0, f"launcher {label}: {name} "
+              "never launched")
+    return dict(in_process_s=wall, stats=stats, launches=launches,
+                lines=lines)
+
+
+def launcher_mesh_in_process(card, label, inproc, ranks) -> None:
+    """Mesh mode ``label``'s in-process run from its mesh run's ranks
+    (each rank's result of the launcher's rank body): every rank the
+    same tokens, rank 0's lines and launches (as ``serve.main``)."""
+    check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
+          f"launcher {label}: the ranks' tokens differ in process")
+    inproc[label] = launcher_in_process(
+        card, label, inproc["ckpt"], ranks[0]["out"], ranks[0]["launches"],
+        ranks[0]["wall_s"], f"the launcher's rank body in run "
+        f"{LAUNCH_MESH_RUN[label]}'s spawn")
+
+
+def launch_flags(ckpt, extra) -> list:
+    """The launcher's flags for ``LAUNCH_RUNS`` entry ``extra``."""
+    return ["--ckpt", str(ckpt), *LAUNCH_ARGS, *extra]
+
+
+def split_stats(stdout) -> tuple:
+    """(the launcher's lines before its stats JSON, the stats without the
+    timing field)"""
+    start = stdout.find("\n{")     # the stats JSON ends the output
+    stats = json.loads(stdout[start:])
+    stats.pop("prefill_wall_s")
+    return stdout[:start].splitlines(), stats
+
+
+def launcher_check(card, lane, inproc) -> dict:
+    """The launcher phase's subprocesses (``launcher_phase``), each waited
+    for on ``lane``: each must exit 0, print ``restored step 7``, and print
+    the token lines and stats JSON (all stats but the timing field) of its
+    in-process run; a mesh run's summary line carries its mesh tag. Removes
+    the checkpoint."""
+    import shutil
+    import torch
+    ckpt = inproc["ckpt"]
+    out = {}
+    for label, extra in LAUNCH_RUNS.items():
+        rc, stdout, stderr, wall = lane.result(("launcher", label))
+        flags = launch_flags(ckpt, extra)
+        print(f"launcher [{card}] {label}: `python -m "
+              f"repro_torch.launch.serve {' '.join(flags)}` exited "
+              f"{rc} in {wall:.1f} s (beside the main thread's runs)",
+              flush=True)
+        check(rc == 0, f"launcher {label}: exit {rc}: {stderr[-2000:]}")
+        lines, stats = split_stats(stdout)
+        for ln in lines:
+            print(f"launcher [{card}] {label}: | {ln}", flush=True)
+        check(f"restored step {LAUNCH_STEP} from {ckpt}" in lines,
+              f"launcher {label}: no restore line")
+        if "--mesh-shape" in extra:
             summary = [ln for ln in lines if ln.startswith("[axllm")]
-            check(summary and summary[0].endswith(", mesh 2"),
+            shape = extra[extra.index("--mesh-shape") + 1]
+            check(summary and summary[0].endswith(f", mesh {shape}"),
                   f"launcher {label}: no mesh tag in {summary}")
-            check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
-                  f"launcher {label}: the ranks' tokens differ")
-        in_lines, want = split(buf.getvalue())
-        want_lines = [ln for ln in in_lines if ln.startswith("  -> ")]
-        print(f"launcher [{card}] {label}: in process, `serve.main` in "
-              f"{in_wall:.1f} s: restore line "
-              f"{in_lines[0] if in_lines else None!r}; token lines equal "
-              f"{token_lines == want_lines}, stats equal {stats == want} "
-              f"(prefix-hit tokens {want['prefix_hit_tokens']}, admitted "
-              f"{want['admitted']}, finished {want['finished']}); launches "
-              f"{launches}", flush=True)
-        check(f"restored step {LAUNCH_STEP} from {ckpt}" in in_lines,
-              f"launcher {label}: no restore line in process")
+        token_lines = [ln for ln in lines if ln.startswith("  -> ")]
+        got = inproc[label]
+        want_lines = [ln for ln in got["lines"] if ln.startswith("  -> ")]
+        print(f"launcher [{card}] {label}: token lines equal the in-process "
+              f"run's {token_lines == want_lines}, stats equal "
+              f"{stats == got['stats']}", flush=True)
         check(len(token_lines) == 3 and token_lines == want_lines,
               f"launcher {label}: token lines {token_lines} != the "
               f"in-process run's {want_lines}")
-        check(stats == want, f"launcher {label}: stats {stats} != the "
-              f"in-process run's {want}")
-        for name in LAUNCH_KERNELS[label]:
-            check(launches.get(name, 0) > 0, f"launcher {label}: {name} "
-                  "never launched")
-        out[label] = dict(wall_s=wall, in_process_s=in_wall, stats=stats,
-                          launches=launches, token_lines=token_lines)
+        check(stats == got["stats"], f"launcher {label}: stats {stats} != "
+              f"the in-process run's {got['stats']}")
+        out[label] = dict(wall_s=wall, in_process_s=got["in_process_s"],
+                          stats=stats, launches=got["launches"],
+                          token_lines=token_lines)
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
-    return dict(out, checkpoint_mib=size / 2**20, save_s=save_s)
+    return dict(out, checkpoint_mib=inproc["checkpoint_mib"],
+                save_s=inproc["save_s"])
 
 
-# -- tensor-parallel serving: runs n and o -----------------------------------
+# -- serving on a mesh: runs n, o, p and q -----------------------------------
 
-# run -> (config, depth (None: full), mesh model size, why the depth)
+# run -> (config (None: each mode's own, ``MESH_FAMILIES``), depth (None:
+# full), mesh (data, model), why the depth)
 MESH_RUNS = {
-    "n": ("repro-100m", None, 2, ""),
-    "o": ("glm4-9b", 4, 4, "chip time and memory: the four ranks share one "
-          "card, and each makes the whole raw bf16 tree before its engine "
-          "keeps and quantizes its blocks"),
+    "n": ("repro-100m", E2E_LAYERS, (1, 2), "chip time, as runs a to g, "
+          "whose tokens it is compared with"),
+    "o": ("glm4-9b", 4, (1, 4), "chip time and memory: the four ranks share "
+          "one card, and each makes the whole raw bf16 tree before its "
+          "engine keeps and quantizes its blocks"),
+    "p": (None, None, (1, 2), ""),
+    "q": ("repro-100m", None, (2, 2), ""),
 }
-# tokens a request of runs n and o: enough for rank agreement, the gate and
+# run p's modes, one family each: (config, layers kept, dtype (None: the
+# config's), why the depth)
+MESH_FAMILIES = {
+    "h moe int8": ("qwen2-moe-a2.7b", 6, None, "chip time; at 24 layers "
+                   "the raw bf16 tree alone is 30.3 GB, and each of the two "
+                   "ranks makes it whole"),
+    "k hybrid reuse": ("zamba2-1.2b", 14, None, "chip time; 14 layers keep "
+                       "2 of its 6 shared-attention sites and its remainder "
+                       "of 2 Mamba2 layers"),
+    "j ssm float32": ("xlstm-1.3b", 8, "float32", "as run j (one "
+                      "super-block: 7 mLSTM and the sLSTM); float32 as run "
+                      "j, whose bf16 plain path does not reproduce itself"),
+}
+# tokens a request of runs n to q: enough for rank agreement, the gate and
 # every kernel's launches (gloo on one card serves some 70 tokens a second)
 MESH_MAX_NEW = 16
 # run -> mode -> (the run whose prompts and requests it serves, engine
@@ -3410,16 +3586,52 @@ MESH_MODES = {
         "a int8": ("a", {}, ("axllm_matmul.gemv", "axllm_matmul.wgmma",
                              "flash_attention", "flash_attention.wgmma")),
     },
+    "p": {
+        "h moe int8": ("a", {}, FAMILY_KERNELS),
+        "k hybrid reuse": ("a", dict(impl="reuse"),
+                           RECURRENT_RUNS["hybrid"][0]),
+        "j ssm float32": ("a", {}, RECURRENT_RUNS["ssm"][0]),
+    },
 }
-# the rank shapes of runs n and o that no earlier row has: repro-100m at
-# model 2 (wq, wk/wv, wo, gate/up, down, run c's fused wqkv) and glm4-9b at
-# model 4 (wq, wk/wv whole, wo, gate/up, down; the untied head's quarter)
-MESH_MATMULS = {"n": ((768, 384), (768, 128), (384, 768), (768, 1024),
-                      (1024, 768), (768, 640)),
-                "o": ((4096, 1024), (4096, 256), (1024, 4096), (4096, 3424),
-                      (3424, 4096))}
-MESH_HEAD = (4096, 151552 // 4)
-MESH_ATTN = {"n": (6, 2, 64), "o": (8, 1, 128)}    # a rank's q / KV heads
+MESH_MODES["q"] = {k: MESH_MODES["n"][k] for k in ("a int8",
+                                                   "b reuse+paged")}
+# the rank shapes of runs n to q that no earlier row has: (kernel, the Ms,
+# K, N, the activations' dtype). Run n: repro-100m at model 2 (wq, wk/wv,
+# wo, gate/up, down, run c's fused wqkv); run o: glm4-9b at model 4 (wq,
+# wk/wv whole, wo, gate/up, down; the untied head's quarter); run p at
+# model 2: qwen2-moe-a2.7b's wq/wk/wv, wo, shared gate/up and down and its
+# head's half, zamba2-1.2b's shared wq/wk/wv, wo, up and down and head's
+# half on reuse_matmul and its Mamba2 out_proj's columns on axllm_matmul,
+# xlstm-1.3b's mLSTM up columns and down rows and head's half (f32
+# activations); run q: run n's blocks at a data rank's 4 decode rows
+_N_BLOCKS = ((768, 384), (768, 128), (384, 768), (768, 1024), (1024, 768))
+_BOTH = ("axllm_matmul", "reuse_matmul")
+_WAVE = (N_SLOTS, 4096)
+MESH_MATMULS = {
+    "n": [(kern, _WAVE, k, n, "bfloat16") for kern in _BOTH
+          for k, n in _N_BLOCKS + ((768, 640),)],
+    "o": [("axllm_matmul", _WAVE, k, n, "bfloat16") for k, n in (
+        (4096, 1024), (4096, 256), (1024, 4096), (4096, 3424), (3424, 4096))]
+    + [("axllm_matmul", (N_SLOTS,), 4096, 151552 // 4, "bfloat16")],
+    "p": [("axllm_matmul", _WAVE, k, n, "bfloat16") for k, n in (
+        (2048, 1024), (1024, 2048), (2048, 2816), (2816, 2048))]
+    + [("axllm_matmul", (N_SLOTS,), 2048, 152064 // 2, "bfloat16")]
+    + [("reuse_matmul", _WAVE, k, n, "bfloat16") for k, n in (
+        (2048, 1024), (1024, 2048), (2048, 4096), (4096, 2048))]
+    + [("reuse_matmul", (N_SLOTS,), 2048, 32000 // 2, "bfloat16"),
+       ("axllm_matmul", _WAVE, 4096, 1024, "bfloat16")]
+    + [("axllm_matmul", (N_SLOTS,), k, n, "float32") for k, n in (
+        (2048, 4096), (2048, 2048), (2048, 50432 // 2))],
+    "q": [(kern, (N_SLOTS // 2,), k, n, "bfloat16") for kern in _BOTH
+          for k, n in _N_BLOCKS],
+}
+# a rank's attention: run -> ((q heads, KV heads, head dim, rows), ...)
+MESH_ATTN = {"n": ((6, 2, 64, N_SLOTS),), "o": ((8, 1, 128, N_SLOTS),),
+             "p": ((8, 8, 128, N_SLOTS), (16, 16, 64, N_SLOTS)),
+             "q": ((6, 2, 64, N_SLOTS // 2),)}
+# run q's module phase: the sequence-sharded decode with batch axes
+# ("data",) at glm4-9b's layer (B, S, H, Hk, d)
+SEQ_SHARD = (8, 1024, 32, 2, 128)
 
 
 def run_c_registry(cfg, dev):
@@ -3454,13 +3666,35 @@ def mesh_requests(run):
     return run_a_prompts(), names
 
 
-def mesh_config(run):
+def mesh_config(run, label):
+    """The config of mode ``label`` of mesh run ``run``."""
     import dataclasses
     from repro_torch.configs import get_config
     arch, layers, _, _ = MESH_RUNS[run]
+    dtype = None
+    if arch is None:
+        arch, layers, dtype, _ = MESH_FAMILIES[label]
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def describe(cfg, why) -> str:
+    """A config's widths and its depth, with the reason of a cut."""
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name).n_layers
+    depth = "full depth" if cfg.n_layers == full else \
+        f"depth cut to {cfg.n_layers} of {full} layers: {why}"
+    return (f"{cfg.name} at full width (d_model {cfg.d_model}, "
+            f"H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab padded "
+            f"{cfg.padded_vocab}"
+            + (f", {cfg.n_experts} experts padded to {cfg.padded_experts}, "
+               f"top-{cfg.top_k}, {cfg.n_shared_experts} shared"
+               if cfg.n_experts else "")
+            + f", {cfg.dtype}, int8 per channel), {depth}; "
+            f"{cfg.n_params() / 1e9:.3f} G parameters at this depth")
 
 
 def collective_probe(mesh, n: int = 50) -> dict:
@@ -3491,9 +3725,9 @@ def collective_probe(mesh, n: int = 50) -> dict:
 
 
 def held_gib(*trees) -> float:
-    """GiB of the tensors ``trees`` hold (QTensors' children, nested dicts),
-    each storage once: an engine's weights and cache, whether it copied
-    them or shares them with its caller."""
+    """GiB of the tensors ``trees`` hold (QTensors' children, nested dicts
+    and tuples), each storage once: an engine's weights and cache, whether
+    it copied them or shares them with its caller."""
     import dataclasses
     import torch
     seen, total = set(), 0
@@ -3502,6 +3736,9 @@ def held_gib(*trees) -> float:
         nonlocal total
         if isinstance(x, dict):
             for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
                 walk(v)
         elif isinstance(x, torch.Tensor):
             st = x.untyped_storage()
@@ -3516,19 +3753,32 @@ def held_gib(*trees) -> float:
     return total / 2**30
 
 
-def mesh_rank(mesh, run):
-    """One rank of run n or o (spawned by ``launch.mesh.run_ranks``):
-    the config's weights from seed 0 on this rank's card, then each mode's
+def mesh_rank(mesh, run, launcher_argv=None):
+    """One rank of run n, o, p or q (spawned by ``launch.mesh.run_ranks``):
+    each mode's config's weights from seed 0 on this rank's card (made
+    again when the config changes, the last freed first), then the mode's
     engine on the mesh serving its run's requests, every launch count set
-    to 0 just before and read just after."""
+    to 0 just before and read just after. Rank 0 of a moe mode records
+    the served expert choices and wave lengths for the token gate. Then,
+    given ``launcher_argv``, the serving launcher's rank body
+    (``launch.serve._rank``, what ``serve.main`` runs on each rank it
+    spawns) with those flags on this mesh, timed. Run q ends with the
+    sequence-sharded decode's module phase."""
+    import contextlib
+    import gc
     import torch
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine
-    cfg, dev = mesh_config(run), mesh.device
-    params = get_model(cfg).init(seed=0, device=dev)
+    dev = mesh.device
     out = {"probe": collective_probe(mesh)}
+    params = made = None
     for label, (req_run, kw, _) in MESH_MODES[run].items():
+        cfg = mesh_config(run, label)
+        if cfg != made:
+            params = None
+            torch.cuda.empty_cache()
+            params, made = get_model(cfg).init(seed=0, device=dev), cfg
         prompts, names = mesh_requests(req_run)
         registry = run_c_registry(cfg, dev) if req_run == "c" else None
         torch.cuda.synchronize(dev)
@@ -3538,63 +3788,201 @@ def mesh_rank(mesh, run):
                           quantize=True, decode_chunk=DECODE_CHUNK,
                           adapters=registry, mesh=mesh, device=dev, **kw)
         engine_gib = held_gib(eng.params, eng.cache)
+        routes = wave_lens = None
+        if cfg.family == "moe" and mesh.rank == 0:
+            routes, wave_lens = record_routes(eng)
         _build.reset_launches()
         t0 = time.perf_counter()
         for p, name in zip(prompts, names):
             eng.submit(p, max_new=MESH_MAX_NEW, adapter=name)
-        eng.run()
+        with contextlib.nullcontext() if routes is None else routes.record():
+            eng.run()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         tokens = served_tokens(eng)
+        lay = eng._layout
         out[label] = dict(
             tokens=tokens, launches=dict(_build.LAUNCHES), wall_s=wall,
             tok_s=sum(map(len, tokens)) / wall,
             stats={k: v for k, v in eng.stats.as_dict().items()
                    if k != "prefill_wall_s"},
-            layout={k: getattr(eng._layout, k) for k in
-                    ("heads", "kv_heads", "seq", "mlp", "vocab")},
+            layout=None if lay is None else {
+                k: getattr(lay, k) for k in ("heads", "kv_heads", "seq",
+                                             "mlp", "vocab", "experts",
+                                             "ssm_in", "ssm_out")},
+            rows=None if eng._rows is None else (eng._rows.lo, eng._rows.n),
+            routes=routes, wave_lens=wave_lens,
             engine_gib=engine_gib,
             raw_gib=before / 2**30,
             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        # a recording engine's wrapped methods hold it in a cycle
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    if launcher_argv is not None:
+        from repro_torch.launch.serve import _rank as launcher_rank
+        t0 = time.perf_counter()
+        out["launcher"] = launcher_rank(mesh, launcher_argv)
+        torch.cuda.synchronize(dev)
+        out["launcher"]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    if run == "q":
+        out["seqsharded"] = seqsharded_rank_phase(mesh)
     return out
 
 
-def end_to_end_mesh(dev, card, run, ref_tokens):
-    """Run n or o: ``MESH_RUNS[run]``'s config at full width on a (1, P)
-    mesh of P ranks that share the card (gloo: the kernels on the card,
-    each collective through the host), serving each mode's requests. Every
-    rank must serve rank 0's tokens and launch the mode's kernels at its
-    shapes; every token must pass the token gate on the unsharded model
-    (built here, quantized whole); the share of tokens equal to the
-    single-card run of the same requests in this call (``ref_tokens``:
-    {request run: tokens}) is printed. The host figures measure gloo on
-    one card: correctness, not tensor-parallel speed."""
+def seqsharded_rank_phase(mesh) -> dict:
+    """One rank of run q's module phase: ``decode_attention_seqsharded``
+    at ``SEQ_SHARD`` (glm4-9b's layer) with the batch over "data" and the
+    sequence over "model" (batch axes ``("data",)``), bf16 and int8 KV,
+    every rank drawing the whole state from one seed and taking its block.
+    Held against the single-card ``decode_attention`` kernel on the same
+    rows over the whole sequence, updated the same way (within 2^-7 of
+    its output scale, as the decode rows). Timed with CUDA events: the
+    whole call (its two all-reduces through the host over gloo, the card
+    shared by four ranks), the rank's local part alone (the owner's write
+    and the partial flash-decode, PyTorch ops) and the kernel on the
+    rows."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded_decode as SD
+    dev = mesh.device
+    b, s, h, hk, d = SEQ_SHARD
+    nb, ns = b // mesh.shape["data"], s // mesh.shape["model"]
+    rows = slice(mesh.data_rank * nb, (mesh.data_rank + 1) * nb)
+    seq = slice(mesh.model_rank * ns, (mesh.model_rank + 1) * ns)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for kv in ("bf16", "int8"):
+        g = torch.Generator(device=dev).manual_seed(17)
+        q = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
+        length = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                               dtype=torch.int32)
+        length[0] = s
+        st = {}
+        for name, shape in (("k", (b, s, hk, d)), ("v", (b, s, hk, d)),
+                            ("nk", (b, hk, d)), ("nv", (b, hk, d))):
+            st[name] = torch.randint(-127, 128, shape, generator=g,
+                                     device=dev, dtype=torch.int8) \
+                if kv == "int8" else torch.randn(
+                    shape, generator=g, device=dev).to(torch.bfloat16)
+        if kv == "int8":
+            for name, shape in (("ks", (b, s, hk, 1)), ("vs", (b, s, hk, 1)),
+                                ("nks", (b, hk, 1)), ("nvs", (b, hk, 1))):
+                st[name] = torch.rand(shape, generator=g, device=dev) * 0.02
+        pos = length - 1
+        r = {k: v[rows] for k, v in st.items()}
+        blk = {k: r[k][:, seq].clone() for k in ("k", "v", "ks", "vs")
+               if k in r}
+        scales = {} if kv != "int8" else dict(
+            k_scale=blk["ks"], v_scale=blk["vs"], new_k_scale=r["nks"],
+            new_v_scale=r["nvs"])
+        lo = mesh.model_rank * ns
+
+        def call():
+            return SD.decode_attention_seqsharded(
+                q[rows], blk["k"], blk["v"], r["nk"], r["nv"], pos[rows],
+                length[rows], mesh, ("model",), ("data",), **scales)
+
+        def local():
+            SD._local_update(blk["k"], r["nk"], pos[rows], lo)
+            SD._local_update(blk["v"], r["nv"], pos[rows], lo)
+            return SD._partial_attend(q[rows], blk["k"], blk["v"],
+                                      blk.get("ks"), blk.get("vs"), lo,
+                                      length[rows], 1.0 / d ** 0.5)
+
+        got = call()[0]
+        whole = {k: r[k].clone() for k in ("k", "v", "ks", "vs") if k in r}
+        ar = torch.arange(nb, device=dev)
+        for k, new in (("k", "nk"), ("v", "nv"), ("ks", "nks"),
+                       ("vs", "nvs")):
+            if k in whole:
+                whole[k][ar, pos[rows].long()] = r[new]
+        kern = lambda: ops.decode_attention(  # noqa: E731
+            q[rows], whole["k"], whole["v"], length[rows],
+            k_scale=whole.get("ks"), v_scale=whole.get("vs"))
+        want = kern()
+        torch.cuda.synchronize(dev)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+        per_key = hk * (2 * d + 8) if kv == "int8" else hk * 2 * d * 2
+        valid = int(torch.clamp(length[rows] - lo, 0, ns).sum())
+        out[kv] = dict(
+            shape=f"B{b} S{s} H{h} Hk{hk} d{d} {kv}-kv, a rank's "
+                  f"B{nb} S{ns}", max_abs_err=err, tolerance=tol,
+            ms=time_ms(call, flush), local_ms=time_ms(local, flush),
+            kernel_rows_ms=time_ms(kern, flush),
+            local_bound_ms=bound(valid * per_key + 2 * q[rows].numel()
+                                 * q.element_size(),
+                                 4.0 * valid * h * d, "bfloat16")[0])
+    return out
+
+
+def start_mesh(run, launcher_argv=None):
+    """Spawn run ``run``'s ranks (``mesh_rank``) from a background thread.
+    Returns a function that waits for them and gives (each rank's result,
+    the spawn's wall s), or raises what the spawn raised."""
+    import threading
+    from repro_torch.launch.mesh import run_ranks
+    shape = MESH_RUNS[run][2]
+    box = {}
+
+    def spawn():
+        t0 = time.perf_counter()
+        try:
+            # one intra-op thread a rank: the ranks do no host math but the
+            # schedule, and their collectives' host halves share the cores
+            box["ranks"] = run_ranks(mesh_rank, shape[0] * shape[1], "cuda",
+                                     run, launcher_argv, mesh_shape=shape,
+                                     threads=1)
+        except BaseException as e:      # raised again in the caller
+            box["error"] = e
+        box["wall"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["ranks"], box["wall"]
+    return wait
+
+
+def end_to_end_mesh(dev, card, run, ref_tokens, spawned=None):
+    """Run n, o, p or q: ``MESH_RUNS[run]``'s mesh of ranks that share the
+    card (gloo: the kernels on the card, each collective through the
+    host), serving each mode's config at full width and its requests.
+    Every rank must serve rank 0's tokens and stats and launch the mode's
+    kernels at its shapes; every token must pass the token gate on the
+    unsharded model (built here, quantized whole; a moe mode's on the
+    served schedule with rank 0's expert choices); the share of tokens
+    equal to the single-card run of the same requests in this call
+    (``ref_tokens``: {request run: tokens}) is printed. Run q's data rows
+    and, with ``ref_tokens["b hits"]``, run b's prefix hits are held.
+    The host figures measure gloo on one card: correctness, not a
+    parallel rate. ``spawned``: the wait of a ``start_mesh(run)`` already
+    started (else the ranks are spawned here). Each rank's result of the
+    launcher's rank body, where it ran, is returned under "launcher"."""
     import gc
     import torch
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.token_gate import token_gate
-    from repro_torch.configs import get_config
-    arch, layers, world, why = MESH_RUNS[run]
-    cfg = mesh_config(run)
-    depth = "full depth" if layers is None else \
-        f"depth cut to {layers} of {get_config(arch).n_layers} layers: {why}"
-    print(f"e2e mesh {run} [{card}]: {arch} at full width (d_model "
-          f"{cfg.d_model}, H{cfg.n_heads}/Hk{cfg.n_kv_heads}, head dim "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab padded "
-          f"{cfg.padded_vocab}, {cfg.dtype}, int8 per channel), {depth}; "
-          f"{cfg.n_params() / 1e9:.3f} G parameters at this depth; mesh "
-          f"1x{world}, {world} ranks on one card", flush=True)
+    arch, _, shape, why = MESH_RUNS[run]
+    world, mesh_s = shape[0] * shape[1], f"{shape[0]}x{shape[1]}"
+    for label in MESH_MODES[run] if arch is None else list(MESH_MODES[run])[:1]:
+        cfg = mesh_config(run, label)
+        why_l = MESH_FAMILIES[label][3] if arch is None else why
+        print(f"e2e mesh {run} [{card}]: "
+              + (f"{label}: " if arch is None else "") + describe(cfg, why_l)
+              + f"; mesh {mesh_s}, {world} ranks on one card", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    # one intra-op thread a rank: the ranks do no host math but the
-    # schedule, and their collectives' host halves share the machine's cores
-    ranks = run_ranks(mesh_rank, world, "cuda", run, threads=1)
-    spawn_wall = time.perf_counter() - t0
+    ranks, spawn_wall = (spawned or start_mesh(run))()
     probe = [r["probe"] for r in ranks]
     print(f"e2e mesh {run} [{card}]: host ms a call on rank 0 (rank "
           f"{world - 1}): all-reduce of [8, 768] f32 on the card "
@@ -3603,23 +3991,32 @@ def end_to_end_mesh(dev, card, run, ref_tokens):
           f"({probe[-1]['all_reduce_host']:.3f}); an op and a device sync "
           f"{probe[0]['op_and_sync']:.3f} ({probe[-1]['op_and_sync']:.3f})",
           flush=True)
-    params = get_model(cfg).init(seed=0, device=dev)
     out = {"probe_by_rank": probe}
+    params = made = None
     for label, (req_run, kw, kernels) in MESH_MODES[run].items():
+        cfg = mesh_config(run, label)
+        if cfg != made:
+            params = None
+            torch.cuda.empty_cache()
+            params, made = get_model(cfg).init(seed=0, device=dev), cfg
         tag = f"e2e mesh {run} {label} [{card}]"
         res = [r[label] for r in ranks]
         tokens = res[0]["tokens"]
         agree = all(r["tokens"] == tokens for r in res)
-        print(f"{tag}: layout {res[0]['layout']}; {sum(map(len, tokens))} "
+        print(f"{tag}: layout {res[0]['layout']}; slot rows (first, count) "
+              f"by rank {[r['rows'] for r in res]}; "
+              f"{sum(map(len, tokens))} "
               f"tokens, every rank's equal to rank 0's {agree}; "
               f"{res[0]['tok_s']:.1f} tok/s on rank 0 ({res[0]['wall_s']:.2f}"
-              f" s; gloo on one card: not a tensor-parallel rate); GiB by "
+              f" s; gloo on one card: not a parallel rate); GiB by "
               f"rank: its engine's weights and cache "
               f"{[round(r['engine_gib'], 3) for r in res]}, held before it "
               f"(the whole raw tree) {[round(r['raw_gib'], 3) for r in res]}"
               f", peak {[round(r['peak_gib'], 3) for r in res]}",
               flush=True)
         check(agree, f"mesh {run} {label}: the ranks' tokens differ")
+        check(all(len(t) == MESH_MAX_NEW for t in tokens),
+              f"mesh {run} {label}: a request stopped early")
         for rank, r in enumerate(res):
             print(f"{tag}: rank {rank} launches {r['launches']}", flush=True)
             for name in kernels:
@@ -3627,6 +4024,20 @@ def end_to_end_mesh(dev, card, run, ref_tokens):
                       f"rank {rank} never launched {name}")
             check(r["stats"] == res[0]["stats"], f"mesh {run} {label}: rank "
                   f"{rank}'s stats differ")
+        if shape[0] > 1:
+            # a dense engine's 8 slots over D 2: 4 rows a data rank; the
+            # paged pool's rows whole on every data rank
+            want_rows = [(0, N_SLOTS) if kw.get("paged") else
+                         (rank // shape[1] * N_SLOTS // shape[0],
+                          N_SLOTS // shape[0]) for rank in range(world)]
+            check([r["rows"] for r in res] == want_rows, f"mesh {run} "
+                  f"{label}: rows {[r['rows'] for r in res]}")
+        if "b hits" in ref_tokens and req_run == "b":
+            hits = res[0]["stats"]["prefix_hit_tokens"]
+            print(f"{tag}: prefix-hit tokens {hits}, the single-card run "
+                  f"b's {ref_tokens['b hits']}", flush=True)
+            check(hits == ref_tokens["b hits"], f"mesh {run} {label}: "
+                  f"prefix hits {hits} != run b's {ref_tokens['b hits']}")
         prompts, names = mesh_requests(req_run)
         registry = run_c_registry(cfg, dev) if req_run == "c" else None
         plain = ServeEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
@@ -3636,63 +4047,98 @@ def end_to_end_mesh(dev, card, run, ref_tokens):
                                         "kv_block_size")})
         one_card_gib = held_gib(plain.params, plain.cache)
         impl = "reuse_ref" if kw.get("impl") == "reuse" else "ref"
+        routes = res[0]["routes"]
         gate = token_gate(cfg, plain.params, prompts, tokens, impl=impl,
                           tol_rel=LOGIT_TOL, device=dev, registry=registry,
-                          names=names)
+                          names=names, routes=routes,
+                          prefill_lens=None if routes is None else
+                          [res[0]["wave_lens"][i]
+                           for i in range(len(prompts))])
         del plain
         torch.cuda.empty_cache()
+        route_gate = {} if routes is None else print_routes(
+            tag, "token gate", routes)
         ref = ref_tokens.get(req_run)
         same = None if ref is None else sum(
             a == b for x, y in zip(tokens, ref) for a, b in zip(x, y)) / max(
             1, sum(min(len(x), len(y)) for x, y in zip(tokens, ref)))
         print(f"{tag}: token gate: {gate.positions} positions, "
               f"{gate.differ} off the plain argmax, smallest slack "
-              f"{gate.min_slack:.4f}; share of tokens equal to the first "
-              f"{MESH_MAX_NEW} of each of run {req_run}'s on one card "
-              f"{same}; the single-card engine of the same mode holds "
+              f"{gate.min_slack:.4f}; "
+              + ("" if same is None else
+                 f"share of tokens equal to the first {MESH_MAX_NEW} of "
+                 f"each of run {req_run}'s on one card {same:.3f}; ")
+              + f"the single-card engine of the same mode holds "
               f"{one_card_gib:.3f} GiB of weights and cache, a rank's "
-              f"{res[0]['engine_gib']:.3f}", flush=True)
+              f"{res[0]['engine_gib']:.3f} "
+              f"({res[0]['engine_gib'] / one_card_gib:.3f} of it)",
+              flush=True)
         check(gate.ok, f"mesh {run} {label}: the token gate failed at "
-              f"{gate.failures[:3]}")
-        out[label] = dict(res[0], tokens=None, gate_positions=gate.positions,
+              f"{gate.failures[:3]}; routing {route_gate}")
+        out[label] = dict(res[0], tokens=None, routes=None, wave_lens=None,
+                          route_gate=route_gate,
+                          gate_positions=gate.positions,
                           gate_off_argmax=gate.differ,
                           gate_min_slack=gate.min_slack, same_as_one_card=same,
+                          rows_by_rank=[r["rows"] for r in res],
                           launches_by_rank=[r["launches"] for r in res],
                           peak_gib_by_rank=[r["peak_gib"] for r in res],
                           engine_gib_by_rank=[r["engine_gib"] for r in res],
                           one_card_engine_gib=one_card_gib)
     del params
     torch.cuda.empty_cache()
+    if run == "q":
+        sd = [r["seqsharded"] for r in ranks]
+        for kv in sd[0]:
+            rs = [x[kv] for x in sd]
+            print(f"kernel decode_attention_seqsharded [{card}] "
+                  f"{rs[0]['shape']}, batch axes ('data',), mesh {mesh_s}: "
+                  f"err vs the single-card decode_attention kernel on the "
+                  f"same rows by rank {[round(x['max_abs_err'], 6) for x in rs]}"
+                  f" (tol {rs[0]['tolerance']:.3e}); ms by rank: the call "
+                  f"(two all-reduces over gloo, the card shared by "
+                  f"{world} ranks) {[round(x['ms'], 4) for x in rs]}, its "
+                  f"local part (PyTorch ops) "
+                  f"{[round(x['local_ms'], 4) for x in rs]} (bound "
+                  f"{rs[0]['local_bound_ms']:.4f}), the kernel on the rank's "
+                  f"rows over the whole sequence "
+                  f"{[round(x['kernel_rows_ms'], 4) for x in rs]}",
+                  flush=True)
+            for rank, x in enumerate(rs):
+                check(x["max_abs_err"] <= x["tolerance"], f"sharded decode "
+                      f"{kv} rank {rank}: error {x['max_abs_err']}")
+        out["seqsharded_by_rank"] = sd
     print(f"e2e mesh {run} [{card}]: {world} ranks spawned, served and "
           f"joined in {spawn_wall:.1f} s", flush=True)
-    return dict(out, config=arch, layers=cfg.n_layers, mesh=f"1x{world}",
-                wall_s=spawn_wall)
+    return dict(out, config=arch or [MESH_FAMILIES[m][0]
+                                     for m in MESH_MODES[run]],
+                layers=[mesh_config(run, m).n_layers for m in MESH_MODES[run]],
+                mesh=mesh_s, wall_s=spawn_wall,
+                **({} if "launcher" not in ranks[0] else
+                   {"launcher": [r["launcher"] for r in ranks]}))
 
 
 def mesh_kernel_phase(dev, flush):
-    """The rank shapes of runs n and o that earlier rows do not cover: both
-    quantized matmuls at repro-100m's model-2 blocks and axllm_matmul at
-    glm4-9b's model-4 blocks (M8, decode; M4096, a wave) and its head's
-    quarter (M8); decode attention (dense and paged) at a run-n rank's 6/2
-    heads; flash at run n's 6/2 heads of 64 and run o's 8/1 heads of 128."""
+    """The rank shapes of runs n to q that earlier rows do not cover
+    (``MESH_MATMULS``: decode rows M8, or a data rank's M4, and a wave's
+    M4096; ``MESH_ATTN``: decode attention, dense and paged at run n's and
+    run q's layouts, and flash at each)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(15)
     rows = []
-    for run, shapes in MESH_MATMULS.items():
-        kernels = ("axllm_matmul", "reuse_matmul") if run == "n" else \
-            ("axllm_matmul",)
-        for kernel in kernels:
-            for m in (N_SLOTS, 4096):
-                for k, n in shapes:
-                    rows.append(matmul_case(kernel, m, k, n, g, dev, flush))
-    rows.append(matmul_case("axllm_matmul", N_SLOTS, *MESH_HEAD, g, dev,
-                            flush))
-    h, hk, d = MESH_ATTN["n"]
-    for paged in (False, True):
-        for quant in (False, True):
-            rows.append(decode_case(paged, h, hk, d, quant, g, dev, flush))
-    for h, hk, d in MESH_ATTN.values():
-        rows += flash_case(h, hk, d, "bfloat16", g, dev, flush)
+    for run, cases in MESH_MATMULS.items():
+        for kernel, ms, k, n, act in cases:
+            for m in ms:
+                rows.append(matmul_case(kernel, m, k, n, g, dev, flush,
+                                        act=act))
+    for run, layouts in MESH_ATTN.items():
+        for h, hk, d, b in layouts:
+            lengths = DECODE_LENGTHS[:b]
+            for paged in (False, True) if run in ("n", "q") else (False,):
+                for quant in (False, True) if run == "n" else (False,):
+                    rows.append(decode_case(paged, h, hk, d, quant, g, dev,
+                                            flush, lengths=lengths))
+            rows += flash_case(h, hk, d, "bfloat16", g, dev, flush, b=b)
     return rows
 
 
@@ -4025,36 +4471,47 @@ def end_to_end_train(dev, card) -> dict:
                 resumed_bit_equal=same, profile=profile)
 
 
-def train_launcher_phase(dev, card) -> dict:
-    """Run m through the launchers as subprocesses on the card: ``python
-    -m repro_torch.launch.train`` with run m's flags into a fresh
-    checkpoint directory must exit 0 and print the JAX launcher's lines
-    (``arch=repro-100m devices=1 mesh={'data': 1, 'model': 1}``, ``step N
-    loss X`` at steps 10, 20, 30, 40, ``done: restarts=0 ...``); then
-    ``python -m repro_torch.launch.serve --ckpt <that dir> --reuse
-    --paged --stats`` (run b's serving flags) must restore step 40 from it
-    and exit 0."""
-    import os
-    import re
+def train_launcher_submit(lane):
+    """Queue run m's launchers on ``lane``: ``python -m
+    repro_torch.launch.train`` with run m's flags into a fresh checkpoint
+    directory, then ``python -m repro_torch.launch.serve --ckpt <that dir>
+    --reuse --paged --stats`` (run b's serving flags). Returns the
+    directory."""
     import shutil
     ckpt = ROOT / "build" / "train_cli_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lane.submit(("train cli", "train"),
+                [sys.executable, *train_cli_argv("train", ckpt)])
+    lane.submit(("train cli", "serve"),
+                [sys.executable, *train_cli_argv("serve", ckpt)])
+    return ckpt
+
+
+def train_cli_argv(label, ckpt) -> list:
+    if label == "train":
+        return ["-m", "repro_torch.launch.train", *TRAIN_ARGS, "--ckpt",
+                str(ckpt)]
+    return ["-m", "repro_torch.launch.serve", "--ckpt", str(ckpt),
+            *LAUNCH_ARGS, "--reuse", "--paged"]
+
+
+def train_launcher_phase(card, lane, ckpt) -> dict:
+    """Run m through the launchers as subprocesses on the card
+    (``train_launcher_submit``): the training launcher must exit 0 and
+    print the JAX launcher's lines (``arch=repro-100m devices=1
+    mesh={'data': 1, 'model': 1}``, ``step N loss X`` at steps 10, 20, 30,
+    40, ``done: restarts=0 ...``); the serving launcher must restore step
+    40 from its checkpoint and exit 0."""
+    import re
+    import shutil
     out = {}
-    for label, argv in (
-            ("train", ["-m", "repro_torch.launch.train", *TRAIN_ARGS,
-                       "--ckpt", str(ckpt)]),
-            ("serve", ["-m", "repro_torch.launch.serve", "--ckpt", str(ckpt),
-                       *LAUNCH_ARGS, "--reuse", "--paged"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        print(f"launcher [{card}] {label}: `python {' '.join(argv)}` exited "
-              f"{proc.returncode} in {wall:.1f} s", flush=True)
-        check(proc.returncode == 0, f"launcher {label}: exit "
-              f"{proc.returncode}: {proc.stderr[-2000:]}")
-        lines = proc.stdout.splitlines()
+    for label in ("train", "serve"):
+        rc, stdout, stderr, wall = lane.result(("train cli", label))
+        print(f"launcher [{card}] {label}: `python "
+              f"{' '.join(train_cli_argv(label, ckpt))}` exited {rc} in "
+              f"{wall:.1f} s (beside the main thread's runs)", flush=True)
+        check(rc == 0, f"launcher {label}: exit {rc}: {stderr[-2000:]}")
+        lines = stdout.splitlines()
         for ln in lines[:8]:
             print(f"launcher [{card}] {label}: | {ln}", flush=True)
         out[label] = dict(wall_s=wall, lines=lines)
@@ -4167,17 +4624,22 @@ def main() -> int:
     stamp("the mesh runs' kernel rows")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
+    stamp("run a")
     reuse_paged, reuse_paged_tokens, reuse_paged_eng = \
         end_to_end_reuse_paged(dev, card)
-    e2e = {"dense": dense, "reuse+paged": reuse_paged,
-           "lora+reuse+fused": end_to_end_lora(dev, card),
-           "nf4+reuse": end_to_end_nf4(dev, card),
-           "overload+chunked": end_to_end_overload(dev, card),
-           "spec dense": end_to_end_spec_dense(dev, card, dense_tokens),
-           "spec reuse+paged": end_to_end_spec_paged(dev, card,
-                                                     reuse_paged_tokens),
-           "deploy": deploy}
-    stamp("runs a to g")
+    stamp("run b")
+    e2e = {"dense": dense, "reuse+paged": reuse_paged, "deploy": deploy}
+    for run, (name, fn) in {"c": ("lora+reuse+fused", end_to_end_lora),
+                            "d": ("nf4+reuse", end_to_end_nf4),
+                            "e": ("overload+chunked", end_to_end_overload)
+                            }.items():
+        e2e[name] = fn(dev, card)
+        stamp(f"run {run}")
+    e2e["spec dense"] = end_to_end_spec_dense(dev, card, dense_tokens)
+    stamp("run f")
+    e2e["spec reuse+paged"] = end_to_end_spec_paged(dev, card,
+                                                    reuse_paged_tokens)
+    stamp("run g")
     simulator = simulator_phase(reuse_paged_eng, card)
     del reuse_paged_eng
     chaos = chaos_phase(dev, card)
@@ -4187,17 +4649,49 @@ def main() -> int:
         stamp(f"run {family}")
     e2e["audio"] = end_to_end_audio(dev, card)   # run l
     stamp("run audio")
-    e2e["launcher"] = launcher_phase(dev, card)
-    stamp("launcher phase")
-    e2e["mesh n"] = end_to_end_mesh(dev, card, "n", {
-        "a": dense_tokens, "b": reuse_paged_tokens})
-    stamp("run n")
-    e2e["mesh o"] = end_to_end_mesh(dev, card, "o", {})
-    stamp("run o")
+    # the launchers' subprocesses run on two lanes beside the in-process
+    # launcher runs and runs n to p, which time nothing but the host's
+    # gloo; run o's ranks spawn beside run n's; run q (its module phase
+    # timed) starts once the lanes have drained, and run m, timed, after it
+    lanes = [CliLane(), CliLane()]
+    try:
+        launcher = launcher_phase(dev, card, lanes[0])
+        train_ckpt = train_launcher_submit(lanes[1])
+        stamp("launcher phase in process")
+        host = {run: label for label, run in LAUNCH_MESH_RUN.items()}
+
+        def spawn(run):     # with the launcher's mode of the same mesh
+            return start_mesh(run, launch_flags(
+                launcher["ckpt"], LAUNCH_RUNS[host[run]])
+                if run in host else None)
+
+        spawned = {run: spawn(run) for run in ("n", "o")}
+        for run, refs in (("n", {"a": dense_tokens, "b": reuse_paged_tokens}),
+                          ("o", {})):
+            e2e[f"mesh {run}"] = end_to_end_mesh(dev, card, run, refs,
+                                                 spawned[run])
+            stamp(f"run {run}")
+        e2e["mesh p"] = end_to_end_mesh(dev, card, "p", {})
+        stamp("run p")
+        e2e["train launcher"] = train_launcher_phase(card, lanes[1],
+                                                     train_ckpt)
+        for label in LAUNCH_RUNS:
+            lanes[0].result(("launcher", label))
+        stamp("the launchers' subprocesses")
+        # full depth: runs a and b's tokens are another model's
+        e2e["mesh q"] = end_to_end_mesh(
+            dev, card, "q", {"b hits": reuse_paged["prefix_hit_tokens"]},
+            spawn("q"))
+        stamp("run q")
+        for label, run in LAUNCH_MESH_RUN.items():
+            launcher_mesh_in_process(card, label, launcher,
+                                     e2e[f"mesh {run}"].pop("launcher"))
+        e2e["launcher"] = launcher_check(card, lanes[0], launcher)
+    finally:
+        for lane in lanes:
+            lane.stop()
     e2e["train"] = end_to_end_train(dev, card)              # run m
     stamp("run train")
-    e2e["train launcher"] = train_launcher_phase(dev, card)
-    stamp("the training launcher phase")
 
     kernels = []
     for name, (replaces, main_shape, run) in KERNELS.items():
@@ -4220,7 +4714,7 @@ def main() -> int:
             launches_launcher={r: v["launches"].get(name, 0)
                                for r, v in e2e["launcher"].items()
                                if r in LAUNCH_RUNS},
-            # runs n and o by mode, rank 0's (every rank's in the details)
+            # runs n to q by mode, rank 0's (every rank's in the details)
             launches_mesh={f"mesh {r}": {
                 mode: e2e[f"mesh {r}"][mode]["launches"].get(name, 0)
                 for mode in MESH_MODES[r]} for r in MESH_RUNS},

@@ -34,16 +34,54 @@ its own raw blocks (:func:`quantize_blocks`), so no rank holds the whole
 quantized model. With mesh size 1 there is no layout and every path is
 the single-device one.
 
+The other families take the same principle, each leaf as the rules cut it
+where that cut is exact and whole where it is not:
+
+- moe: the routed expert stacks ``expert_gate/up/down`` [E, d, f] are cut
+  on their expert dim (``param_specs``' "expert" -> "model"; "mlp" stays
+  whole, the axis is taken). Every rank routes the same tokens, runs the
+  experts it holds, and one float32 all-reduce sums the routed partial
+  with the shared (or dense-residual) expert's row-parallel partial. An
+  expert count the axis does not divide keeps the stacks whole.
+- ssm (xLSTM): the mLSTM block's ``up`` [d, 2 di] is column-parallel and
+  gathered whole (its [x | z] halves feed the conv, q/k and the gate,
+  which run whole), its ``down`` [di, d] row-parallel on the rank's slice
+  of the normed output. Whole on every rank: ``wq``/``wk`` (the SSD core
+  takes every head), ``wif`` (``param_specs`` would put the i gates on one
+  rank and the f gates on another), ``conv_w``/``conv_b``, ``if_bias``,
+  the norms, and the whole sLSTM block (``wx``, ``r``, ``gate_bias`` and
+  its GeGLU ``ff_gate``/``ff_up``/``ff_down``): its cell is a recurrence
+  over positions that every rank runs. The states stay whole over "model"
+  (JAX's ``_cache_names`` cuts them on the batch only).
+- hybrid (zamba2): the Mamba2 ``in_proj`` [d, z|x|B|C|dt] is
+  column-parallel and gathered whole only where every block boundary is a
+  segment boundary (``_segments_whole``; at every width and P of the
+  registry one falls inside x, so it stays whole); ``out_proj`` follows
+  ``param_specs``, which cuts its output columns (it is not one of
+  wo/down): column-parallel and gathered, exact. ``conv_w``, ``a_log``,
+  ``dt_bias``, ``d_skip``, the norms and ``concat_proj`` stay whole; the
+  conv, the SSD scan and the states run whole on every rank. The shared
+  attention block takes the dense layout (its KV caches, one a site, cut
+  as a dense cache is).
+
+Over the "data" axis (:class:`Rows`) a rank runs the device rows of its
+block of the engine's slots, where ``cache_specs`` cuts the batch over
+"data" (the slot count divisible by D), and all of them where it falls
+back to whole; the host schedule is whole on every rank, and each step's
+rows are gathered over the data group (:func:`gather_rows`).
+
 Collectives take only all-reduce (SUM, MAX) and broadcast, which gloo also
 carries on CUDA tensors (ranks sharing a card); a gather is an all-reduce
-over a zero-filled buffer, exact in any type. A failing collective raises:
-nothing moves to the CPU in its place.
+over a zero-filled buffer, exact in any type. The tensor-parallel ones run
+over the "model" group, the row gathers over the "data" group and the host
+broadcast over the whole world. A failing collective raises: nothing moves
+to the CPU in its place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,15 +97,26 @@ class Layout:
 
     heads: q heads (wq columns, wo rows); kv_heads: wk/wv columns and the
     KV cache's heads (implies heads); seq: the dense cache's sequence axis;
-    mlp: gate/up columns and down rows; vocab: embedding rows and lm_head
-    columns. ``rules``: the serving rules every spec resolves under."""
+    mlp: gate/up columns and down rows (the mLSTM block's up and down in
+    the ssm family); vocab: embedding rows and lm_head columns; experts:
+    the routed expert stacks' expert dim; ssm_in / ssm_out: the Mamba2
+    ``in_proj`` / ``out_proj`` columns. ``groups``: the leaf (or LoRA
+    target) names of this family that the forward takes as blocks, by
+    flag. ``rules``: the serving rules every spec resolves under.
+    ``batch_axes``: the axes the dense cache's slot rows are cut over
+    (``("data",)`` or none), which the sequence-sharded decode takes."""
     mesh: object
     rules: Dict[str, object]
+    groups: Dict[str, str]
     heads: bool
     kv_heads: bool
     seq: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
+    ssm_in: bool = False
+    ssm_out: bool = False
+    batch_axes: Tuple[str, ...] = ()
 
     @property
     def size(self) -> int:
@@ -80,7 +129,39 @@ class Layout:
     def cuts(self, key: str) -> bool:
         """Whether the forward takes leaf (or LoRA target) ``key`` as this
         rank's block."""
-        return key in _GROUPS and getattr(self, _GROUPS[key])
+        return key in self.groups and getattr(self, self.groups[key])
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """The engine's slot rows (``total``) that a rank of ``mesh``'s "data"
+    axis runs on its device: ``n`` rows from ``lo``, a block where
+    ``cache_specs`` cuts the batch over "data", every row where it falls
+    back to whole (or the engine keeps them whole: the paged pool)."""
+    mesh: object
+    total: int
+    lo: int
+    n: int
+
+    @property
+    def cut(self) -> bool:
+        return self.n < self.total
+
+    def take(self, a):
+        """This rank's rows of ``a`` (host or device, ``total`` rows on its
+        first dim)."""
+        return a[self.lo:self.lo + self.n] if self.cut else a
+
+
+def slot_rows(mesh, rules, total: int, whole: bool = False) -> Rows:
+    """The rows of ``total`` that this rank runs: ``cache_specs``' cut of a
+    batch of ``total`` over "data" (``resolve_spec`` of the "batch" name,
+    its divisibility fallback included), or every row when ``whole``."""
+    spec = shd.resolve_spec((total,), ("batch",), mesh, rules)[0]
+    if whole or spec is None:
+        return Rows(mesh, total, 0, total)
+    n = total // mesh.shape["data"]
+    return Rows(mesh, total, mesh.data_rank * n, n)
 
 
 def active() -> Optional[Layout]:
@@ -92,24 +173,63 @@ def active() -> Optional[Layout]:
 # The layout
 # ---------------------------------------------------------------------------
 
-# The leaves (and LoRA targets) the forward takes as blocks, by the group
-# of heads or columns each belongs to: a group is cut whole or not at all,
-# and every other leaf, such as a norm scale, stays whole. On which dim a
-# leaf is cut, and whether its size divides, is ``param_specs``' (and
-# ``adapter_specs``', ``cache_specs``', ``paged_cache_specs``') alone.
+# The leaves (and LoRA targets) a transformer's forward takes as blocks, by
+# the group of heads or columns (the layout's flag) each belongs to: a
+# group is cut whole or not at all, and every other leaf, such as a norm
+# scale, stays whole. On which dim a leaf is cut, and whether its size
+# divides, is ``param_specs``' (and ``adapter_specs``', ``cache_specs``',
+# ``paged_cache_specs``') alone.
 _GROUPS = {"embedding": "vocab", "lm_head": "vocab",
            "wq": "heads", "wq_bias": "heads", "wo": "heads",
            "wk": "kv_heads", "wk_bias": "kv_heads",
            "wv": "kv_heads", "wv_bias": "kv_heads",
            "gate": "mlp", "up": "mlp", "down": "mlp"}
+_FLAGS = ("heads", "kv_heads", "seq", "mlp", "vocab", "experts", "ssm_in",
+          "ssm_out")
 _FUSED = ("wqkv", "wqkv_bias", "gate_up")
 
 
-def _full_sizes(cfg) -> Dict[str, int]:
-    """The single-device size of each group's cut dim."""
-    hd = cfg.resolved_head_dim
-    return {"vocab": cfg.padded_vocab, "heads": cfg.n_heads * hd,
-            "kv_heads": cfg.n_kv_heads * hd, "mlp": cfg.d_ff}
+def _mamba_segments(cfg):
+    di = cfg.ssm_expand * cfg.d_model
+    n, nh = cfg.ssm_state, di // cfg.ssm_head_dim
+    return [di, di, n, n, nh]
+
+
+def _table(cfg) -> Dict[str, Tuple[str, set]]:
+    """Each leaf a family's forward can take as a block: (its flag, the
+    single-device sizes of its cut dim)."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    vocab = ("vocab", {cfg.padded_vocab})
+    if cfg.family == "ssm":     # xLSTM: the mLSTM up [d, 4d], down [2d, d]
+        return {"embedding": vocab, "lm_head": vocab,
+                "up": ("mlp", {4 * d}), "down": ("mlp", {2 * d})}
+    size = {"vocab": vocab[1], "heads": {cfg.n_heads * hd},
+            "kv_heads": {cfg.n_kv_heads * hd},
+            "mlp": {cfg.d_ff, cfg.d_ff * max(cfg.n_shared_experts, 1)}}
+    table = {k: (f, size[f]) for k, f in _GROUPS.items()}
+    if cfg.family == "moe":
+        table.update(dict.fromkeys(("expert_gate", "expert_up",
+                                    "expert_down"),
+                                   ("experts", {cfg.padded_experts})))
+    if cfg.family == "hybrid":
+        table.update(in_proj=("ssm_in", {sum(_mamba_segments(cfg))}),
+                     out_proj=("ssm_out", {d}))
+    return table
+
+
+def groups_for(cfg) -> Dict[str, str]:
+    """The leaf names a family's forward can take as blocks, by flag."""
+    return {k: f for k, (f, _) in _table(cfg).items()}
+
+
+def _segments_whole(sizes, p: int) -> bool:
+    """Whether a P-way cut of a concatenation of ``sizes`` puts every
+    block boundary on a segment boundary."""
+    total = sum(sizes)
+    if total % p:
+        return False
+    bounds = {sum(sizes[:i]) for i in range(len(sizes) + 1)}
+    return all(total // p * i in bounds for i in range(p + 1))
 
 
 def _leaves(tree, key=""):
@@ -128,15 +248,15 @@ def whole_like(tree, cfg, mesh, rules):
     """The single-device tree of a parameter tree given whole or as this
     rank's blocks (``restore(shardings=...)``): a raw leaf as a meta
     tensor of its whole shape, a QTensor (given whole) as itself. A leaf is
-    a block where one dim is 1/P of its group's size and ``param_specs``
-    of the shape with that dim whole cuts it there."""
-    p, full = mesh.shape["model"], _full_sizes(cfg)
+    a block where one dim is 1/P of a whole size of its key and
+    ``param_specs`` of the shape with that dim whole cuts it there."""
+    p, table = mesh.shape["model"], _table(cfg)
 
     def whole(key, x):
         shape = tuple(x.shape)
-        for i, n in enumerate(shape if key in _GROUPS else ()):
+        for i, n in enumerate(shape if key in table else ()):
             cand = shape[:i] + (n * p,) + shape[i + 1:]
-            if n * p == full[_GROUPS[key]] and _spec(
+            if n * p in table[key][1] and _spec(
                     key, torch.empty(cand, device="meta"), mesh,
                     rules).spec[i] == "model":
                 shape = cand
@@ -155,49 +275,62 @@ def whole_like(tree, cfg, mesh, rules):
     return walk(tree, "")
 
 
-def _carries_cut(key, qt: QTensor, mesh, rules) -> bool:
-    """Whether ``param_specs`` cuts a QTensor's codes and scale with its
-    logical cut: packed int4 codes in whole bytes, the scale rows of a
-    per-group row cut in whole groups."""
-    logical = shd.resolve_spec(qt.shape, shd._param_names(key, len(qt.shape)),
-                               mesh, rules)
-    q = _spec(key, qt, mesh, rules)
-    if tuple(q.codes.spec) != logical:
-        return False
-    if qt.granularity == "per_group" and logical[-2] is not None:
-        return q.scale.spec[-3] is not None
-    return True
+def _cut_in_table(key, leaf, sizes, mesh, rules) -> bool:
+    """Whether ``param_specs`` cuts a whole leaf on a dim of one of its
+    table ``sizes`` (not another dim it falls back to), and a QTensor's
+    codes and scale with that cut: packed int4 codes in whole bytes, the
+    scale rows of a per-group row cut in whole groups."""
+    if isinstance(leaf, QTensor):
+        logical = shd.resolve_spec(
+            leaf.shape, shd._param_names(key, len(leaf.shape)), mesh, rules)
+        q = _spec(key, leaf, mesh, rules)
+        if tuple(q.codes.spec) != logical:
+            return False
+        if leaf.granularity == "per_group" and logical[-2] is not None \
+                and q.scale.spec[-3] is None:
+            return False
+    else:
+        logical = _spec(key, leaf, mesh, rules).spec
+    return any(ax == "model" and leaf.shape[i] in sizes
+               for i, ax in enumerate(logical))
 
 
 def plan(cfg, mesh, rules, *, n_slots: int, max_len: int, paged: bool,
          trees=()) -> Optional[Layout]:
     """The layout of ``cfg``'s serving on ``mesh`` under ``rules`` (None
-    when the "model" axis has size 1): the groups whose sizes the rules
-    cut, and the KV heads or the sequence as the cache's specs cut them.
-    ``trees`` are the whole parameter trees the engine will cut, as it
-    will serve them (quantized: target and draft): a group with a QTensor
-    that ``param_specs`` does not cut in whole bytes and groups stays
-    whole."""
+    when the "model" axis has size 1): the groups of the family's table
+    that the rules cut, and the KV heads or the sequence as the cache's
+    specs cut them. ``trees`` are the whole parameter trees the engine
+    will cut, as it will serve them (quantized: target and draft): a
+    group with a leaf that ``param_specs`` does not cut, or a QTensor it
+    does not cut in whole bytes and groups, stays whole. Two cuts the
+    specs cannot see keep a group whole too: one inside a q head, and a
+    Mamba2 ``in_proj`` cut inside one of its segments."""
     if mesh.shape["model"] == 1:
         return None
     hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-
-    def sharded(size, name):
-        return shd.resolve_spec((size,), (name,), mesh, rules)[0] is not None
-
-    flags = {"heads": sharded(cfg.n_heads, "heads"),
-             "mlp": sharded(cfg.d_ff, "mlp"),
-             "vocab": sharded(cfg.padded_vocab, "vocab")}
+    table = _table(cfg)
+    groups = {k: f for k, (f, _) in table.items()}
+    flags = dict.fromkeys(_FLAGS, False)
+    flags.update(dict.fromkeys(groups.values(), True))
+    flags["heads"] &= shd.resolve_spec((cfg.n_heads,), ("heads",), mesh,
+                                       rules)[0] is not None
+    if "in_proj" in groups:
+        flags["ssm_in"] = _segments_whole(_mamba_segments(cfg),
+                                          mesh.shape["model"])
+    k = shd.cache_specs(
+        {"k": torch.empty((n_slots, max_len, hk, hd), device="meta")},
+        mesh, n_slots, max_len, rules=rules)["k"].spec
+    batch = () if k[0] is None else (k[0],) if isinstance(k[0], str) \
+        else tuple(k[0])
     if paged:
         k = shd.paged_cache_specs(
             {"k": torch.empty((1, 1, hk, hd), device="meta")}, mesh,
             rules)["k"].spec
-        seq, flags["kv_heads"] = False, k[2] is not None
+        flags["kv_heads"] &= k[2] is not None
     else:
-        k = shd.cache_specs(
-            {"k": torch.empty((n_slots, max_len, hk, hd), device="meta")},
-            mesh, n_slots, max_len, rules=rules)["k"].spec
-        seq, flags["kv_heads"] = k[1] is not None, k[2] is not None
+        flags["seq"] = "wk" in groups and k[1] is not None
+        flags["kv_heads"] &= k[2] is not None
     for tree in trees:
         for key, leaf in _leaves(tree):
             if key in _FUSED:
@@ -205,12 +338,13 @@ def plan(cfg, mesh, rules, *, n_slots: int, max_len: int, paged: bool,
                     f"{key!r}: a mesh engine cuts unfused projections and "
                     "fuses each rank's block (fuse_qkv=True), so that no "
                     "rank mixes q, k and v heads")
-            if key in _GROUPS and isinstance(leaf, QTensor) \
-                    and not _carries_cut(key, leaf, mesh, rules):
-                flags[_GROUPS[key]] = False
+            if key in table and not _cut_in_table(key, leaf, table[key][1],
+                                                  mesh, rules):
+                flags[groups[key]] = False
     if not flags["heads"]:
         flags["kv_heads"] = False   # a rank's q heads must own its KV heads
-    return Layout(mesh, dict(rules), seq=seq, **flags)
+    return Layout(mesh, dict(rules), groups,
+                  batch_axes=batch if not paged else (), **flags)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +368,16 @@ def layout_specs(tree, specs, lay: Layout):
     (an adapter's A and B to their target)."""
     def walk(node, spec, key):
         if isinstance(node, dict):
-            return {k: walk(node[k], spec[k], k if k in _GROUPS else key)
+            return {k: walk(node[k], spec[k], k if k in lay.groups else key)
                     for k in node}
-        return spec if lay.cuts(key) else _whole(node, lay.mesh)
+        if not lay.cuts(key):
+            return _whole(node, lay.mesh)
+        if isinstance(node, QTensor) and lay.groups[key] == "experts":
+            # the scale follows the codes' expert cut, not its columns
+            cut = spec.codes.spec[:-2] + (None, None)
+            return dataclasses.replace(spec, scale=NamedSharding(lay.mesh,
+                                                                 cut))
+        return spec
     return walk(tree, specs, "")
 
 
@@ -285,12 +426,13 @@ def quantize_blocks(blocks, specs, qcfg: QuantConfig):
 
 def cache_layout_specs(meta, lay: Layout, *, paged: bool,
                        wave: bool = False):
-    """The shardings of a KV cache (``init_cache`` / ``init_paged_cache``
-    on the meta device) under ``lay``: ``cache_specs`` or
-    ``paged_cache_specs`` under the layout's rules, with KV heads cut only
+    """The shardings of a cache (``init_cache`` / ``init_paged_cache`` on
+    the meta device, of this rank's slot rows: the batch is not cut again)
+    under ``lay``: ``cache_specs`` or ``paged_cache_specs`` under the
+    layout's rules (a recurrent state whole), with KV heads cut only
     where the layout cuts them and the sequence only in the serving cache
     of a sequence-cut layout (a prefill ``wave`` keeps every position)."""
-    rules = dict(lay.rules, cache_seq_long=None)
+    rules = dict(lay.rules, cache_seq_long=None, batch=None)
     if not lay.kv_heads:
         rules["kv_heads"] = None
     if wave or not lay.seq:
@@ -302,48 +444,77 @@ def cache_layout_specs(meta, lay: Layout, *, paged: bool,
 
 
 def local_cache(meta, specs, device):
-    """Zeros of this rank's block of each leaf of ``meta`` under
-    ``specs``."""
-    return {name: torch.zeros(shd.local_shard(t, specs[name],
-                                              specs[name].mesh,
-                                              specs[name].mesh.rank).shape,
-                              dtype=t.dtype, device=device)
-            for name, t in meta.items()}
+    """Zeros of this rank's block of each leaf of ``meta`` (nested dicts
+    and tuples) under ``specs``."""
+    if isinstance(meta, dict):
+        return {k: local_cache(v, specs[k], device) for k, v in meta.items()}
+    if isinstance(meta, (tuple, list)):
+        return type(meta)(local_cache(t, s, device)
+                          for t, s in zip(meta, specs))
+    block = shd.local_shard(meta, specs, specs.mesh, specs.mesh.rank)
+    return torch.zeros(block.shape, dtype=meta.dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
 
-def _all_reduce(x: torch.Tensor, mesh, op: str) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
     import torch.distributed as dist
     x = x.contiguous()
-    dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=mesh.group)
+    dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=group)
     return x
 
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of every rank's ``x`` (the row-parallel partials), taken in
-    float32 and cast back to x's type."""
-    return _all_reduce(x.to(torch.float32, copy=True), mesh,
+    """The sum over the "model" group of every rank's ``x`` (the
+    row-parallel partials), taken in float32 and cast back to x's type."""
+    return _all_reduce(x.to(torch.float32, copy=True), mesh.group,
                        "SUM").to(x.dtype)
 
 
 def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
-    return _all_reduce(x.clone(), mesh, "MAX")
+    return _all_reduce(x.clone(), mesh.group, "MAX")
 
 
 def gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
-    """[..., n] on each rank -> [..., P n], rank r's block at r: a sum over
-    a zero-filled buffer, exact in any type."""
+    """[..., n] on each rank of the "model" group -> [..., P n], rank r's
+    block at r: a sum over a zero-filled buffer, exact in any type."""
     n, r = x.shape[-1], mesh.model_rank
     full = x.new_zeros(*x.shape[:-1], n * mesh.shape["model"])
     full[..., r * n:(r + 1) * n] = x
-    return _all_reduce(full, mesh, "SUM")
+    return _all_reduce(full, mesh.group, "SUM")
+
+
+def gather_index(x: torch.Tensor, index, total: int, mesh,
+                 dim: int = 0) -> torch.Tensor:
+    """Rows ``index`` of a batch of ``total`` (``x``'s rows on ``dim``,
+    each row computed on one rank of the "data" group) -> every row, on
+    every rank of the group: a sum over a zero-filled buffer, exact in any
+    type."""
+    shape = list(x.shape)
+    shape[dim] = total
+    full = x.new_zeros(shape)
+    full.index_copy_(dim, torch.as_tensor(index, dtype=torch.long,
+                                          device=x.device), x)
+    return _all_reduce(full, mesh.data_group, "SUM")
+
+
+def gather_rows(x: torch.Tensor, rows: Rows, dim: int = 0) -> torch.Tensor:
+    """This rank's ``rows`` of a step's result (``rows.n`` on ``dim``) ->
+    every row, on every rank of the "data" group. Rows run whole take data
+    rank 0's values."""
+    mesh = rows.mesh
+    if rows.cut:
+        return gather_index(x, range(rows.lo, rows.lo + rows.n), rows.total,
+                            mesh, dim)
+    full = x.clone() if mesh.data_rank == 0 else torch.zeros_like(x)
+    return _all_reduce(full, mesh.data_group, "SUM")
 
 
 def broadcast_host(value: float, mesh) -> float:
-    """Rank 0's ``value`` on every rank (over the mesh's host group)."""
+    """Global rank 0's ``value`` on every rank (over the mesh's host group,
+    the whole world)."""
     import torch.distributed as dist
     t = torch.tensor([value], dtype=torch.float64)
     dist.broadcast(t, src=0, group=mesh.host_group)
@@ -363,7 +534,7 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
     inside = (local >= 0) & (local < n)
     rows = table[torch.clamp(local, 0, n - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return _all_reduce(rows, lay.mesh, "SUM")
+    return _all_reduce(rows, lay.mesh.group, "SUM")
 
 
 def head_range(cfg, lay: Layout):

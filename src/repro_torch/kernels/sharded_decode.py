@@ -78,13 +78,19 @@ def decode_attention_seqsharded(q, k_cache, v_cache, new_k, new_v, pos,
     and, quantized, the two scale caches after them: JAX's results.
 
     ``mesh`` is the rank's ``launch.mesh.Mesh``; the sequence is cut over
-    its "model" axis (``seq_axes == ("model",)``, no batch axes: serving
-    meshes have data 1)."""
-    if tuple(seq_axes) != ("model",) or tuple(batch_axes):
+    its "model" axis (``seq_axes == ("model",)``), and the batch, where it
+    is cut, over its "data" axis (``batch_axes == ("data",)``, JAX's
+    ``_seq_shard_ctx`` under the serving rules): the rows are the rank's
+    own, and the combine runs over the "model" group only."""
+    if tuple(seq_axes) != ("model",):
         raise NotImplementedError(
-            f"sequence axes {seq_axes} and batch axes {batch_axes}: the "
-            "port cuts the sequence over 'model' only (a data axis is "
-            "ROADMAP queue 1 item 12b)")
+            f"sequence axes {seq_axes}: the port cuts the sequence over "
+            "'model' only (the 'cache_seq_long' rule's ('model', 'data') "
+            "is ROADMAP queue 1 item 12d)")
+    if tuple(batch_axes) not in ((), ("data",)):
+        raise NotImplementedError(
+            f"batch axes {batch_axes}: a serving mesh cuts the batch over "
+            "'data' only (ROADMAP queue 1 item 12d)")
     d = q.shape[-1]
     s_local = k_cache.shape[1]
     lo = shd.mesh_coords(mesh, mesh.rank)["model"] * s_local

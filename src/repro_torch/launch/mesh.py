@@ -60,22 +60,25 @@ class Mesh:
     """This process's place in a ("data", "model") mesh of ranks.
 
     ``shape``: {"data": D, "model": M}; ``rank``: this process's rank
-    (row-major over the axes); ``device``: its device; ``group``: the
-    process group of the "model" axis (None for a mesh of one), over which
-    the tensor-parallel collectives run; ``host_group``: a gloo group of the
-    same ranks for host values (the engine's clock), which NCCL cannot
-    carry; ``backend``: "nccl" or "gloo"; ``device_mesh``: the
-    ``DeviceMesh``."""
+    (row-major over the axes); ``device``: its device (the card unless the
+    caller passes ``device="cpu"``); ``group``: the process group of its
+    "model" row (None for a mesh of one), over which the tensor-parallel
+    collectives run; ``data_group``: the group of its "data" column, over
+    which a step's slot rows are gathered; ``host_group``: a gloo group of
+    the whole world for host values (the engine's clock, read from global
+    rank 0), which NCCL cannot carry; ``backend``: "nccl" or "gloo";
+    ``device_mesh``: the ``DeviceMesh``."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, data: int, model: int, rank: int = 0, device="cpu",
+    def __init__(self, data: int, model: int, rank: int = 0, device="cuda",
                  group=None, host_group=None, backend: Optional[str] = None,
-                 device_mesh=None):
+                 device_mesh=None, data_group=None):
         self.shape: Dict[str, int] = {"data": data, "model": model}
         self.rank = rank
         self.device = torch.device(device)
         self.group = group
+        self.data_group = data_group
         self.host_group = host_group
         self.backend = backend
         self.device_mesh = device_mesh
@@ -88,12 +91,16 @@ class Mesh:
     def model_rank(self) -> int:
         return self.rank % self.shape["model"]
 
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.shape["model"]
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend})")
 
 
-def single_device_mesh(device="cpu") -> Mesh:
+def single_device_mesh(device="cuda") -> Mesh:
     """A (1, 1) mesh: every spec resolves to replication, and an engine on
     it runs the single-device program."""
     return Mesh(1, 1, 0, device)
@@ -142,10 +149,10 @@ def make_host_mesh(data: int, model: int, device=None) -> Mesh:
     # made on the host: ranks that share a card need no device of their own
     dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
                           (data, model), mesh_dim_names=("data", "model"))
-    group = dm.get_group("model")
-    host_group = group if backend == "gloo" else dist.new_group(
-        backend="gloo")
-    return Mesh(data, model, rank, device, group, host_group, backend, dm)
+    # every rank makes every group, in the same order
+    host_group = dist.new_group(backend="gloo")
+    return Mesh(data, model, rank, device, dm.get_group("model"), host_group,
+                backend, dm, dm.get_group("data"))
 
 
 def make_serve_mesh(spec: str, device=None) -> Mesh:
@@ -242,7 +249,10 @@ def run_ranks(fn: Callable, world: int, device, *args,
             except queue_mod.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if r not in results and p.exitcode is not None]
-                if dead:
+                # a rank flushes its result into the pipe before it exits:
+                # look at the pipe only after reading the exit codes, so a
+                # result that came in since the get above is not lost
+                if dead and out.empty():
                     raise RuntimeError(f"rank(s) {dead} exited without a "
                                        "result (exit codes "
                                        f"{[procs[r].exitcode for r in dead]})")

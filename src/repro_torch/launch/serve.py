@@ -30,26 +30,27 @@ are the lines it prints. Of note:
   --speculate       self-speculative decoding (--spec-k, --draft-bits,
                     --draft-mode)
   --stats           the engine's stats as JSON
-  --mesh-shape N    tensor-parallel serving over N ranks ('1xN'; a data
-                    axis above 1 is ROADMAP queue 1 item 12b)
+  --mesh-shape DxM  serving on a ("data", "model") mesh of D x M ranks
+                    ('M' alone is '1xM')
 
 As in the JAX launcher, ``--mesh-shape`` above 1 serves on a mesh, and
-its summary line carries a ``, mesh N`` tag. Under ``torchrun`` (``RANK``
-and ``WORLD_SIZE`` set) each process joins the group as one rank;
-otherwise the launcher spawns its N ranks itself
+its summary line carries a ``, mesh DxM`` tag. Under ``torchrun``
+(``RANK`` and ``WORLD_SIZE`` set) each process joins the group as one
+rank; otherwise the launcher spawns its D x M ranks itself
 (``launch.mesh.run_ranks``; NCCL with a card per rank, gloo when ranks
 share a card). Every rank serves the same requests and rank 0 prints;
 ``--ckpt`` restores onto the shards (each rank reads its block of every
-leaf the layout cuts, and the engine quantizes its blocks; with a
-shiftadd draft, derived from the whole weights, they restore whole). An
+leaf the layout cuts over "model", the expert stacks and the recurrent
+mixers' projections included, and the engine quantizes its blocks; with
+a shiftadd draft, derived from the whole weights, they restore whole). An
 encoder-decoder ``--arch``
 (whisper-small) raises the engine's error. The launcher runs on the card,
 and fails where there is none; a caller may ask for the CPU with
 ``main(argv, device="cpu")`` (a Python keyword, not a flag), as the tests
 do.
 
-    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh-shape 2
-    PYTHONPATH=src python -m repro_torch.launch.serve --mesh-shape 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh-shape 2x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh-shape 2x2
 """
 
 from __future__ import annotations
@@ -208,10 +209,6 @@ def main(argv=None, device="cuda"):
                            "that want the CPU pass main(argv, "
                            "device='cpu'))")
     data, model = parse_mesh_shape(args.mesh_shape)
-    if data > 1:                        # before any rank is started
-        raise NotImplementedError(
-            f"--mesh-shape {args.mesh_shape}: a 'data' axis above 1 in "
-            "serving waits for ROADMAP queue 1 item 12b")
     if data * model == 1:
         serve(args, device)
         return None

@@ -104,9 +104,11 @@ def row_parallel(x, w, impl: str, lay) -> torch.Tensor:
     return tp.all_reduce_sum(y, lay.mesh).to(x.dtype)
 
 
-def mlp_fwd(p, x, cfg, impl: str = "auto"):
+def mlp_fwd(p, x, cfg, impl: str = "auto", reduce: bool = True):
     """The MLP block; under a tensor-parallel layout that cuts it, gate/up
-    hold the rank's d_ff columns and down its rows (one all-reduce)."""
+    hold the rank's d_ff columns and down its rows (one all-reduce, or,
+    with ``reduce=False``, the rank's float32 partial for the caller's
+    all-reduce)."""
     lay = tp.active()
     if "gate_up" in p:   # fused: one activation pass over [d, 2·d_ff]
         g, u = torch.chunk(linear(x, p["gate_up"], impl=impl), 2, dim=-1)
@@ -116,6 +118,8 @@ def mlp_fwd(p, x, cfg, impl: str = "auto"):
             * linear(x, p["up"], impl=impl)
     else:   # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(linear(x, p["up"], impl=impl), approximate="tanh")
+    if not reduce and lay is not None and lay.mlp:
+        return linear(h, p["down"], impl=impl, out_dtype=torch.float32)
     return row_parallel(h, p["down"], impl,
                         lay if lay is not None and lay.mlp else None)
 

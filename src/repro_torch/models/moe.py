@@ -19,6 +19,13 @@ The two MoE variants of the registry:
   arctic-480b     128 routed top-2 + dense residual FFN in parallel
   qwen2-moe-a2.7b 60 routed top-4 (padded to 64) + 4 shared experts
 Padded experts get a router logit of -1e30, so padding is exact.
+
+Expert-parallel under a layout that cuts the experts
+(``dist/tensor_parallel.py``): a rank holds the stacks of experts [r E/P,
+(r+1) E/P), routes the same replicated tokens as every rank (the same
+capacity drops), runs the experts it holds among those that hold a pair,
+and one float32 all-reduce sums its combined partial with the shared (or
+dense-residual) expert's row-parallel partial.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantization import QTensor, dequantize
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 
@@ -142,33 +150,56 @@ def moe_ffn(p, x, cfg, impl: str = "auto"):
     e_sorted, pos_clip, tok_sorted, w_sorted, keep, order = _dispatch_row(
         weights.reshape(b, s, k), experts.reshape(b, s, k), e, cap, k)
 
-    # the experts that hold a pair (every such expert keeps its first one)
-    used = torch.unique(e_sorted)
-    n_used = used.numel()
-    slot_of = torch.zeros(e, dtype=torch.int64, device=x.device)
-    slot_of[used] = torch.arange(n_used, device=x.device)
+    lay = tp.active()
+    ep = lay is not None and lay.experts
+    # the experts that hold a pair (every such expert keeps its first one),
+    # of those this rank holds under an expert cut
+    run = torch.unique(e_sorted)
+    lo = 0
+    if ep:
+        held = e // lay.size
+        lo = lay.rank * held
+        run = run[(run >= lo) & (run < lo + held)]
+    n_run = run.numel()
+    # slot n_run takes the pairs of experts this rank does not run, and row
+    # cap of each expert the dropped pairs; both are sliced off
+    slot_of = torch.full((e,), n_run, dtype=torch.int64, device=x.device)
+    slot_of[run] = torch.arange(n_run, device=x.device)
     slot = slot_of[e_sorted]                                   # [B, S * k]
     rows = torch.arange(b, device=x.device)[:, None].expand_as(slot)
-    # row cap of each expert takes the dropped pairs and is sliced off
-    buf = torch.zeros((n_used, b, cap + 1, d), dtype=x.dtype,
-                      device=x.device)
-    buf[slot, rows, pos_clip] = torch.gather(
-        x, 1, tok_sorted[..., None].expand(b, s * k, d))
-    buf = buf[:, :, :cap].reshape(n_used, b * cap, d)
-
-    h = torch.bmm(buf, _w(p, "expert_gate", x.dtype, used))
-    u = torch.bmm(buf, _w(p, "expert_up", x.dtype, used))
-    out = torch.bmm(F.silu(h) * u, _w(p, "expert_down", x.dtype, used))
-    out_buf = torch.zeros((n_used, b, cap + 1, d), dtype=x.dtype,
+    out_buf = torch.zeros((n_run + 1, b, cap + 1, d), dtype=x.dtype,
                           device=x.device)
-    out_buf[:, :, :cap] = out.reshape(n_used, b, cap, d)
-    y_sorted = out_buf[slot, rows, pos_clip]     # dropped: the zero row
+    if n_run:
+        buf = torch.zeros((n_run + 1, b, cap + 1, d), dtype=x.dtype,
+                          device=x.device)
+        buf[slot, rows, pos_clip] = torch.gather(
+            x, 1, tok_sorted[..., None].expand(b, s * k, d))
+        buf = buf[:n_run, :, :cap].reshape(n_run, b * cap, d)
+        local = run - lo
+        h = torch.bmm(buf, _w(p, "expert_gate", x.dtype, local))
+        u = torch.bmm(buf, _w(p, "expert_up", x.dtype, local))
+        out = torch.bmm(F.silu(h) * u, _w(p, "expert_down", x.dtype, local))
+        out_buf[:n_run, :, :cap] = out.reshape(n_run, b, cap, d)
+    y_sorted = out_buf[slot, rows, pos_clip]    # elsewhere: a zero row
     y = _combine_row(y_sorted, w_sorted, order, s, k)
 
-    if "shared" in p:
-        y = y + L.mlp_fwd(p["shared"], x, cfg, impl=impl)
-    if "dense" in p:
-        y = y + L.mlp_fwd(p["dense"], x, cfg, impl=impl)
+    if not ep:
+        if "shared" in p:
+            y = y + L.mlp_fwd(p["shared"], x, cfg, impl=impl)
+        if "dense" in p:
+            y = y + L.mlp_fwd(p["dense"], x, cfg, impl=impl)
+        return y
+    # one all-reduce: the routed partial and the row-parallel partials of
+    # the shared and dense-residual experts, in float32
+    part = y.to(torch.float32)
+    whole = [p[n] for n in ("shared", "dense") if n in p]
+    if lay.mlp:
+        for sp in whole:
+            part = part + L.mlp_fwd(sp, x, cfg, impl=impl, reduce=False)
+        whole = []
+    y = tp.all_reduce_sum(part, lay.mesh).to(x.dtype)
+    for sp in whole:
+        y = y + L.mlp_fwd(sp, x, cfg, impl=impl)
     return y
 
 

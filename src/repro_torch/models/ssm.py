@@ -14,6 +14,11 @@ JAX package's einsums stay ``torch.einsum`` calls and its ``lax.scan``
 over chunks a Python loop; the scan runs in f32, as there. No Pallas
 kernel runs here: the projections go through the AxLLM matmul
 (``core.axllm_linear.linear``) and the rest are plain PyTorch ops.
+
+Under a tensor-parallel layout (``dist/tensor_parallel.py``) ``in_proj``
+and ``out_proj`` are column-parallel where the layout cuts them, each
+output gathered whole; the conv, the scan and the states run whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.axllm_linear import linear
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -141,9 +147,19 @@ def init_mamba2(gen, cfg, dtype=torch.float32, lead=()):
     }
 
 
+def _column(x, w, impl, cut: str):
+    """``linear(x, w)``; the output gathered whole when the layout cuts
+    ``w``'s columns (flag ``cut``)."""
+    y = linear(x, w, impl=mixer_impl(impl))
+    lay = tp.active()
+    if lay is not None and getattr(lay, cut):
+        y = tp.gather_last(y, lay.mesh)
+    return y
+
+
 def _mamba_preact(p, x, cfg, impl):
     di, n, nh = _dims(cfg)
-    zxbcdt = linear(x, p["in_proj"], impl=mixer_impl(impl))
+    zxbcdt = _column(x, p["in_proj"], impl, "ssm_in")
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     return z, xbc, dt, di, n, nh
 
@@ -167,7 +183,7 @@ def causal_conv(xbc, w, b, prev=None):
 
 def _gate_out(p, y, z, cfg, impl):
     y = L.norm_fwd(p["norm_y"], y * F.silu(z), cfg.norm_eps)
-    return linear(y, p["out_proj"], impl=mixer_impl(impl))
+    return _column(y, p["out_proj"], impl, "ssm_out")
 
 
 def mamba2_fwd(p, x, cfg, conv_state=None, *, impl: str = "auto",

@@ -23,6 +23,13 @@ matrices, stabilized exponential gating, then the paper's
 post-up-projection GeGLU FFN (factor 4/3); a Python loop over positions.
 
 Prefill and decode write the cache's stacked state in place.
+
+Under a tensor-parallel layout that cuts the mLSTM projections
+(``dist/tensor_parallel.py``, which lists every leaf as cut or whole and
+why), ``up`` is column-parallel and its output gathered whole, and
+``down`` row-parallel on the rank's slice of the normed output, with one
+all-reduce; the conv, q/k, the gates, the cells and every state run whole
+on each rank.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.axllm_linear import concat_weights, linear
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import layer_slice, param_dtype
@@ -87,9 +95,24 @@ def _mlstm_qk(p, xc, impl):
     return linear(xc, p["wq"], impl=impl), linear(xc, p["wk"], impl=impl)
 
 
+def _mlstm_up(p, xn, impl):
+    """(x_in, z): the up-projection's halves, gathered whole when the
+    layout cuts its columns."""
+    y = linear(xn, p["up"], impl=impl)
+    lay = tp.active()
+    if lay is not None and lay.mlp:
+        y = tp.gather_last(y, lay.mesh)
+    return torch.chunk(y, 2, dim=-1)
+
+
 def _mlstm_out(p, y, z, cfg, impl):
     y = L.norm_fwd(p["norm_h"], y, cfg.norm_eps) * F.silu(z)
-    return linear(y, p["down"], impl=impl)
+    lay = tp.active()
+    if lay is None or not lay.mlp:
+        return linear(y, p["down"], impl=impl)
+    n = y.shape[-1] // lay.size
+    return L.row_parallel(y[..., lay.rank * n:(lay.rank + 1) * n]
+                          .contiguous(), p["down"], impl, lay)
 
 
 def mlstm_fwd(p, x, cfg, state=None, *, impl: str = "auto",
@@ -100,7 +123,7 @@ def mlstm_fwd(p, x, cfg, state=None, *, impl: str = "auto",
     di, nh, hd = _mlstm_dims(cfg)
     mi = S.mixer_impl(impl)
     xn = L.norm_fwd(p["ln"], x, cfg.norm_eps)
-    xin, z = torch.chunk(linear(xn, p["up"], impl=mi), 2, dim=-1)
+    xin, z = _mlstm_up(p, xn, mi)
     conv_prev = state[0] if state is not None else None
     xc, new_conv = S.causal_conv(xin, p["conv_w"], p["conv_b"], conv_prev)
     q, k = _mlstm_qk(p, xc, mi)
@@ -139,7 +162,7 @@ def mlstm_step(p, x, cfg, state, *, impl: str = "auto"):
     mi = S.mixer_impl(impl)
     conv_prev, c_aug, m = state
     xn = L.norm_fwd(p["ln"], x, cfg.norm_eps)
-    xin, z = torch.chunk(linear(xn, p["up"], impl=mi), 2, dim=-1)
+    xin, z = _mlstm_up(p, xn, mi)
     xc, new_conv = S.causal_conv(xin, p["conv_w"], p["conv_b"], conv_prev)
     q, k = _mlstm_qk(p, xc, mi)
     q = q.reshape(b, nh, hd)

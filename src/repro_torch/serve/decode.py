@@ -38,15 +38,22 @@ class DecodeChunk(NamedTuple):
 
 
 def sample_tokens(logits, gen: Optional[torch.Generator], *, greedy: bool,
-                  vocab_size: int) -> torch.Tensor:
+                  vocab_size: int, rows=None) -> torch.Tensor:
     """[B, V_padded] logits -> [B] int32 tokens over the real vocab.
-    Greedy takes the first maximum (as ``jnp.argmax`` does); sampled
-    decoding draws from ``gen``, so its numbers differ from JAX's."""
+    Greedy takes the first maximum (as ``jnp.argmax`` does). Sampled
+    decoding draws one uniform number a row of the whole batch from
+    ``gen`` and inverts each row's CDF with it; ``rows`` = (the batch's
+    rows, the index of these B among them) when ``logits`` are a block of
+    a batch cut over ranks, so that a row's token does not depend on the
+    cut. Its numbers differ from JAX's."""
     logits = logits[..., :vocab_size]
     if greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+    total, index = rows if rows is not None else (logits.shape[0], slice(None))
+    u = torch.rand(total, generator=gen, device=logits.device)[index]
+    cdf = torch.cumsum(torch.softmax(logits.to(torch.float32), dim=-1), -1)
+    tok = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    return tok[:, 0].clamp_max(vocab_size - 1).to(torch.int32)
 
 
 def verify_steps(decode_fn, params, last, drafts, cache, *,
@@ -85,19 +92,20 @@ def verify_steps(decode_fn, params, last, drafts, cache, *,
 def decode_steps(decode_fn, params, last, cache, gen_rng, stop_mask, gen,
                  max_new, *, n: int, vocab_size: int, max_len: int,
                  eos_id: Optional[int] = None,
-                 greedy: bool = True) -> DecodeChunk:
+                 greedy: bool = True, rows=None) -> DecodeChunk:
     """Run ``n`` decode steps of ``decode_fn`` on the device.
 
     decode_fn: ``(params, token [B], cache) -> (logits [B, V], cache)``.
     last: [B] int32 last sampled token; stop_mask: [B] bool (True = dead
     slot); gen: [B] int32 tokens generated so far; max_new: [B] int32
-    per-slot budget; gen_rng: the sampling generator (unused if greedy).
+    per-slot budget; gen_rng: the sampling generator (unused if greedy);
+    rows: ``sample_tokens``' rows, for a block of the slots.
     """
     toks, valid = [], []
     for _ in range(n):
         logits, cache = decode_fn(params, last, cache)
         nxt = sample_tokens(logits, gen_rng, greedy=greedy,
-                            vocab_size=vocab_size)
+                            vocab_size=vocab_size, rows=rows)
         active = ~stop_mask
         nxt = torch.where(active, nxt, last)
         gen = gen + active.to(torch.int32)

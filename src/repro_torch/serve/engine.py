@@ -129,23 +129,37 @@ scheduler keeps ``n_slots`` request slots full:
   ``drafted_tokens``, ``accepted_draft_tokens``, ``acceptance_rate``,
   ``accepted_tokens_per_step``.
 
-- **Tensor-parallel serving (``mesh=``).** Given a ``launch.mesh.Mesh``
-  of P ranks over "model" (each rank runs its own engine, with the same
-  arguments and the same requests), the engine picks the rules
-  (``dist.sharding.serve_rules_for``) and the layout
+- **Serving on a mesh (``mesh=``).** Given a ``launch.mesh.Mesh`` of
+  D x P ranks over ("data", "model") (each rank runs its own engine, with
+  the same arguments and the same requests), the engine picks the rules
+  (``dist.sharding.serve_rules_for``) and, over "model", the layout
   (``dist.tensor_parallel.plan``), keeps its rank's block of the raw
   weights (column-parallel wq/wk/wv and gate/up, row-parallel wo and
-  down, the vocabulary cut; ``params`` whole or as those blocks), quantizes
-  its blocks into the single-device codes (a row block's per-column scale
-  from one all-reduce MAX), fuses them, and cuts the dense
-  cache or the paged pool along KV heads, or the dense cache along its
-  sequence when the KV heads do not divide P (decode then runs
-  ``kernels.sharded_decode``); the adapters and the draft follow the same
-  layout. Block tables, the pager and every host decision are whole on
-  every rank, and the clock reads rank 0's, so the ranks keep one
-  schedule; each rank swaps out its own shard. A mesh of size 1 is the
-  single-device engine. The moe, ssm, hybrid and audio families and a
-  "data" axis above 1 raise (ROADMAP queue 1 item 12b).
+  down, the vocabulary cut, the routed experts cut on their expert dim,
+  the recurrent mixers' projections as ``tensor_parallel`` lists;
+  ``params`` whole or as those blocks), quantizes its blocks into the
+  single-device codes (a row block's per-column scale from one
+  all-reduce MAX), fuses them, and cuts the dense cache or the paged pool
+  along KV heads, or the dense cache along its sequence when the KV heads
+  do not divide P (decode then runs ``kernels.sharded_decode``); a
+  recurrent state stays whole over "model". Over "data" a rank runs the
+  device rows of its block of the slots (``tensor_parallel.slot_rows``:
+  where ``cache_specs`` cuts the batch, every row where it falls back to
+  whole), and of a prefill wave the rows whose requests take slots of
+  its block (a row seated in another block than planned, after a row
+  before it ended on its first token, moves its cache rows over the data
+  group); after each wave and decode chunk the rows' tokens are gathered
+  over the data group. The paged pool is whole on every data
+  rank (``paged_cache_specs``), so a paged engine runs its rows whole
+  there: every replica of the pool takes the same writes, and a prefix
+  hit reads the same blocks on every rank. The adapters, the draft and
+  its cache follow the target's layout and rows. Block tables, the pager
+  and every host decision are whole on every rank, and the clock reads
+  global rank 0's, so the ranks keep one schedule. Tokens and every
+  counter equal the single-device engine's, sampled ones too: every rank
+  draws the whole batch's numbers from one generator and a row takes its
+  own (``decode.sample_tokens``' rows). A mesh of size 1 is the
+  single-device engine.
 """
 
 
@@ -343,6 +357,19 @@ def _leaves(tree, spec):
         yield tree, spec
 
 
+def _leaf_keys(spec, key=""):
+    """The dict key of every leaf of a cache ``spec``, in ``_leaves``'
+    order."""
+    if isinstance(spec, dict):
+        for k, sub in spec.items():
+            yield from _leaf_keys(sub, k)
+    elif isinstance(spec, tuple):
+        for sub in spec:
+            yield from _leaf_keys(sub, key)
+    else:
+        yield key
+
+
 def _shapes(tree):
     if isinstance(tree, dict):
         return {k: _shapes(v) for k, v in tree.items()}
@@ -432,17 +459,6 @@ class ServeEngine:
                     f"(kv_block_size={kv_block_size}): a non-final chunk is "
                     "floored to whole blocks, so no chunk could ever make "
                     "progress")
-        if mesh is not None:
-            if cfg.family not in ("dense", "vlm"):
-                raise NotImplementedError(
-                    f"family {cfg.family!r} under a mesh: tensor-parallel "
-                    "serving covers the dense and vlm transformers; the moe "
-                    "(expert-parallel), ssm, hybrid and audio families wait "
-                    "for ROADMAP queue 1 item 12b")
-            if mesh.shape.get("data", 1) > 1:
-                raise NotImplementedError(
-                    f"mesh {dict(mesh.shape)}: a 'data' axis above 1 in "
-                    "serving waits for ROADMAP queue 1 item 12b")
         self.api: ModelAPI = get_model(cfg, impl=impl)
         if paged and self.api.init_paged_cache is None:
             raise ValueError(
@@ -486,12 +502,16 @@ class ServeEngine:
         self.draft_bits = draft_bits
         self.draft_mode = draft_mode
         self.mesh = mesh
-        self._rules = self._layout = None
+        self.paged = paged
+        self._rules = self._layout = self._rows = None
         if mesh is not None:
             self._rules, self._layout, whole = self.mesh_layout(
                 cfg, mesh, params, n_slots=n_slots, max_len=max_len,
                 paged=paged, quant=qcfg, speculate=speculate,
                 draft_bits=draft_bits, draft_mode=draft_mode)
+            if mesh.shape["data"] > 1:
+                self._rows = tp.slot_rows(mesh, self._rules, n_slots,
+                                          whole=paged)
         if self._layout is None:
             # the draft from the raw weights: a draft of quantized target
             # weights would compound two quantization errors
@@ -511,8 +531,8 @@ class ServeEngine:
         self.max_len = max_len
         # always dense, even when the target pages: draft KV is private
         # scratch (never shared, published or swapped)
-        self.draft_cache = self._new_cache(n_slots, max_len) if speculate \
-            else None
+        self.draft_cache = self._new_cache(self._n_rows(n_slots), max_len) \
+            if speculate else None
         self.greedy = greedy
         self.eos_id = eos_id if eos_id is not None else cfg.eos_id
         self.long_prompt = long_prompt
@@ -529,8 +549,9 @@ class ServeEngine:
                         adapters.stacked, mesh, self._rules), self._layout))
         # per-slot adapter row into registry.stacked; -1 = base only
         self.adapter_slots = np.full((n_slots,), -1, np.int32)
+        # one generator on every rank: a sampled row draws the same number
+        # whichever data rank runs it (``sample_tokens``' rows)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
-        self.paged = paged
         self.kv_block_size = kv_block_size
         self.prefix_cache = prefix_cache
         self.prefill_budget = prefill_budget
@@ -556,7 +577,7 @@ class ServeEngine:
                                  self.api.paged_cache_spec.items() if ax == 1]
         else:
             self.pager = None
-            self.cache = self._new_cache(n_slots, max_len)
+            self.cache = self._new_cache(self._n_rows(n_slots), max_len)
         self._validate_cache_spec()
         self.slots: List[Optional[Request]] = [None] * n_slots
         # bounded priority wait queue; max_queue=None with "block" is the
@@ -584,12 +605,13 @@ class ServeEngine:
                         f"shape {tuple(self.cache[name].shape)} has {got} "
                         f"!= {want} there")
             return
+        rows = self._n_rows(self.n_slots)
         for leaf, ax in _leaves(self.cache, self.api.cache_spec):
-            if leaf.shape[ax] != self.n_slots:
+            if leaf.shape[ax] != rows:
                 raise ValueError(
                     f"cache_spec says batch axis {ax} but leaf shape "
-                    f"{tuple(leaf.shape)} has {leaf.shape[ax]} != n_slots="
-                    f"{self.n_slots} there")
+                    f"{tuple(leaf.shape)} has {leaf.shape[ax]} != the "
+                    f"{rows} slot rows this rank runs there")
 
     def _validate_adapters(self, reg: AdapterRegistry):
         """The family must take the LoRA kwargs, and the registry must be
@@ -615,10 +637,11 @@ class ServeEngine:
                              f"engine on {self.device}")
 
     def _new_cache(self, batch: int, length: int, wave: bool = False):
-        """A dense KV cache of ``batch`` slots and ``length`` positions: this
-        rank's block under a layout, its sequence cut only for the serving
-        cache (a prefill wave keeps every position on every rank: each rank
-        computes them all and ``_write_wave`` keeps its rows)."""
+        """A dense cache of ``batch`` rows (this rank's) and ``length``
+        positions: this rank's block under a layout, its sequence cut only
+        for the serving cache (a prefill wave keeps every position on every
+        rank: each rank computes them all and ``_write_wave`` keeps its
+        rows)."""
         if self._layout is None:
             return self.api.init_cache(batch, length, self.device)
         meta = self.api.init_cache(batch, length, "meta")
@@ -675,6 +698,67 @@ class ServeEngine:
             blocks = tp.quantize_blocks(blocks, specs, qcfg)
         return blocks, draft
 
+    # -- rows over the "data" axis ---------------------------------------------
+    def _n_rows(self, total: int) -> int:
+        """The slot rows of ``total`` slots that this rank runs."""
+        return total if self._rows is None else self._rows.n
+
+    def _take(self, a):
+        """This rank's rows of the slots' ``a``."""
+        return a if self._rows is None else self._rows.take(a)
+
+    def _gather(self, t: torch.Tensor, dim: int = 0):
+        """Every slot row of a result this rank computed for its rows."""
+        if self._rows is None:
+            return t
+        return tp.gather_rows(t, self._rows, dim)
+
+    def _sampling_rows(self):
+        """``sample_tokens``' rows for this rank's slot rows, or None."""
+        if self._rows is None or not self._rows.cut:
+            return None
+        return self._rows.total, slice(self._rows.lo, self._rows.lo +
+                                       self._rows.n)
+
+    def _wave_mine(self, slots) -> Optional[np.ndarray]:
+        """The rows of a prefill wave that this rank prefills, where a data
+        axis cuts the slots: those whose request takes a slot of its block
+        (``slots``, the slot of each row when every row is seated); None
+        where this rank runs every row."""
+        if self._rows is None or not self._rows.cut:
+            return None
+        lo, n = self._rows.lo, self._rows.n
+        return np.array([i for i, s in enumerate(slots) if lo <= s < lo + n],
+                        np.int64)
+
+    def _seated_rows(self, wave_cache, mine, slots, src, dst):
+        """The wave cache and its row of each seated pair (wave row ``src``
+        -> slot ``dst``) for ``_write_wave``. A rank that ran every row has
+        them all. On a data axis, a rank holds its rows (``mine``, planned
+        on ``slots``); a row seated in another block than planned (a row
+        before it ended on its first token and took no slot) moves: the
+        moved rows alone are gathered over the data group and appended."""
+        if mine is None:
+            return wave_cache, src
+        n, at = self._rows.n, {int(i): j for j, i in enumerate(mine)}
+        moved = [i for i, d in zip(src, dst) if slots[i] // n != d // n]
+        if moved:
+            have = [j for j, i in enumerate(moved) if i in at]
+            sel = torch.tensor([at[moved[j]] for j in have],
+                               dtype=torch.long, device=self.device)
+
+            def append(tree, spec):
+                if isinstance(spec, dict):
+                    return {k: append(tree[k], sub) for k, sub in spec.items()}
+                if isinstance(spec, tuple):
+                    return tuple(append(t, sub) for t, sub in zip(tree, spec))
+                got = tp.gather_index(tree.index_select(spec, sel), have,
+                                      len(moved), self.mesh, spec)
+                return torch.cat([tree, got], spec)
+            wave_cache = append(wave_cache, self.api.cache_spec)
+        return wave_cache, [len(mine) + moved.index(i) if i in moved
+                            else at.get(i, -1) for i in src]
+
     def _mesh_ctx(self):
         """The engine's (mesh, rules, layout) for the model code; nothing
         without a mesh."""
@@ -697,9 +781,9 @@ class ServeEngine:
 
     # -- request management ---------------------------------------------------
     def _now(self) -> float:
-        """The clock; under a layout, rank 0's reading on every rank, so
-        that every rank takes the same deadline decisions."""
-        if self._layout is None:
+        """The clock; on a mesh of ranks, global rank 0's reading on every
+        rank, so that every rank takes the same deadline decisions."""
+        if self.mesh is None or self.mesh.size == 1:
             return self._clock()
         return tp.broadcast_host(self._clock(), self.mesh)
 
@@ -1090,24 +1174,35 @@ class ServeEngine:
             toks[i, :lens[i]] = seq
             lengths[i] = lens[i]
             aidx[i] = self._adapter_row(r)
-        kw = self._lora_kw(aidx)
+        # on a data axis, this rank's rows: the requests seated in its
+        # block of the slots (each row takes free[i] unless a row before it
+        # ends on its first token)
+        planned = free[:w]
+        mine = self._wave_mine(planned)
+        if mine is not None:
+            toks, lengths_l, aidx_l = toks[mine], lengths[mine], aidx[mine]
+        else:
+            lengths_l, aidx_l = lengths, aidx
+        kw = self._lora_kw(aidx_l)
         if ragged:
-            kw["lengths"] = torch.from_numpy(lengths).to(self.device)
-        wave_cache = self._new_cache(wb, pl, wave=True)
+            kw["lengths"] = torch.from_numpy(lengths_l).to(self.device)
+        wave_cache = self._new_cache(len(toks), pl, wave=True)
+        logits = torch.zeros((0, self.cfg.padded_vocab), device=self.device)
         try:
             if self.fault_hook is not None:
                 self.fault_hook("prefill")
-            logits, wave_cache = self.api.prefill(
-                self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)},
-                wave_cache, **kw)
+            if len(toks):
+                logits, wave_cache = self.api.prefill(
+                    self.params,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    wave_cache, **kw)
         except Exception:
             # nothing was changed yet: requeue the whole group, so no
             # request (or its adapter pin) is lost
             for r in group:
                 self.queue.push_front(r)
             raise
-        first = self._sample(logits)
+        first = self._sample(logits, None if mine is None else (wb, mine))
         now = self._now()
         src, dst = [], []
         for i, r in enumerate(group):
@@ -1122,17 +1217,20 @@ class ServeEngine:
             src.append(i)
             dst.append(slot)
         if src:
-            self._write_wave(self.cache, wave_cache, src, dst)
+            self._write_wave(self.cache, *self._seated_rows(
+                wave_cache, mine, planned, src, dst), dst)
             if self.speculate:
                 # the draft prefills the same wave (its logits are unused:
                 # the first token is the target's), so seated slots start
                 # each round with draft KV covering the target's positions
-                dwave = self._new_cache(wb, pl, wave=True)
-                _, dwave = self.api.prefill(
-                    self.draft_params,
-                    {"tokens": torch.from_numpy(toks).to(self.device)},
-                    dwave, **kw)
-                self._write_wave(self.draft_cache, dwave, src, dst)
+                dwave = self._new_cache(len(toks), pl, wave=True)
+                if len(toks):
+                    _, dwave = self.api.prefill(
+                        self.draft_params,
+                        {"tokens": torch.from_numpy(toks).to(self.device)},
+                        dwave, **kw)
+                self._write_wave(self.draft_cache, *self._seated_rows(
+                    dwave, mine, planned, src, dst), dst)
         self.stats.prefill_waves += 1
 
     def _prefill_group_paged(self, group: List[Request], free: List[int]):
@@ -1439,16 +1537,25 @@ class ServeEngine:
         leading entries of each axis after the batch axis are written;
         slot entries past them are never read before decode overwrites
         them. A cache cut along its sequence over the ranks takes the
-        wave's positions in this rank's rows."""
+        wave's positions in this rank's rows; a cache of a block of the
+        slots (a data axis) takes the slots in its block."""
+        if self._rows is not None and self._rows.cut:
+            lo, n = self._rows.lo, self._rows.n
+            pairs = [(a, b - lo) for a, b in zip(src, dst)
+                     if lo <= b < lo + n]
+            if not pairs:
+                return
+            src, dst = [a for a, _ in pairs], [b for _, b in pairs]
         s = torch.tensor(src, device=self.device)
         d = torch.tensor(dst, device=self.device)
         spec = self.api.cache_spec
-        for (full, ax), (one, _) in zip(_leaves(cache, spec),
-                                        _leaves(wave_cache, spec)):
+        for (full, ax), (one, _), key in zip(_leaves(cache, spec),
+                                             _leaves(wave_cache, spec),
+                                             _leaf_keys(spec)):
             one = one.index_select(ax, s)
             rows = [slice(0, n) for n in one.shape[ax + 1:]]
             if rows and self._layout is not None and self._layout.seq \
-                    and full.shape[ax + 1] < self.max_len:
+                    and key in ("k", "v", "k_scale", "v_scale"):
                 lo = self._layout.rank * full.shape[ax + 1]
                 n = max(0, min(full.shape[ax + 1], one.shape[ax + 1] - lo))
                 rows[0] = slice(0, n)
@@ -1457,9 +1564,20 @@ class ServeEngine:
             full[idx] = one.to(full.dtype)
 
     # -- sampling and stopping ------------------------------------------------
-    def _sample(self, logits) -> np.ndarray:
-        toks = sample_tokens(logits, self.rng, greedy=self.greedy,
-                             vocab_size=self.cfg.vocab_size)
+    def _sample(self, logits, rows=None) -> np.ndarray:
+        """The tokens of a wave's rows: from ``logits`` of every row, or of
+        this rank's ``rows`` = (the wave's rows, their index) on a data
+        axis, gathered over the data group."""
+        toks = sample_tokens(
+            logits, self.rng, greedy=self.greedy,
+            vocab_size=self.cfg.vocab_size,
+            rows=None if rows is None else (rows[0], torch.from_numpy(
+                rows[1]).to(logits.device)))
+        if rows is not None:
+            toks = tp.gather_index(toks, rows[1], rows[0], self.mesh)
+        elif self._rows is not None:    # rows whole: data rank 0's
+            toks = tp.gather_rows(toks, tp.Rows(self.mesh, len(toks), 0,
+                                                len(toks)))
         return toks.cpu().numpy()
 
     def _stop_reason(self, r: Request) -> Optional[str]:
@@ -1627,20 +1745,23 @@ class ServeEngine:
             # after the (idempotent) pager commit, before the dispatch: a
             # fault here leaves the step retryable
             self.fault_hook("decode")
-        lora = self._lora_kw(self.adapter_slots)
+        lora = self._lora_kw(self._take(self.adapter_slots))
 
         def decode(p, t, c):
             return self.api.decode(p, t, c, **lora)
 
+        def rows(a):
+            return torch.from_numpy(self._take(a)).to(dev)
+
         out = decode_steps(
-            decode, self.params, torch.from_numpy(last).to(dev),
-            self.cache, self.rng, torch.from_numpy(stop).to(dev),
-            torch.from_numpy(gen).to(dev), torch.from_numpy(budget).to(dev),
-            n=n, vocab_size=self.cfg.vocab_size, max_len=self.max_len,
-            eos_id=self.eos_id, greedy=self.greedy)
+            decode, self.params, rows(last), self.cache, self.rng, rows(stop),
+            rows(gen), rows(budget), n=n, vocab_size=self.cfg.vocab_size,
+            max_len=self.max_len, eos_id=self.eos_id, greedy=self.greedy,
+            rows=self._sampling_rows())
         self.cache = out.cache
-        toks = out.tokens.cpu().numpy()
-        valid = out.valid.cpu().numpy()
+        toks = self._gather(out.tokens, dim=1).cpu().numpy()
+        valid = self._gather(out.valid.to(torch.int32),
+                             dim=1).cpu().numpy().astype(bool)
         self.stats.steps += n
         self.stats.decode_chunks += 1
         self.stats.decode_tokens += int(valid.sum())
@@ -1684,9 +1805,9 @@ class ServeEngine:
         retried round replays bit for bit; the (k+1)-th step puts draft KV
         at the same ``pos .. pos+k`` the verify pass writes) and the
         target's teacher-forced verify pass."""
-        lora = self._lora_kw(self.adapter_slots)
+        lora = self._lora_kw(self._take(self.adapter_slots))
         vocab = self.cfg.vocab_size
-        b = self.n_slots
+        b = self._n_rows(self.n_slots)
 
         def decode(p, t, c):
             return self.api.decode(p, t, c, **lora)
@@ -1764,6 +1885,7 @@ class ServeEngine:
             pos_host[i] = positions[i]
             last[i] = self.slots[i].tokens[-1]
             stop[i] = False
+        pos_host, last, stop = (self._take(a) for a in (pos_host, last, stop))
         self.cache["pos"] = torch.from_numpy(pos_host).to(dev)
         self.draft_cache["pos"] = torch.from_numpy(pos_host.copy()).to(dev)
         last_dev = torch.from_numpy(last).to(dev)
@@ -1774,15 +1896,15 @@ class ServeEngine:
             dout = draft_fn(last_dev, torch.from_numpy(stop).to(dev), k)
             self.draft_cache = dout.cache
             drafts_dev = dout.tokens[:k]
-            drafts = drafts_dev.cpu().numpy()
+            drafts = self._gather(drafts_dev, dim=1).cpu().numpy()
         else:
-            drafts_dev = torch.zeros((0, self.n_slots), dtype=torch.int32,
+            drafts_dev = torch.zeros((0, len(last)), dtype=torch.int32,
                                      device=dev)
             drafts = np.zeros((0, self.n_slots), np.int32)
         if self.fault_hook is not None:
             self.fault_hook("verify")
         targets_dev, self.cache = verify_fn(last_dev, drafts_dev)
-        targets = targets_dev.cpu().numpy()         # [k+1, B]
+        targets = self._gather(targets_dev, dim=1).cpu().numpy()   # [k+1, B]
         now = self._now()
         emitted = 0
         for i in active:

@@ -117,17 +117,25 @@ def test_free_slot_cursor_runs_past_max_len(weights):
 
 
 def test_unported_options_raise(weights):
-    """A mesh with a data axis above 1 is not ported: asking for it raises
-    and names the ROADMAP item (12b); a (1, 1) mesh is the single-device
-    engine (tensor-parallel meshes: tests/test_torch_sharded_serve.py).
+    """A mesh with a data axis above 1 serves: a (2, 1) engine on data rank
+    1 runs the second of 2 slots (its cache holds that row, the host
+    scheduler all of them), and 3 slots fall back to every row; a (1, 1)
+    mesh is the single-device engine (served meshes:
+    tests/test_torch_mesh_data.py, tests/test_torch_sharded_serve.py).
     Speculation and the overload options (a bounded queue, a prefill
     budget, priorities, streaming, deadlines) are ported and take the JAX
     engine's checks instead."""
     from repro_torch.launch.mesh import Mesh, single_device_mesh
     _, _, tcfg, tparams = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
-        ServeEngine(tcfg, tparams, device="cpu", mesh=Mesh(2, 1))
-    one = ServeEngine(tcfg, tparams, device="cpu", mesh=single_device_mesh())
+    two = ServeEngine(tcfg, tparams, device="cpu", n_slots=2,
+                      mesh=Mesh(2, 1, 1, "cpu"))
+    assert (two._rows.lo, two._rows.n) == (1, 1) and two._layout is None
+    assert two.cache["k"].shape[1] == 1 and len(two.slots) == 2
+    odd = ServeEngine(tcfg, tparams, device="cpu", n_slots=3,
+                      mesh=Mesh(2, 1, 1, "cpu"))
+    assert not odd._rows.cut and odd.cache["k"].shape[1] == 3
+    one = ServeEngine(tcfg, tparams, device="cpu",
+                      mesh=single_device_mesh("cpu"))
     assert one._layout is None and one.mesh.shape["model"] == 1
     spec = ServeEngine(tcfg, tparams, device="cpu", speculate=True)
     assert spec.draft_cache is not None and spec.spec_k == 4

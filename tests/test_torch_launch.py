@@ -5,8 +5,9 @@
 - The two launchers' parsers have the same flags: option strings, dest,
   action, type, default, choices and help, read from both parsers.
 - ``parse_mesh_shape``'s doctests pass and it parses (and refuses) as the
-  JAX function does; a data axis above 1 and a moe arch on a mesh raise
-  (item 12b); an encoder-decoder arch
+  JAX function does; ``--mesh-shape 2x2`` serves a moe arch from a
+  checkpoint restored onto the ranks' blocks and prints what its
+  in-process run prints; an encoder-decoder arch
   raises the JAX engine's text; without a card and without
   ``device="cpu"`` the launcher fails.
 - ``adamw.init`` builds the JAX moments' leaves (names, shapes, dtypes),
@@ -110,26 +111,47 @@ def test_parse_mesh_shape_doctests_and_refusals():
             TM.parse_mesh_shape(bad)
 
 
-def test_mesh_shape_above_one_raises():
-    """A model axis above 1 serves (tests/test_torch_sharded_launch.py);
-    outside the ranks' process group the mesh cannot be made, and a data
-    axis above 1, or a family the mesh engine does not take, raises naming
-    ROADMAP item 12b before any weights are cut."""
+def test_mesh_shape_above_one_raises(tmp_path):
+    """Outside the ranks' process group a mesh above 1 cannot be made; the
+    launcher spawns its ranks itself: ``--mesh-shape 2x2`` serves a moe
+    arch (its 16 padded experts cut 8 a rank: rank 1's hold only padding,
+    so it runs no routed expert) from a checkpoint restored onto each
+    rank's blocks, and prints what its in-process run prints, every rank
+    with the same tokens."""
     with pytest.raises(RuntimeError, match="run_ranks or torchrun"):
         TM.make_serve_mesh("2")
     assert TM.make_serve_mesh("1").shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TS.main(["--mesh-shape", "2x2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TS.main(["--mesh-shape", "2x1"], device="cpu")
     moe = ["--arch", "qwen2-moe-a2.7b", "--set", "n_layers=1", "--set",
            "d_model=64", "--set", "n_heads=4", "--set", "n_kv_heads=4",
            "--set", "head_dim=16", "--set", "d_ff=32", "--set",
            "vocab_size=256", "--set", "n_experts=4", "--set", "top_k=2",
            "--set", "n_shared_experts=1", "--set", "dtype=float32"]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TS.serve(TS.build_parser().parse_args(moe), torch.device("cpu"),
-                 TM.Mesh(1, 2))
+    cfg = TS.apply_overrides(TS.get_config("qwen2-moe-a2.7b"), dict(
+        kv.split("=", 1) for kv in moe[3::2]))
+    params = get_model(cfg).init(seed=5, device="cpu")
+    TC.save(str(tmp_path), 3, (params, TA.init(params, TA.AdamWConfig())))
+    argv = moe + ["--ckpt", str(tmp_path), "--requests", "6", "--max-new",
+                  "6", "--slots", "2", "--max-len", "64", "--prompt-lens",
+                  "5,9,17", "--stats"]
+    lines, stats = _run(lambda a: TS.main(a, device="cpu"), argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ranks = TS.main(argv + ["--mesh-shape", "2x2"], device="cpu")
+    out = buf.getvalue()
+    mlines = out[:out.find("{")].splitlines()
+    mstats = json.loads(out[out.find("{"):])
+    assert mlines[0] == lines[0] == f"restored step 3 from {tmp_path}"
+    assert [ln for ln in mlines if ln.startswith("  -> ")] == \
+        [ln for ln in lines if ln.startswith("  -> ")]
+    msum = next(ln for ln in mlines if ln.startswith("[axllm"))
+    tsum = next(ln for ln in lines if ln.startswith("[axllm"))
+    assert re.sub(r"[\d.]+ tok/s", "", msum) == re.sub(
+        r"[\d.]+ tok/s", "", tsum) + ", mesh 2x2"
+    mstats.pop("prefill_wall_s")
+    stats.pop("prefill_wall_s")
+    assert mstats == stats and stats["finished"] == 6
+    assert len(ranks) == 4
+    assert all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
 
 
 def test_encoder_decoder_arch_raises_the_engine_error():
@@ -287,7 +309,7 @@ def test_checkpoint_async_saver_and_shardings(tmp_path):
     # onto a (1, 1) mesh every leaf comes back whole (a mesh of ranks:
     # tests/test_torch_sharded_launch.py)
     from repro_torch.dist import sharding as shd
-    one = TM.single_device_mesh()
+    one = TM.single_device_mesh("cpu")
     whole = (shd.param_specs(ttree[0], one), None)   # moments: whole
     got, step = TC.restore(str(tmp_path / "s"), ttree, shardings=whole)
     want, _ = TC.restore(str(tmp_path / "s"), ttree)

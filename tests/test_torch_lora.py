@@ -242,7 +242,7 @@ def test_registry_pins_and_place():
     for rank in range(2):
         reg = _reg()
         reg.add("fr", make_adapter(1))
-        mesh = Mesh(1, 2, rank)
+        mesh = Mesh(1, 2, rank, "cpu")
         specs = shd.adapter_specs(reg.stacked, mesh, shd.SERVE_HEAD_RULES)
         reg.place(specs)
         reg.add("de", make_adapter(2))

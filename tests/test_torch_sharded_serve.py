@@ -25,7 +25,9 @@ engine gives:
 - each rank quantizes its own raw blocks into the codes and scales of the
   whole weights quantized and then cut;
 - mesh (1, 1) equals ``mesh=None`` in every token and counter;
-- the moe family and a data axis above 1 raise, naming item 12b.
+- a moe engine and an engine with a data axis above 1 build their blocks
+  and rows; a sequence cut over another axis than "model" raises naming
+  item 12d, an encoder-decoder the JAX engine's error.
 """
 
 import concurrent.futures
@@ -33,6 +35,7 @@ import concurrent.futures
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.launch.serve import make_synthetic_adapters as j_adapters
@@ -208,19 +211,45 @@ def test_mesh_1x1_is_the_single_device_engine():
                          impl="reuse", lora=ALL4),
              "dense": dict(quantize=True, fuse_qkv=True)}
     a = R.serve_modes(None, CFG, params, modes, PROMPT_LENS)
-    b = R.serve_modes(TM.single_device_mesh(), CFG, params, modes,
+    b = R.serve_modes(TM.single_device_mesh("cpu"), CFG, params, modes,
                       PROMPT_LENS)
     assert a == b
     assert b["all"]["layout"] is None
 
 
 def test_unserved_meshes_raise_item_12b():
+    """The meshes item 12b lifted build their engines (served on ranks:
+    tests/test_torch_mesh_moe.py, tests/test_torch_mesh_recurrent.py,
+    tests/test_torch_mesh_data.py): a moe engine on rank 1 of (1, 2) holds
+    the second half of the expert stacks, a dense engine on rank 3 of
+    (2, 2) its slot row and its KV heads. What stays refused names its
+    item: a sequence cut over another axis than "model" (the dry-run's
+    "cache_seq_long" rule) is item 12d, and an encoder-decoder raises the
+    JAX engine's error, mesh or not."""
+    from repro_torch.kernels.sharded_decode import \
+        decode_attention_seqsharded
     moe = get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ServeEngine(moe, get_model(moe).init(seed=0, device="cpu"),
-                    device="cpu", mesh=TM.Mesh(1, 2))
+    mp = get_model(moe).init(seed=0, device="cpu")
+    eng = ServeEngine(moe, mp, device="cpu", mesh=TM.Mesh(1, 2, 1, "cpu"))
+    held = moe.padded_experts // 2
+    assert eng._layout.experts and eng._rows is None
+    torch_equal = [(eng.params["layers"]["ffn"][k] ==
+                    mp["layers"]["ffn"][k][:, held:]).all()
+                   for k in ("expert_gate", "expert_up", "expert_down")]
+    assert all(bool(t) for t in torch_equal)
     params = get_model(CFG).init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ServeEngine(CFG, params, device="cpu", mesh=TM.Mesh(2, 2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServeEngine(CFG, params, device="cpu", mesh=TM.Mesh(2, 1))
+    dense = ServeEngine(CFG, params, device="cpu", n_slots=2, max_len=64,
+                        mesh=TM.Mesh(2, 2, 3, "cpu"))
+    assert (dense._rows.lo, dense._rows.n) == (1, 1)
+    assert dense.cache["k"].shape == (2, 1, 64, 1, 16)
+    x = torch.zeros((2, 4, 16))
+    kv = torch.zeros((2, 16, 2, 16))
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        decode_attention_seqsharded(
+            x, kv, kv, x[:, :2], x[:, :2], torch.zeros(2, dtype=torch.int32),
+            torch.ones(2, dtype=torch.int32), TM.Mesh(2, 2, 0, "cpu"),
+            ("model", "data"), ())
+    whisper = get_config("whisper-small").reduced(dtype="float32")
+    with pytest.raises(NotImplementedError,
+                       match="encoder-decoder serving needs a frames"):
+        ServeEngine(whisper, None, device="cpu", mesh=TM.Mesh(1, 2, 0, "cpu"))

@@ -40,7 +40,8 @@ def serve_modes(mesh, cfg, params_np, modes, prompt_lens, max_new=8):
     targets (two synthetic adapters, requests cycling base and both),
     "per_group": a group size (the weights quantized per group before the
     engine takes them), "late": requests submitted at priority 1 after the
-    first step (paged: they preempt)}."""
+    first step (paged: they preempt), "n_slots": the slots (default 2),
+    "max_new": the requests' budgets, cycled (default ``max_new``)}."""
     from repro_torch.core.quantization import QuantConfig, quantize_tree
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
@@ -51,7 +52,8 @@ def serve_modes(mesh, cfg, params_np, modes, prompt_lens, max_new=8):
     for mode, kw in modes.items():
         kw = dict(kw)
         targets, group = kw.pop("lora", None), kw.pop("per_group", None)
-        late = kw.pop("late", 0)
+        late, n_slots = kw.pop("late", 0), kw.pop("n_slots", 2)
+        budgets = kw.pop("max_new", (max_new,))
         reg = None
         if targets:
             reg, _ = make_synthetic_adapters(cfg, 2, targets=targets,
@@ -59,17 +61,18 @@ def serve_modes(mesh, cfg, params_np, modes, prompt_lens, max_new=8):
         p = params if group is None else quantize_tree(params, QuantConfig(
             bits=8, granularity="per_group", group_size=group))
         prompts, names = _requests(cfg, prompt_lens, targets)
-        eng = ServeEngine(cfg, p, n_slots=2, max_len=64, mesh=mesh,
+        eng = ServeEngine(cfg, p, n_slots=n_slots, max_len=64, mesh=mesh,
                           adapters=reg, device=dev, **kw)
         _build.reset_launches()
         n = len(prompts) - late
         for i in range(n):
-            eng.submit(prompts[i], max_new=max_new, adapter=names[i])
+            eng.submit(prompts[i], max_new=budgets[i % len(budgets)],
+                       adapter=names[i])
         if late:
             eng.step()
             for i in range(n, len(prompts)):
-                eng.submit(prompts[i], max_new=max_new, adapter=names[i],
-                           priority=1)
+                eng.submit(prompts[i], max_new=budgets[i % len(budgets)],
+                           adapter=names[i], priority=1)
         eng.run()
         reqs = sorted(eng.finished, key=lambda r: r.rid)
         out[mode] = {"tokens": [list(map(int, r.tokens)) for r in reqs],
@@ -77,20 +80,82 @@ def serve_modes(mesh, cfg, params_np, modes, prompt_lens, max_new=8):
                      "launches": dict(_build.LAUNCHES),
                      "layout": None if eng._layout is None else {
                          k: getattr(eng._layout, k) for k in
-                         ("heads", "kv_heads", "seq", "mlp", "vocab")}}
+                         ("heads", "kv_heads", "seq", "mlp", "vocab")},
+                     "rows": None if eng._rows is None else
+                     (eng._rows.lo, eng._rows.n),
+                     "cut": None if eng._layout is None else {
+                         k: getattr(eng._layout, k) for k in
+                         ("experts", "ssm_in", "ssm_out", "batch_axes")},
+                     "experts": _expert_codes(eng.params)}
     return out
 
 
-def seqsharded(mesh, cases):
+def _expert_codes(params):
+    """The shape of the first expert stack's codes an engine holds."""
+    for key, leaf in _items(params):
+        if key == "expert_gate":
+            return tuple(leaf.codes.shape if hasattr(leaf, "codes")
+                         else leaf.shape)
+    return None
+
+
+def _items(tree, key=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _items(v, k)
+    else:
+        yield key, tree
+
+
+def restore_layout(mesh, cfg, ckpt_dir, n_slots=2):
+    """A raw checkpoint restored onto this rank's blocks under the engine's
+    layout (``ServeEngine.mesh_layout``, ``tensor_parallel.layout_specs``,
+    as the launcher restores it): {leaf path: (block shape, whole shape,
+    equal to the whole leaf cut by ``local_shard``)} for every leaf the
+    layout cuts (none without a model axis)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models.model import get_model
+    from repro_torch.train import checkpoint as C
+    like = get_model(cfg).init(seed=0, device="cpu")
+    whole_tree, _ = C.restore(ckpt_dir, like)
+    _, lay, whole = ServeEngine.mesh_layout(cfg, mesh, like, n_slots=n_slots,
+                                            max_len=64, paged=False)
+    if lay is None:             # no model axis: the launcher restores whole
+        return {}
+    specs = tp.layout_specs(whole, shd.param_specs(whole, mesh, lay.rules),
+                            lay)
+    got, _ = C.restore(ckpt_dir, like, shardings=specs)
+    out = {}
+
+    def walk(path, a, b, spec):
+        if isinstance(a, dict):
+            for k in a:
+                walk(f"{path}/{k}", a[k], b[k], spec[k])
+        elif any(e is not None for e in spec.spec):
+            want = shd.local_shard(b, spec, mesh, mesh.rank)
+            out[path] = (tuple(a.shape), tuple(b.shape),
+                         bool(torch.equal(a, want)))
+    walk("", got, whole_tree, specs)
+    return out
+
+
+def seqsharded(mesh, cases, batch_axes=()):
     """``decode_attention_seqsharded`` on this rank's rows of each case's
     caches (numpy, the JAX test's layout; ``dtype`` "bfloat16" casts the
-    float inputs); returns each case's output and the rank's rows."""
+    float inputs), the sequence cut over "model" and, with ``batch_axes``
+    ``("data",)``, the batch over "data"; returns each case's output and
+    the rank's rows."""
     from repro_torch.kernels.sharded_decode import decode_attention_seqsharded
     p, r = mesh.shape["model"], mesh.model_rank
     out = []
     for inputs, dtype in cases:
         t = {k: torch.from_numpy(np.array(v)).to(mesh.device)
              for k, v in inputs.items()}
+        if batch_axes:
+            n = t["q"].shape[0] // mesh.shape["data"]
+            t = {k: v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+                 for k, v in t.items()}
         if dtype == "bfloat16":
             for k in ("q", "k", "v", "nk", "nv"):
                 t[k] = t[k].to(torch.bfloat16)
@@ -103,7 +168,7 @@ def seqsharded(mesh, cases):
                           new_k_scale=t["nks"], new_v_scale=t["nvs"])
         res = decode_attention_seqsharded(
             t["q"], rows["k"], rows["v"], t["nk"], t["nv"], t["pos"],
-            t["length"], mesh, ("model",), (), **scales)
+            t["length"], mesh, ("model",), batch_axes, **scales)
         out.append([x.float().cpu().numpy() if x.dtype == torch.bfloat16
                     else x.cpu().numpy() for x in res])
     return out
