@@ -4531,6 +4531,444 @@ def train_launcher_phase(card, lane, ckpt) -> dict:
     return out
 
 
+
+# -- run r: training on a 2x2 mesh, and the dist modules ----------------------
+
+MESH_TRAIN_ARGS = ("--arch", "repro-100m", "--mesh", "2x2", "--batch", "8",
+                   "--seq", "256", "--steps", "4", "--save-every", "2")
+MESH_TRAIN_FAIL_AT = 3
+# |mesh loss - one-card loss| per step, nats: bf16 weights, and the mesh
+# sums each row-parallel block's bf16 partials in f32 and each gradient
+# over its data ranks, the one card in one bf16 product
+MESH_TRAIN_LOSS_TOL = 5e-2
+# the ring matmuls: repro-100m's gate and up (K768 N2048, int8 per
+# channel) at model 2 and 4, a decode batch (M8, the .gemv kernels) and a
+# prefill wave (bf16 M4096, the tensor-core mainloop)
+RING_K, RING_N = 768, 2048
+RING_M = (8, 4096)
+RING_MODELS = {2: {"data": 2, "model": 2}, 4: {"model": 4}}
+PIPE_STAGES, PIPE_MICRO, PIPE_B, PIPE_S = 4, 6, 2, 256
+# the 2x2 rank's kernel shapes: flash forward and backward at a rank's
+# layer (its 4 rows of the batch, 6 of 12 heads, 2 of 4 KV heads), the
+# ring block products at model 2 and 4
+MESH_TRAIN_FLASH = (4, 256, 6, 2, 64)
+RING_BLOCKS = ((384, 1024), (192, 512))
+
+
+def mesh_train_dirs():
+    return [ROOT / "build" / f"mesh_train_ckpt_{i}" for i in (1, 2)]
+
+
+def mesh_train_submit(lanes):
+    """Queue run r's subprocesses, which time nothing: on ``lanes[2]`` the
+    training launcher on the 2x2 mesh (``python -m
+    repro_torch.launch.train --mesh 2x2 ...``) into a fresh directory,
+    then ``python -m repro_torch.launch.serve --ckpt`` of it; on
+    ``lanes[1]``, after the training launchers of run m, the same
+    training with a failure injected at step ``MESH_TRAIN_FAIL_AT`` on
+    every rank (``launch.train.main`` with ``fail_hook=``, a keyword,
+    through :func:`mesh_train_failed_run`); on ``lanes[0]``, after the
+    serving launchers, the dist modules' four ranks
+    (:func:`dist_module_run`)."""
+    import shutil
+    for d in mesh_train_dirs():
+        shutil.rmtree(d, ignore_errors=True)
+    clean, failed = mesh_train_dirs()
+    lanes[2].submit(("mesh r", "train"), [sys.executable,
+                                          *mesh_train_argv("train", clean)])
+    lanes[2].submit(("mesh r", "serve"), [sys.executable,
+                                          *mesh_train_argv("serve", clean)])
+    lanes[1].submit(("mesh r", "failed"), [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "chip_smoke.mesh_train_failed_run(sys.argv[1], sys.argv[2])",
+        str(failed), str(OUT / "mesh_r_failed.json")])
+    lanes[0].submit(("mesh r", "modules"), [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "chip_smoke.dist_module_run(sys.argv[1])",
+        str(OUT / "mesh_r_modules.json")])
+
+
+def mesh_train_argv(label, ckpt) -> list:
+    if label == "train":
+        return ["-m", "repro_torch.launch.train", *MESH_TRAIN_ARGS,
+                "--ckpt", str(ckpt)]
+    return ["-m", "repro_torch.launch.serve", "--ckpt", str(ckpt),
+            *LAUNCH_ARGS, "--reuse", "--paged"]
+
+
+def mesh_train_failed_run(ckpt, out):
+    """Run r's second training (a subprocess on a lane): ``launch.train.
+    main`` on the 2x2 mesh with every step logged and a failure injected
+    at step ``MESH_TRAIN_FAIL_AT`` on every rank; writes each rank's
+    result (its lines, launches, block digests and bytes) to ``out``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train
+    from repro_torch.train.fault_tolerance import FailureInjector
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ranks = train.main([*MESH_TRAIN_ARGS, "--ckpt", ckpt], device="cuda",
+                       fail_hook=FailureInjector([MESH_TRAIN_FAIL_AT]),
+                       log_every=1)
+    Path(out).write_text(json.dumps(dict(
+        ranks=ranks, wall_s=time.perf_counter() - t0)))
+
+
+def dist_module_run(out):
+    """The dist modules' phase (a subprocess on a lane): four ranks on the
+    card (``dist_module_rank``); writes their results to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_module_rank, 4, "cuda", mesh_shape={"pod": 4},
+                      threads=1)
+    Path(out).write_text(json.dumps(dict(
+        ranks=ranks, wall_s=time.perf_counter() - t0)))
+
+
+def dist_module_rank(mesh) -> dict:
+    """One rank of the dist modules' phase: the ring matmuls (each rank's
+    block held to its block of the plain whole product, the launches
+    counted by kernel), the compressed exchange of a full-width
+    repro-100m gradient leaf, and the pipeline of four stages of three
+    repro-100m layers against the twelve in sequence."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dict(rings=ring_rank(mesh), compression=compression_rank(mesh),
+                pipeline=pipeline_rank(mesh))
+
+
+def ring_rank(mesh) -> list:
+    import torch
+    from repro_torch.core.quantization import QuantConfig, dequantize, \
+        quantize
+    from repro_torch.dist import collective_matmul as R
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(27)     # one on every rank
+    qt = quantize(torch.randn(RING_K, RING_N, generator=g, device=dev)
+                  * RING_K ** -0.5, QuantConfig(8))
+    w = dequantize(qt, torch.float32)
+    rows = []
+    for p, axes in RING_MODELS.items():
+        sub = make_host_mesh(axes, device=dev)
+        r = sub.coords["model"]
+        kl, nl = RING_K // p, RING_N // p
+        for m in RING_M:
+            x = torch.randn(m, RING_K, generator=g, device=dev).to(
+                torch.bfloat16)
+            want = (x.float() @ w)[:, r * nl:(r + 1) * nl]
+            scale = max(1.0, float(want.abs().max()))
+            xb = x[:, r * kl:(r + 1) * kl].contiguous()
+            blocks = {"allgather": R._qslice(qt, r * nl, nl, axis=1),
+                      "reducescatter": R._qslice(qt, r * kl, kl, axis=0)}
+            for impl in ("auto", "reuse"):
+                for form, wb in blocks.items():
+                    fn = R.ring_allgather_matmul if form == "allgather" \
+                        else R.ring_matmul_reducescatter
+                    torch.cuda.synchronize()
+                    _build.reset_launches()
+                    y = fn(xb, wb, "model", impl=impl, mesh=sub)
+                    torch.cuda.synchronize()
+                    launches = dict(_build.LAUNCHES)
+                    err = float((y.float() - want).abs().max())
+                    # the ring returns x's type: one bf16 rounding of the
+                    # f32 sum of p block products
+                    rows.append(dict(
+                        model=p, m=m, impl=impl, form=form, err=err,
+                        tol=2.0 ** -8 * scale, scale=scale,
+                        launches=launches))
+    return rows
+
+
+def compression_rank(mesh) -> dict:
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.dist import compression as Z
+    from repro_torch.launch.mesh import make_host_mesh
+    pod = make_host_mesh({"pod": mesh.size}, device=mesh.device)
+    r = pod.coords["pod"]
+    shape = (CONFIG.n_layers, CONFIG.d_model, CONFIG.d_ff)  # layers.ffn.gate
+    g = torch.Generator(device=mesh.device).manual_seed(100 + r)
+    x = torch.randn(shape, generator=g, device=mesh.device) * (1 + r) * 1e-3
+    exact = x.clone()
+    import torch.distributed as dist
+    dist.all_reduce(exact, group=pod.group_of("pod"))
+    exact /= pod.size
+    mean, _ = Z.compressed_allreduce_mean(x, "pod", mesh=pod)
+    rel = float(torch.linalg.vector_norm(mean - exact)
+                / torch.linalg.vector_norm(exact))
+    acc, acc_exact, err = torch.zeros_like(x), torch.zeros_like(x), None
+    for _ in range(8):
+        m, err = Z.compressed_allreduce_mean(x, "pod", err, mesh=pod)
+        acc += m
+        acc_exact += exact
+    ef = float(torch.linalg.vector_norm(acc - acc_exact)
+               / torch.linalg.vector_norm(acc_exact))
+    comp, raw = Z.wire_bytes(x)
+    return dict(shape=list(shape), rel=rel, feedback_rel=ef,
+                wire_bytes=[comp, raw])
+
+
+def pipeline_rank(mesh) -> dict:
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.dist.pipeline import make_pipelined_apply
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import get_model
+    stage = make_host_mesh({"stage": PIPE_STAGES}, device=mesh.device)
+    per = CONFIG.n_layers // PIPE_STAGES
+    params = get_model(CONFIG).init(seed=0, device=mesh.device)
+
+    def stack(t):
+        return t.reshape(PIPE_STAGES, per, *t.shape[1:])
+
+    def restack(tree):
+        if isinstance(tree, dict):
+            return {k: restack(v) for k, v in tree.items()}
+        return stack(tree)
+
+    def stage_fn(w, act):
+        for i in range(per):
+            act = T._layer_fwd(T.layer_slice(w, i), act, CONFIG, "auto")
+        return act
+
+    g = torch.Generator(device=mesh.device).manual_seed(31)
+    tokens = torch.randint(0, CONFIG.vocab_size, (PIPE_MICRO, PIPE_B,
+                                                  PIPE_S), generator=g,
+                           device=mesh.device)
+    with torch.inference_mode():
+        x = L.embed_fwd(params["embed"], tokens).to(T.param_dtype(CONFIG))
+        _build.reset_launches()
+        apply = make_pipelined_apply(stage_fn, stage, PIPE_MICRO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = apply(restack(params["layers"]), x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        # the 12 layers in sequence, a microbatch at a time (the shapes
+        # the stages ran)
+        seq = []
+        for mb in x:
+            for i in range(CONFIG.n_layers):
+                mb = T._layer_fwd(T.layer_slice(params["layers"], i), mb,
+                                  CONFIG, "auto")
+            seq.append(mb)
+        seq = torch.stack(seq)
+        same = bool(torch.equal(y, seq))
+        err = float((y.float() - seq.float()).abs().max())
+    return dict(equal=same, max_abs_err=err, wall_s=wall, launches=launches,
+                ticks=PIPE_MICRO + PIPE_STAGES - 1)
+
+
+def mesh_train_kernel_phase(dev, flush) -> list:
+    """Run r's rank shapes: flash forward and backward at a 2x2 rank's
+    layer, and the ring block products (K384 N1024 at model 2, K192 N512
+    at model 4) on both matmul kernels at M8 (.gemv) and bf16 M4096
+    (.wgmma)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(33)
+    b, s, h, hk, d = MESH_TRAIN_FLASH
+    rows = flash_case(h, hk, d, "bfloat16", g, dev, flush, sq=s, b=b)
+    rows.append(flash_bwd_case((b, s, s, h, hk, d, True, "bfloat16"), g,
+                               dev, flush))
+    for k, n in RING_BLOCKS:
+        for m in RING_M:
+            for kernel in ("axllm_matmul", "reuse_matmul"):
+                rows.append(matmul_case(kernel, m, k, n, g, dev, flush))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def end_to_end_mesh_train(dev, card, lanes) -> dict:
+    """Run r's checks, once its subprocesses (``mesh_train_submit``) are
+    done: the launcher on the 2x2 mesh exits 0 and prints the JAX
+    launcher's lines (``devices=4 mesh={'data': 2, 'model': 2}``); the run
+    with a failure at step 3 restarts once, every rank prints the same
+    lines, its step-4 loss line is the uninterrupted run's and its last
+    checkpoint equals that run's in every leaf; each step's loss is the
+    one-card launcher's with the same flags (run in process here) within
+    ``MESH_TRAIN_LOSS_TOL``; the checkpoint restores on one card with
+    every leaf bit-equal to the ranks' blocks (each rank's digests of its
+    blocks against the restored leaves cut for it); ``launch.serve
+    --ckpt`` of it restores step 4 and serves; each rank holds about a
+    quarter of the parameters and moments, and the path launched the
+    flash forward and backward kernels. Then the dist modules' phase."""
+    import hashlib
+    import re
+    import shutil
+    import torch
+    from repro_torch.configs.repro_100m import CONFIG
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import _blocks, deterministic
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    clean, failed = mesh_train_dirs()
+    out = {}
+    for label in ("train", "serve"):
+        rc, stdout, stderr, wall = lanes[2].result(("mesh r", label))
+        print(f"e2e mesh r [{card}] {label}: `python "
+              f"{' '.join(mesh_train_argv(label, clean))}` exited {rc} in "
+              f"{wall:.1f} s", flush=True)
+        check(rc == 0, f"run r {label}: exit {rc}: {stderr[-3000:]}")
+        out[label] = dict(wall_s=wall, lines=stdout.splitlines())
+        for ln in out[label]["lines"][:8]:
+            print(f"e2e mesh r [{card}] {label}: | {ln}", flush=True)
+    lines = out["train"]["lines"]
+    check(lines[0] == "arch=repro-100m devices=4 mesh={'data': 2, "
+          "'model': 2}", f"run r: {lines[0]}")
+    check(re.fullmatch(r"done: restarts=0 stragglers=\d+", lines[-1]),
+          f"run r: {lines[-1]}")
+    check(f"restored step 4 from {clean}" in out["serve"]["lines"],
+          "run r: launch.serve did not restore step 4")
+    rc, _, stderr, wall = lanes[1].result(("mesh r", "failed"))
+    check(rc == 0, f"run r with a failure: exit {rc}: {stderr[-3000:]}")
+    res = json.loads((OUT / "mesh_r_failed.json").read_text())
+    ranks = res["ranks"]
+    flines = ranks[0]["out"].splitlines()
+    same_lines = all(r["out"] == ranks[0]["out"] for r in ranks)
+    check(same_lines, "run r: the ranks printed different lines")
+    check(flines[-1].startswith("done: restarts=1 "), f"run r: {flines[-1]}")
+    # steps 1 to 3 logged, the failure at step index 3 restores step 2,
+    # and step 3 is logged again: it must repeat its loss
+    by_step = {}
+    for m in (re.fullmatch(r"step +(\d+)  loss (\S+)", ln) for ln in flines):
+        if m:
+            by_step.setdefault(int(m.group(1)), set()).add(m.group(2))
+    check(sorted(by_step) == [1, 2, 3, 4]
+          and all(len(v) == 1 for v in by_step.values())
+          and flines[-2] == lines[-2],
+          f"run r: step lines {flines[1:-1]} against {lines[1:-1]}")
+    losses = [float(next(iter(by_step[s]))) for s in (1, 2, 3, 4)]
+    # the one card, the same flags
+    one_argv = [a for a in MESH_TRAIN_ARGS if a not in ("--mesh", "2x2")]
+    one_dir = ROOT / "build" / "mesh_train_one"
+    shutil.rmtree(one_dir, ignore_errors=True)
+    one_lines, one_losses, one_wall = train_main(
+        [*one_argv, "--ckpt", str(one_dir)], dev)
+    gaps = [abs(a - b) for a, b in zip(losses, one_losses)]
+    print(f"e2e mesh r [{card}]: repro-100m ({CONFIG.n_layers} layers, "
+          f"d{CONFIG.d_model}, {CONFIG.dtype}) on 2x2 ranks sharing the card "
+          f"(gloo), batch 8 x 256: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; one card "
+          + " ".join(f"{x:.4f}" for x in one_losses)
+          + f"; largest gap {max(gaps):.4f} nats (tol "
+          f"{MESH_TRAIN_LOSS_TOL}); every rank the same lines {same_lines}",
+          flush=True)
+    check(max(gaps) <= MESH_TRAIN_LOSS_TOL, f"run r: loss gaps {gaps}")
+    # both runs' last checkpoints, leaf by leaf, and the ranks' blocks
+    like = get_model(CONFIG).init(seed=1, device=dev)
+    like = (like, adamw.init(like, adamw.AdamWConfig()))
+    trees = [checkpoint.restore(str(d), like) for d in (clean, failed)]
+    flat = [dict(checkpoint._flatten(t[0])) for t in trees]
+    resumed_equal = trees[0][1] == trees[1][1] == 4 and all(
+        torch.equal(flat[0][k], flat[1][k]) for k in flat[0])
+    whole_meta = get_model(CONFIG).init(seed=0, device="meta")
+    blocks_equal = True
+    for rank, r in enumerate(ranks):
+        mesh = Mesh(axes={"data": 2, "model": 2}, rank=rank, device=dev)
+        pspec = shd.param_specs(whole_meta, mesh, shd.DEFAULT_RULES)
+        ospec = adamw.state_specs(adamw.init(whole_meta, adamw.AdamWConfig()),
+                                  pspec)
+        cut = (_blocks(trees[1][0][0], pspec, mesh),
+               _blocks(trees[1][0][1], ospec, mesh))
+        for name, t in checkpoint._flatten(cut):
+            t = t.detach().cpu().contiguous()
+            raw = t.reshape(-1).view(torch.uint8) if t.numel() else t
+            blocks_equal &= r["digests"][name] == hashlib.sha1(
+                raw.numpy().tobytes()).hexdigest()
+    shares = [r["bytes"] / r["whole_bytes"] for r in ranks]
+    for rank, r in enumerate(ranks):
+        print(f"e2e mesh r [{card}]: rank {rank} holds {r['bytes'] / 2**30:.4f}"
+              f" GiB of parameters and moments, a share {shares[rank]:.4f} of"
+              f" the whole tree's {r['whole_bytes'] / 2**30:.4f} GiB; "
+              f"launches {r['launches']}", flush=True)
+    print(f"e2e mesh r [{card}]: failure injected at step "
+          f"{MESH_TRAIN_FAIL_AT} on every rank: {flines[-1]}; its last "
+          f"checkpoint equal to the uninterrupted run's in every leaf "
+          f"{resumed_equal}; restored on one card, every leaf bit-equal to "
+          f"the ranks' blocks {blocks_equal}; walls {out['train']['wall_s']:.1f}"
+          f" s and {wall:.1f} s (one card, in process: {one_wall:.1f} s)",
+          flush=True)
+    check(resumed_equal, "run r: the resumed run's checkpoint differs")
+    check(blocks_equal, "run r: a restored leaf differs from a rank's block")
+    check(all(0.24 < s < 0.26 for s in shares), f"run r: shares {shares}")
+    for r in ranks:        # steps 1, 2, then 3 failed and restored 2: 3, 4
+        for name in ("flash_attention.wgmma", "flash_attention_bwd"):
+            check(r["launches"].get(name, 0) > 0, f"run r: {name} "
+                  f"launched {r['launches'].get(name, 0)} times")
+    del like, trees, flat
+    for d in (clean, failed, one_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    modules = dist_module_check(card, lanes)
+    return dict(lines=lines, failed_lines=flines, losses=losses,
+                one_card_losses=one_losses, loss_gaps=gaps,
+                loss_tol=MESH_TRAIN_LOSS_TOL, resumed_equal=resumed_equal,
+                blocks_equal=blocks_equal, shares=shares,
+                bytes=[r["bytes"] for r in ranks],
+                launches=ranks[0]["launches"],
+                launches_ranks=[r["launches"] for r in ranks],
+                walls=dict(train=out["train"]["wall_s"], failed=wall,
+                           one_card=one_wall),
+                modules=modules)
+
+
+def dist_module_check(card, lanes) -> dict:
+    rc, _, stderr, wall = lanes[0].result(("mesh r", "modules"))
+    check(rc == 0, f"dist modules: exit {rc}: {stderr[-3000:]}")
+    ranks = json.loads((OUT / "mesh_r_modules.json").read_text())["ranks"]
+    for rank, r in enumerate(ranks):
+        for row in r["rings"]:
+            lib = "reuse_matmul" if row["impl"] == "reuse" else "axllm_matmul"
+            path = "gemv" if row["m"] <= 16 else "wgmma"
+            hops = row["model"]
+            if rank == 0:
+                print(f"ring {row['form']} [{card}]: model {row['model']} "
+                      f"M{row['m']} K{RING_K} N{RING_N} int8 per-channel "
+                      f"impl={row['impl']}: |err| {row['err']:.3e} (tol "
+                      f"{row['tol']:.1e}); launches {row['launches']}",
+                      flush=True)
+            check(row["err"] <= row["tol"], f"ring {row}")
+            check(row["launches"].get(f"{lib}.{path}", 0) == hops,
+                  f"ring: {lib}.{path} launched {row['launches']}, want "
+                  f"{hops} (one a hop)")
+        c = r["compression"]
+        check(c["rel"] < 0.02 and c["feedback_rel"] < 0.005,
+              f"compression: {c}")
+        p = r["pipeline"]
+        check(p["equal"], f"pipeline: {p}")
+    c, p = ranks[0]["compression"], ranks[0]["pipeline"]
+    print(f"compression [{card}]: 4 ranks, one repro-100m gradient leaf "
+          f"(layers.ffn.gate {c['shape']}, f32): relative error of the "
+          f"mean {c['rel']:.3e} (bound 0.02); 8 steps of error feedback "
+          f"{c['feedback_rel']:.3e} (bound 0.005); wire bytes "
+          f"{c['wire_bytes'][0]} of {c['wire_bytes'][1]} "
+          f"({c['wire_bytes'][1] / c['wire_bytes'][0]:.2f}x fewer)",
+          flush=True)
+    from repro_torch.configs.repro_100m import CONFIG
+    print(f"pipeline [{card}]: {PIPE_STAGES} stages of "
+          f"{CONFIG.n_layers // PIPE_STAGES} repro-100m layers, "
+          f"{PIPE_MICRO} microbatches of B{PIPE_B} S{PIPE_S}, {p['ticks']} "
+          f"ticks: equal to the {CONFIG.n_layers} layers in sequence "
+          f"{p['equal']} (max "
+          f"|err| {p['max_abs_err']:.3e}); rank 0's launches "
+          f"{p['launches']}; wall {p['wall_s']:.2f} s over gloo; the "
+          f"modules' spawn {wall:.1f} s", flush=True)
+    return dict(rings=ranks[0]["rings"], compression=c, pipeline=p,
+                wall_s=wall,
+                launches={f"{row['form']} model{row['model']} M{row['m']} "
+                          f"{row['impl']}": row["launches"]
+                          for row in ranks[0]["rings"]})
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -4621,6 +5059,7 @@ def main() -> int:
     rows += flash_bwd_phase(dev, flush)
     stamp("the flash backward kernel phase")
     rows += mesh_kernel_phase(dev, flush)
+    rows += mesh_train_kernel_phase(dev, flush)
     stamp("the mesh runs' kernel rows")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
@@ -4651,12 +5090,14 @@ def main() -> int:
     stamp("run audio")
     # the launchers' subprocesses run on two lanes beside the in-process
     # launcher runs and runs n to p, which time nothing but the host's
-    # gloo; run o's ranks spawn beside run n's; run q (its module phase
-    # timed) starts once the lanes have drained, and run m, timed, after it
-    lanes = [CliLane(), CliLane()]
+    # gloo, and run r's on a third and after run m's launchers; run o's
+    # ranks spawn beside run n's; run q (its module phase timed) starts
+    # once the lanes have drained, and run m, timed, after it
+    lanes = [CliLane(), CliLane(), CliLane()]
     try:
         launcher = launcher_phase(dev, card, lanes[0])
         train_ckpt = train_launcher_submit(lanes[1])
+        mesh_train_submit(lanes)                    # run r, after those
         stamp("launcher phase in process")
         host = {run: label for label, run in LAUNCH_MESH_RUN.items()}
 
@@ -4678,6 +5119,8 @@ def main() -> int:
         for label in LAUNCH_RUNS:
             lanes[0].result(("launcher", label))
         stamp("the launchers' subprocesses")
+        e2e["mesh r"] = end_to_end_mesh_train(dev, card, lanes)
+        stamp("run r and the dist modules")
         # full depth: runs a and b's tokens are another model's
         e2e["mesh q"] = end_to_end_mesh(
             dev, card, "q", {"b hits": reuse_paged["prefix_hit_tokens"]},
@@ -4719,7 +5162,17 @@ def main() -> int:
                 mode: e2e[f"mesh {r}"][mode]["launches"].get(name, 0)
                 for mode in MESH_MODES[r]} for r in MESH_RUNS},
             # run m's in-process launch.train.main
-            launches_train=e2e["train"]["launches"].get(name, 0)))
+            launches_train=e2e["train"]["launches"].get(name, 0),
+            # run r's 2x2 training (rank 0's, every rank's in the details)
+            # and, for the matmuls, the ring matmuls by form, model size,
+            # batch and impl (rank 0's)
+            launches_mesh_train=e2e["mesh r"]["launches"].get(name, 0)))
+        if name in ("axllm_matmul", "reuse_matmul"):
+            # the ring matmuls by form, model size, batch and impl (rank 0's)
+            kernels[-1]["launches_rings"] = {
+                k: launches[name] for k, launches in
+                e2e["mesh r"]["modules"]["launches"].items()
+                if name in launches}
         if name in ("axllm_matmul", "reuse_matmul"):
             # the main row is the decode kernel; beside it the tile kernel
             # at the same shape (for axllm_matmul the path the row took
@@ -4786,7 +5239,9 @@ def main() -> int:
         launches=e2e["train"]["launches"]["flash_attention_bwd"],
         **{key: bwd[key] for key in ROW_KEYS}, shape=BWD_MAIN,
         launches_from="train", path="simt",
-        launches_train=e2e["train"]["launches"]["flash_attention_bwd"]))
+        launches_train=e2e["train"]["launches"]["flash_attention_bwd"],
+        launches_mesh_train=e2e["mesh r"]["launches"].get(
+            "flash_attention_bwd", 0)))
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
              e2e=e2e, simulator=simulator, chaos=chaos), indent=1,

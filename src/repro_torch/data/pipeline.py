@@ -13,9 +13,12 @@ same tokens bit for bit. Two sources:
 * ByteCorpus: a byte-level LM over the text files under a directory,
   chunked deterministically.
 
-:func:`shard_batch` puts a host batch on the device. One card has no
-mesh; a mesh raises until distribution is ported (ROADMAP queue 1 item
-12), and so does the dry run's ``batch_specs``, which is not ported.
+:func:`shard_batch` puts a host batch on the device, or, on a mesh,
+this rank's rows of it: every rank draws the same global batch from the
+seed and keeps its block of rows over ("pod", "data"), whole over
+"model". :func:`batch_specs` gives the dry run's input specs: the shapes,
+dtypes and shardings JAX gives, as meta tensors beside the port's
+``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -122,13 +125,76 @@ def make_dataset(cfg, batch: int, seq: int, seed: int = 0,
                        seed=seed, frames=frames)
 
 
+_BATCH_LOGICAL = {"tokens": ("batch", "seq"), "targets": ("batch", "seq"),
+                  "frames": ("batch", "seq", None)}
+
+
+def _batch_spec(key, shape, mesh):
+    from repro_torch.dist import sharding as shd
+    names = _BATCH_LOGICAL.get(key, ("batch",))[:len(shape)]
+    return shd.NamedSharding(mesh, shd.resolve_spec(
+        shape, names, mesh, shd._active_rules(None)))
+
+
 def shard_batch(batch: Dict[str, np.ndarray], mesh=None,
                 device="cuda") -> Dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (one copy per array). A mesh
-    raises: sharding the batch axis is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch(mesh=): sharding a batch over a mesh is not ported "
-            "yet (ROADMAP queue 1 item 12c)")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """A host batch as tensors on ``device`` (one copy per array); on a
+    ``mesh``, this rank's rows of it, on the mesh's device: the "batch"
+    rule's cut, over ("pod", "data"). A global batch whose rows do not
+    split over those axes raises: the training step's loss divides each
+    rank's rows by the global count, and JAX's fallback (the batch
+    replicated over an axis it does not divide) would count them twice."""
+    if mesh is None:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tp
+    out = {}
+    for k, v in batch.items():
+        spec = _batch_spec(k, v.shape, mesh)
+        cut = () if spec.spec[0] is None else (
+            (spec.spec[0],) if isinstance(spec.spec[0], str)
+            else tuple(spec.spec[0]))
+        if cut != tp.batch_axes(mesh):
+            raise ValueError(
+                f"{k}: {v.shape[0]} rows do not split over the batch axes "
+                f"{tp.batch_axes(mesh)} of {mesh.shape}")
+        block = shd.local_shard(np.ascontiguousarray(v), spec, mesh,
+                                mesh.rank)
+        out[k] = torch.from_numpy(np.ascontiguousarray(block)).to(
+            mesh.device)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """An input's shape and dtype (a meta tensor: JAX's
+    ``ShapeDtypeStruct``) and its ``sharding`` (a NamedSharding)."""
+    meta: torch.Tensor
+    sharding: object
+
+    @property
+    def shape(self):
+        return tuple(self.meta.shape)
+
+    @property
+    def dtype(self):
+        return self.meta.dtype
+
+
+def batch_specs(cfg, batch: int, seq: int, mesh, train: bool = True):
+    """The dry run's input specs (JAX's ``batch_specs``): {"tokens",
+    "targets" (always: JAX's ``if train or True``), and "frames" for an
+    encoder-decoder: :class:`InputSpec`}, the batch over the "batch" rule's
+    axes where its size divides them (JAX's fallback otherwise)."""
+    def spec(shape, dtype, key):
+        return InputSpec(torch.empty(shape, dtype=dtype, device="meta"),
+                         _batch_spec(key, shape, mesh))
+
+    specs = {"tokens": spec((batch, seq), torch.int32, "tokens")}
+    if train or True:
+        specs["targets"] = specs["tokens"]
+    if cfg.is_encoder_decoder:
+        specs["frames"] = spec((batch, cfg.enc_seq, cfg.d_feat),
+                               torch.float32, "frames")
+    return specs

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import QTensor, qslice
+from repro_torch.optim.adamw import BLOCK as Q8_BLOCK, Q8
 
 # ---------------------------------------------------------------------------
 # Rule sets
@@ -120,6 +121,14 @@ def _current() -> Optional[Tuple[Any, Dict[str, Any]]]:
     return stack[-1][:2] if stack else None
 
 
+def current_binding():
+    """(mesh, rules, layout) of the innermost active context, or None: what
+    a function run later, on another thread, rebinds (the autograd engine
+    recomputes a checkpointed layer on the device's thread)."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
 def current_layout():
     """The tensor-parallel layout bound by the innermost context (None
     without one, or when the context bound none)."""
@@ -139,6 +148,18 @@ def activate(mesh, rules: Optional[Dict[str, Any]] = None, layout=None):
         yield mesh
     finally:
         _stack().pop()
+
+
+def active_mesh(mesh=None):
+    """``mesh``, or the mesh of the innermost active context (where JAX's
+    collectives name an axis of the ``shard_map`` they run in)."""
+    if mesh is not None:
+        return mesh
+    ctx = _current()
+    if ctx is None:
+        raise RuntimeError("no mesh: pass mesh= or call inside "
+                           "dist.sharding.activate(mesh)")
+    return ctx[0]
 
 
 def _active_rules(rules: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -416,11 +437,69 @@ def local_shard(x, spec, mesh, rank: int):
 
     A QTensor's codes and scale are cut by their own specs (packed int4
     codes in whole bytes), the codebook stays whole, and the logical shape
-    and the kernel scale follow."""
+    and the kernel scale follow. A ``Q8`` moment is cut by its
+    :func:`moment_spec`: its codes by the spec, its block scales by the
+    same entries (the last one over its blocks of 256)."""
     if isinstance(x, QTensor):
         if not isinstance(spec, QSharding):
             raise TypeError("a QTensor is cut by a QSharding")
         codes = _cut(x.codes, _spec_of(spec.codes), mesh, rank)
         scale = _cut(x.scale, _spec_of(spec.scale), mesh, rank)
         return qslice(x, codes, scale)
+    if isinstance(x, Q8):
+        codes = _cut(x.codes, _spec_of(spec), mesh, rank)
+        scale = _cut(x.scale, _spec_of(spec), mesh, rank)
+        return Q8(codes, scale, tuple(codes.shape),
+                  q8_pad(codes.shape[-1], scale.shape[-1]))
     return _cut(x, _spec_of(spec), mesh, rank)
+
+
+def q8_pad(last: int, n_blocks: int) -> int:
+    """The padding of a Q8 moment whose codes' last dim is ``last`` and
+    whose scale holds ``n_blocks`` blocks."""
+    return n_blocks * Q8_BLOCK - last
+
+
+def moment_spec(spec, shape, int8: bool):
+    """The sharding of an AdamW moment of a parameter of whole ``shape``
+    cut by ``spec`` (a NamedSharding): the parameter's own, except that an
+    int8 (``Q8``) moment keeps its last dim whole over an axis whose blocks
+    would not hold whole groups of 256 (a block scale of the whole leaf
+    would then span two ranks), so that its codes and scales are those of
+    the whole leaf's moment."""
+    entries = tuple(spec.spec) + (None,) * (len(shape) - len(spec.spec))
+    last = entries[-1] if entries else None
+    if int8 and last is not None:
+        n = math.prod(spec.mesh.shape[a] for a in _axes(last))
+        if (shape[-1] // n) % Q8_BLOCK:
+            entries = entries[:-1] + (None,)
+    return NamedSharding(spec.mesh, entries)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def block_index(shape, spec, mesh, rank: int):
+    """The slices of a whole tensor of ``shape`` that rank ``rank`` holds
+    under ``spec`` (the inverse of :func:`local_shard`'s cut)."""
+    sizes, coords = dict(mesh.shape), mesh_coords(mesh, rank)
+    spec = tuple(_spec_of(spec)) + (None,) * (len(shape) - len(_spec_of(spec)))
+    index = []
+    for dim, entry in zip(shape, spec):
+        n, i = 1, 0
+        for a in _axes(entry):
+            n *= sizes[a]
+            i = i * sizes[a] + coords[a]
+        step = dim // n
+        index.append(slice(i * step, (i + 1) * step))
+    return tuple(index)
+
+
+def whole_shape(block_shape, spec, mesh) -> Tuple[int, ...]:
+    """The whole shape of a block of ``block_shape`` cut by ``spec``."""
+    spec = tuple(_spec_of(spec)) + (None,) * (len(block_shape)
+                                              - len(_spec_of(spec)))
+    return tuple(d * math.prod(mesh.shape[a] for a in _axes(e))
+                 for d, e in zip(block_shape, spec))

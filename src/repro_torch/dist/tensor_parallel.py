@@ -104,7 +104,9 @@ class Layout:
     target) names of this family that the forward takes as blocks, by
     flag. ``rules``: the serving rules every spec resolves under.
     ``batch_axes``: the axes the dense cache's slot rows are cut over
-    (``("data",)`` or none), which the sequence-sharded decode takes."""
+    (``("data",)`` or none), which the sequence-sharded decode takes; in
+    a training layout (``train``, :func:`train_layout`) the axes the
+    batch's rows are cut over."""
     mesh: object
     rules: Dict[str, object]
     groups: Dict[str, str]
@@ -117,6 +119,7 @@ class Layout:
     ssm_in: bool = False
     ssm_out: bool = False
     batch_axes: Tuple[str, ...] = ()
+    train: bool = False
 
     @property
     def size(self) -> int:
@@ -468,7 +471,11 @@ def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum over the "model" group of every rank's ``x`` (the
-    row-parallel partials), taken in float32 and cast back to x's type."""
+    row-parallel partials), taken in float32 and cast back to x's type.
+    Under autograd it is the Megatron exit of a row-parallel block
+    (identity backward: the sum's gradient is the same on every rank)."""
+    if _differentiable(x):
+        return _Leave.apply(x, mesh.group, True)
     return _all_reduce(x.to(torch.float32, copy=True), mesh.group,
                        "SUM").to(x.dtype)
 
@@ -479,11 +486,12 @@ def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
     """[..., n] on each rank of the "model" group -> [..., P n], rank r's
-    block at r: a sum over a zero-filled buffer, exact in any type."""
-    n, r = x.shape[-1], mesh.model_rank
-    full = x.new_zeros(*x.shape[:-1], n * mesh.shape["model"])
-    full[..., r * n:(r + 1) * n] = x
-    return _all_reduce(full, mesh.group, "SUM")
+    block at r: a sum over a zero-filled buffer, exact in any type. Under
+    autograd its backward takes the rank's slice (the gathered tensor's
+    gradient is the same on every rank)."""
+    if _differentiable(x):
+        return _Gather.apply(x, mesh, "model", x.ndim - 1, False)
+    return _gather_dim(x, mesh, "model", x.ndim - 1)
 
 
 def gather_index(x: torch.Tensor, index, total: int, mesh,
@@ -534,6 +542,8 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
     inside = (local >= 0) & (local < n)
     rows = table[torch.clamp(local, 0, n - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    if _differentiable(rows):     # backward reaches the rank's rows only
+        return _Leave.apply(rows, lay.mesh.group, False)
     return _all_reduce(rows, lay.mesh.group, "SUM")
 
 
@@ -567,3 +577,274 @@ def kv_for_heads(kv: torch.Tensor, cfg, lay: Layout) -> torch.Tensor:
         idx = (lo + torch.arange(n, device=kv.device)) // rep
         sel = kv.index_select(-2, idx)
     return sel.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Training: the layout, the gather of the compute tree and the collectives
+# that autograd goes through
+# ---------------------------------------------------------------------------
+
+# the families that train on a mesh above one rank
+TRAIN_FAMILIES = ("dense", "vlm")
+
+# the dim of each leaf the training forward cuts over "model" (Megatron:
+# column-parallel out dims, row-parallel in dims, the vocabulary)
+_TRAIN_DIM = {"embedding": -2, "lm_head": -1, "wq": -1, "wq_bias": -1,
+              "wk": -1, "wk_bias": -1, "wv": -1, "wv_bias": -1, "wo": -2,
+              "gate": -1, "up": -1, "down": -2}
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """A fresh tensor of the SUM of ``x`` over ``group`` (None: one rank)."""
+    x = x.contiguous().clone()
+    if group is not None:
+        _all_reduce(x, group, "SUM")
+    return x
+
+
+def _gather_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` over ``axis`` (block i at
+    rank i of the axis): a sum over a zero-filled buffer, exact."""
+    p = mesh.shape[axis]
+    if p == 1:
+        return x
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * p
+    full = x.new_zeros(shape)
+    full.narrow(dim, mesh.coords[axis] * n, n).copy_(x)
+    return _all_reduce(full, mesh.group_of(axis), "SUM")
+
+
+def _take_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    p = mesh.shape[axis]
+    if p == 1:
+        return x
+    n = x.shape[dim] // p
+    return x.narrow(dim, mesh.coords[axis] * n, n).contiguous()
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, SUM over ``group`` backward: a tensor every rank
+    holds whole that each rank uses for its part (Megatron's entry into a
+    column-parallel block; a weight a batch shard reads whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _Leave(torch.autograd.Function):
+    """SUM over ``group`` forward (in float32 and cast back when ``f32``),
+    identity backward: the exit of a row-parallel block, whose sum every
+    rank then uses whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, f32):
+        y = x.to(torch.float32) if f32 else x
+        return _sum_over(y, group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of ``dim`` over ``axis`` forward; backward the rank's
+    slice of the gradient, summed over the axis first when each rank's
+    gradient is only its ``partial`` part (a reduce-scatter: FSDP's
+    gather over a batch axis, a weight a column-parallel block reads
+    whole). The sum is an all-reduce and a slice, as gloo carries
+    all-reduce on card tensors."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, partial):
+        ctx.args = (mesh, axis, dim, partial)
+        return _gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, partial = ctx.args
+        if partial:
+            g = _sum_over(g, mesh.group_of(axis))
+        return _take_dim(g, mesh, axis, dim), None, None, None, None
+
+
+def enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The entry of a column-parallel block over "model" (identity; under
+    autograd the input's gradient is summed over the ranks)."""
+    if _differentiable(x):
+        return _Enter.apply(x, mesh.group)
+    return x
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The axes a training batch's rows are cut over: those of the
+    "batch" rule ("pod", "data") that the mesh has above one."""
+    return tuple(a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1)
+
+
+def _entries(spec, ndim: int):
+    entries = tuple(spec.spec) + (None,) * (ndim - len(spec.spec))
+    return entries[:ndim]
+
+
+def _check_spec(path, spec, shape, mesh):
+    if not isinstance(spec, NamedSharding):
+        raise ValueError(f"{path}: the training step takes a NamedSharding "
+                         f"a leaf, got {type(spec).__name__}")
+    if dict(spec.mesh.shape) != dict(mesh.shape) or \
+            spec.mesh.rank != mesh.rank:
+        raise ValueError(f"{path}: its spec is on another mesh "
+                         f"({spec.mesh.shape}) than {mesh.shape}")
+    if len(spec.spec) > len(shape):
+        raise ValueError(f"{path}: spec {spec.spec} has more entries than "
+                         f"its leaf {tuple(shape)} has dims")
+    used = set()
+    for d, e in zip(shape, _entries(spec, len(shape))):
+        if e is None:
+            continue
+        if not isinstance(e, str):
+            raise ValueError(
+                f"{path}: spec {spec.spec} cuts a dim over several axes; the "
+                "training step gathers blocks of one axis a dim")
+        if e not in mesh.shape or e == "stage" or e in used:
+            raise ValueError(f"{path}: spec {spec.spec} names axis {e!r}, "
+                             f"which a training mesh {mesh.shape} cannot "
+                             "cut a parameter over")
+        used.add(e)
+        if d % mesh.shape[e]:
+            raise ValueError(f"{path}: dim {d} of {tuple(shape)} does not "
+                             f"split over {e!r} of size {mesh.shape[e]}")
+
+
+def _walk_paths(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _walk_paths(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _group_key(path) -> str:
+    """The key of a leaf path that names its group in ``_GROUPS``."""
+    for k in reversed(path):
+        if k in _GROUPS:
+            return k
+    return path[-1] if path else ""
+
+
+def train_layout(cfg, mesh, specs, whole) -> Optional[Layout]:
+    """The layout of ``cfg``'s training step on ``mesh`` (None for a mesh
+    of one): the parameters are stored as the blocks of ``specs`` (a
+    NamedSharding a leaf of the ``whole`` tree, usually ``param_specs``
+    under ``DEFAULT_RULES``: FSDP over "data", tensor-parallel over
+    "model"), and the forward cuts over "model" each group of
+    ``_GROUPS`` whose every leaf ``specs`` cuts over "model" on its
+    Megatron dim, with whole heads (q heads dividing the axis; the KV
+    heads cut only with them, else each rank reads the KV heads its q
+    heads need). Every other leaf is gathered whole for the forward. The
+    batch is cut over ("pod", "data"). Raises ValueError for specs the
+    step cannot honour (another mesh, an axis a parameter cannot be cut
+    over, a dim that does not split) and NotImplementedError for a family
+    that does not train on a mesh yet."""
+    if mesh.size == 1:
+        return None
+    check_train_family(cfg, mesh.size)
+    cut = {}
+
+    def visit(path, leaf):
+        spec = _at(specs, path)
+        _check_spec("/".join(path), spec, leaf.shape, mesh)
+        key = _group_key(path)
+        if key in _GROUPS and path[-1] in _TRAIN_DIM:
+            entries = _entries(spec, leaf.ndim)
+            ok = entries[_TRAIN_DIM[path[-1]]] == "model"
+            cut[_GROUPS[key]] = cut.get(_GROUPS[key], True) and ok
+        return None
+
+    _walk_paths(whole, visit)
+    m = mesh.shape.get("model", 1)
+    flags = {f: bool(cut.get(f)) and m > 1 for f in
+             ("heads", "kv_heads", "mlp", "vocab")}
+    flags["heads"] &= cfg.n_heads % m == 0
+    flags["kv_heads"] &= flags["heads"] and cfg.n_kv_heads % m == 0
+    return Layout(mesh, dict(shd.DEFAULT_RULES), dict(_GROUPS), seq=False,
+                  batch_axes=batch_axes(mesh), train=True, **flags)
+
+
+def check_train_family(cfg, ranks: int) -> None:
+    """Raise for a family that does not train on a mesh above one rank."""
+    if ranks > 1 and cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family on a mesh of {ranks} ranks is "
+            "not ported yet (ROADMAP queue 1 item 12e); it trains on one "
+            "card")
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _inside(path, lay: Layout) -> bool:
+    """Whether the forward reads leaf ``path`` whole inside a block it cuts
+    over "model", so that each rank's gradient is only its part: the KV
+    projections a rank's q heads regroup, the q/k norms of its heads."""
+    if not lay.heads:
+        return False
+    if "q_norm" in path or "k_norm" in path:
+        return True
+    return not lay.kv_heads and _group_key(path) in (
+        "wk", "wv", "wk_bias", "wv_bias")
+
+
+def to_compute(params, specs, lay: Layout):
+    """The tree the forward reads, from this rank's blocks ``params``
+    (under ``specs``): every leaf gathered whole over the axes it is cut
+    over, except over "model" on the dim the layout cuts its group; under
+    autograd each gather's backward gives the gradient of the rank's
+    block, summed over the ranks whose gradients are parts (a batch axis;
+    "model" for a leaf read whole inside a cut block), and a leaf not cut
+    over such an axis has its gradient summed over it. So ``autograd.grad``
+    of the loss over the blocks is the gradient of the whole batch's loss,
+    cut as the blocks are."""
+    mesh = lay.mesh
+
+    def leaf(path, x):
+        spec = _entries(_at(specs, path), x.ndim)
+        key = _group_key(path)
+        keep = None
+        if lay.cuts(key) and path[-1] in _TRAIN_DIM:
+            keep = x.ndim + _TRAIN_DIM[path[-1]]
+        for axis in mesh.shape:
+            if mesh.shape[axis] == 1:
+                continue
+            partial = axis in lay.batch_axes or (
+                axis == "model" and _inside(path, lay))
+            if axis in spec:
+                dim = spec.index(axis)
+                if axis == "model" and dim == keep:
+                    continue
+                x = _Gather.apply(x, mesh, axis, dim, partial) \
+                    if _differentiable(x) else _gather_dim(x, mesh, axis, dim)
+            elif partial and _differentiable(x):
+                x = _Enter.apply(x, mesh.group_of(axis))
+        return x
+
+    return _walk_paths(params, leaf)
+
+
+def sum_over_batch(x: torch.Tensor, lay: Optional[Layout]) -> torch.Tensor:
+    """A rank's loss partial summed over the batch's ranks (no gradient)."""
+    if lay is None or not lay.batch_axes:
+        return x.detach()
+    return _sum_over(x.detach(), lay.mesh.group_of(*lay.batch_axes))

@@ -1,16 +1,19 @@
-"""Serving meshes of processes (PyTorch port of the JAX package's
-``launch/mesh.py``, the part that serving calls).
+"""Meshes of processes (PyTorch port of the JAX package's
+``launch/mesh.py``, the part that serving and training call).
 
-A :class:`Mesh` is a ("data", "model") grid of ranks, one process each,
-built with ``torch.distributed.device_mesh.init_device_mesh`` over the
-initialized process group; its ``.shape`` is the mapping that
-``dist.sharding.resolve_spec`` reads, as a JAX mesh's is. JAX runs a mesh
-from one process over many devices; PyTorch runs one process per rank, so
-the JAX package's ``force_host_device_count`` (more host devices for one
-process) has no meaning here. Its place is taken by :func:`run_ranks`,
-which spawns the ranks, each running the same function, and returns their
-results; under ``torchrun`` the launcher joins the group torchrun made
-instead (:func:`init_from_env`).
+A :class:`Mesh` is a grid of ranks over named axes, one process each: the
+("data", "model") serving mesh, the training launcher's ("data",
+"model") or ("pod", "data", "model") mesh (:func:`make_train_mesh`, the
+JAX launcher's ``--mesh`` rule), or one axis over the whole world such as
+``{"stage": 4}``. It is built over the initialized process group with one
+process group per combination of its axes; its ``.shape`` is the mapping
+that ``dist.sharding.resolve_spec`` reads, as a JAX mesh's is. JAX runs a
+mesh from one process over many devices; PyTorch runs one process per
+rank, so the JAX package's ``force_host_device_count`` (more host devices
+for one process) has no meaning here. Its place is taken by
+:func:`run_ranks`, which spawns the ranks, each running the same
+function, and returns their results; under ``torchrun`` a launcher joins
+the group torchrun made instead (:func:`init_from_env`).
 
 A rank's device is ``cuda:{rank % device_count}``. With a card per rank
 the ranks talk over NCCL; ranks that share a card talk over gloo (NCCL
@@ -24,6 +27,8 @@ Importing this module starts no process and joins no group.
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import queue as queue_mod
 import shutil
@@ -57,47 +62,81 @@ def parse_mesh_shape(spec: str):
 
 
 class Mesh:
-    """This process's place in a ("data", "model") mesh of ranks.
+    """This process's place in a mesh of ranks over named axes.
 
-    ``shape``: {"data": D, "model": M}; ``rank``: this process's rank
+    ``shape``: the axis sizes in order, {"data": D, "model": M} for a
+    serving mesh (``Mesh(D, M, ...)``), or any ordered axes of "pod",
+    "data", "model" and "stage" (``axes=``); ``rank``: this process's rank
     (row-major over the axes); ``device``: its device (the card unless the
-    caller passes ``device="cpu"``); ``group``: the process group of its
-    "model" row (None for a mesh of one), over which the tensor-parallel
-    collectives run; ``data_group``: the group of its "data" column, over
-    which a step's slot rows are gathered; ``host_group``: a gloo group of
-    the whole world for host values (the engine's clock, read from global
-    rank 0), which NCCL cannot carry; ``backend``: "nccl" or "gloo";
-    ``device_mesh``: the ``DeviceMesh``."""
+    caller passes ``device="cpu"``); ``groups``: {axes: process group} for
+    every combination of the axes of size above 1 (in mesh order), the
+    group of the ranks that share this rank's coordinates on the other
+    axes; ``group``: the "model" group (None for a model axis of one),
+    over which the tensor-parallel collectives run; ``data_group``: the
+    "data" group, over which a step's slot rows are gathered;
+    ``host_group``: a gloo group of the whole world for host values (the
+    engine's clock, read from global rank 0; a checkpoint's blocks), which
+    NCCL cannot carry; ``backend``: "nccl" or "gloo"."""
 
-    axis_names = ("data", "model")
-
-    def __init__(self, data: int, model: int, rank: int = 0, device="cuda",
-                 group=None, host_group=None, backend: Optional[str] = None,
-                 device_mesh=None, data_group=None):
-        self.shape: Dict[str, int] = {"data": data, "model": model}
+    def __init__(self, data: int = 1, model: int = 1, rank: int = 0,
+                 device="cuda", group=None, host_group=None,
+                 backend: Optional[str] = None, data_group=None, *,
+                 axes: Optional[Dict[str, int]] = None, groups=None):
+        self.shape: Dict[str, int] = dict(axes) if axes is not None \
+            else {"data": data, "model": model}
+        unknown = set(self.shape) - set(AXES)
+        if unknown:
+            raise ValueError(f"mesh axes {sorted(unknown)}: a mesh names "
+                             f"its axes from {AXES}")
         self.rank = rank
         self.device = torch.device(device)
-        self.group = group
-        self.data_group = data_group
+        self.groups = dict(groups or {})
+        for axis, g in (("model", group), ("data", data_group)):
+            if g is not None:
+                self.groups.setdefault((axis,), g)
+        self.group = self.groups.get(("model",))
+        self.data_group = self.groups.get(("data",))
         self.host_group = host_group
         self.backend = backend
-        self.device_mesh = device_mesh
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        return math.prod(self.shape.values())
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis."""
+        coords, r = {}, self.rank
+        for ax, n in reversed(list(self.shape.items())):
+            coords[ax] = r % n
+            r //= n
+        return coords
 
     @property
     def model_rank(self) -> int:
-        return self.rank % self.shape["model"]
+        return self.coords.get("model", 0)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.shape["model"]
+        return self.coords.get("data", 0)
+
+    def axis_size(self, *axes: str) -> int:
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def group_of(self, *axes: str):
+        """The process group over ``axes`` (those of size 1 dropped), or
+        None when they span one rank: a collective over None is skipped."""
+        key = tuple(a for a in self.shape if a in axes and self.shape[a] > 1)
+        return self.groups.get(key) if key else None
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend})")
+
+
+# the axis names a mesh may use: the JAX package's meshes' ("pod", "data",
+# "model") and the pipeline's "stage"
+AXES = ("pod", "data", "model", "stage")
 
 
 def single_device_mesh(device="cuda") -> Mesh:
@@ -126,33 +165,95 @@ def backend_for(world: int, device) -> str:
     return "gloo"
 
 
-def make_host_mesh(data: int, model: int, device=None) -> Mesh:
-    """The (data, model) mesh over the initialized process group, whose
-    size must be ``data * model``; ``device`` is this rank's device
-    (default: its card, ``cuda:{rank % device_count}``, whichever the
-    backend; the host only when the caller passes ``device="cpu"``). A
-    (1, 1) mesh needs no group."""
+def _as_axes(shape) -> Dict[str, int]:
+    """{axis: size} of a (data, model) pair or an axis mapping."""
+    if isinstance(shape, dict):
+        return dict(shape)
+    data, model = shape
+    return {"data": data, "model": model}
+
+
+def _make_groups(axes: Dict[str, int], rank: int) -> dict:
+    """{combination of axes: this rank's group over it}, for every
+    combination of the axes of size above 1. Every rank makes every group
+    of every combination, in the same order, as ``new_group`` asks."""
     import torch.distributed as dist
-    if data * model == 1:
-        return single_device_mesh("cuda" if device is None else device)
+    names = list(axes)
+    sizes = [axes[a] for a in names]
+    coords = list(itertools.product(*(range(n) for n in sizes)))
+    wide = [a for a in names if axes[a] > 1]
+    groups = {}
+    for k in range(1, len(wide) + 1):
+        for combo in itertools.combinations(wide, k):
+            members: Dict[tuple, list] = {}
+            for r, c in enumerate(coords):
+                key = tuple(ci for a, ci in zip(names, c) if a not in combo)
+                members.setdefault(key, []).append(r)
+            for ranks in members.values():
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[combo] = g
+    return groups
+
+
+def make_host_mesh(data=1, model: int = 1, device=None) -> Mesh:
+    """The mesh over the initialized process group, whose size must be the
+    mesh's: ``(data, model)`` sizes, or an axis mapping as ``data`` (such
+    as ``{"pod": 2, "data": 1, "model": 2}`` or ``{"stage": 4}``);
+    ``device`` is this rank's device (default: its card, ``cuda:{rank %
+    device_count}``, whichever the backend; the host only when the caller
+    passes ``device="cpu"``). A mesh of one needs no group."""
+    import torch.distributed as dist
+    axes = _as_axes(data if isinstance(data, dict) else (data, model))
+    n = math.prod(axes.values())
+    if n == 1:
+        return Mesh(axes=axes, device="cuda" if device is None else device)
     if not dist.is_initialized():
         raise RuntimeError(
-            f"a {data}x{model} mesh needs the ranks' process group: run "
+            f"a {_spec_name(axes)} mesh needs the ranks' process group: run "
             "under repro_torch.launch.mesh.run_ranks or torchrun")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != data * model:
-        raise ValueError(f"a {data}x{model} mesh over {world} ranks")
+    if world != n:
+        raise ValueError(f"a {_spec_name(axes)} mesh over {world} ranks")
     backend = dist.get_backend()
     device = _rank_device(rank, "cuda" if device is None else device)
-    from torch.distributed.device_mesh import init_device_mesh
-    # a gloo group carries tensors of either device, so its DeviceMesh is
-    # made on the host: ranks that share a card need no device of their own
-    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
-                          (data, model), mesh_dim_names=("data", "model"))
-    # every rank makes every group, in the same order
+    groups = _make_groups(axes, rank)
     host_group = dist.new_group(backend="gloo")
-    return Mesh(data, model, rank, device, dm.get_group("model"), host_group,
-                backend, dm, dm.get_group("data"))
+    return Mesh(rank=rank, device=device, host_group=host_group,
+                backend=backend, axes=axes, groups=groups)
+
+
+def _spec_name(axes: Dict[str, int]) -> str:
+    return "x".join(str(n) for n in axes.values())
+
+
+def make_train_mesh(spec: str, world: int) -> Dict[str, int]:
+    """The axis sizes of a training launcher's ``--mesh`` over ``world``
+    ranks, by the JAX launcher's rule (``repro.launch.train.build_mesh``):
+    "auto" puts the largest power of two up to 8 that divides the world on
+    "model" and the rest on "data"; "DxM" is ("data", "model") and "PxDxM"
+    ("pod", "data", "model"). A shape whose sizes do not multiply to the
+    world raises.
+
+    >>> make_train_mesh("auto", 8)
+    {'data': 1, 'model': 8}
+    >>> make_train_mesh("2x1x2", 4)
+    {'pod': 2, 'data': 1, 'model': 2}
+    """
+    if spec == "auto":
+        model = 1
+        while model * 2 <= world and world % (model * 2) == 0 and model < 8:
+            model *= 2
+        return {"data": world // model, "model": model}
+    dims = tuple(int(x) for x in spec.split("x"))
+    if len(dims) not in (2, 3) or any(d < 1 for d in dims):
+        raise ValueError(f"--mesh {spec!r}: expected 'auto', 'DxM' or "
+                         "'PxDxM' with positive sizes")
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(dims)]
+    if math.prod(dims) != world:
+        raise ValueError(f"--mesh {spec}: {math.prod(dims)} ranks, and the "
+                         f"world has {world}")
+    return dict(zip(axes, dims))
 
 
 def make_serve_mesh(spec: str, device=None) -> Mesh:
@@ -182,10 +283,12 @@ def init_from_env(device) -> Optional[torch.device]:
     return dev
 
 
-def _rank_main(fn, rank, world, shape, device, backend, init, threads, out,
-               args):
+def _rank_main(job, rank, world, shape, device, backend, init, threads, out):
+    import pickle
     import torch.distributed as dist
     try:
+        with open(job, "rb") as f:
+            fn, args = pickle.load(f)
         if threads:
             torch.set_num_threads(threads)
         dev = _rank_device(rank, device)
@@ -193,7 +296,7 @@ def _rank_main(fn, rank, world, shape, device, backend, init, threads, out,
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=init, rank=rank,
                                 world_size=world)
-        mesh = make_host_mesh(*shape, device=dev)
+        mesh = make_host_mesh(shape, device=dev)
         out.put((rank, True, fn(mesh, *args)))
     except BaseException:
         out.put((rank, False, traceback.format_exc()))
@@ -210,7 +313,8 @@ RANKS_TIMEOUT_S = 1800.0
 def run_ranks(fn: Callable, world: int, device, *args,
               mesh_shape=None, threads: Optional[int] = None) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``world`` spawned processes, one rank of a
-    ``mesh_shape`` mesh (default (1, world)) each, and return their results
+    ``mesh_shape`` mesh (default (1, world); a (data, model) pair or an
+    axis mapping such as ``{"stage": 4}``) each, and return their results
     in rank order.
 
     ``fn`` must be importable from a module (spawned processes re-import
@@ -222,21 +326,28 @@ def run_ranks(fn: Callable, world: int, device, *args,
     ``RANKS_TIMEOUT_S``, stop every rank, and the failure is raised here
     with the rank's traceback."""
     import torch.multiprocessing as mp
-    shape = tuple(mesh_shape or (1, world))
-    if shape[0] * shape[1] != world:
+    shape = _as_axes(mesh_shape or (1, world))
+    if math.prod(shape.values()) != world:
         raise ValueError(f"mesh {shape} over {world} ranks")
     backend = backend_for(world, device)
     # on stderr: a launcher's stdout stays the JAX lines
     print(f"run_ranks: {world} ranks on {torch.device(device).type}, "
-          f"mesh {shape[0]}x{shape[1]}, backend {backend}",
+          f"mesh {_spec_name(shape)}, backend {backend}",
           file=sys.stderr, flush=True)
+    import pickle
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     init = "file://" + os.path.join(tmp, "rendezvous")
+    # the function and its arguments go through a file: a process's
+    # arguments larger than a pipe's buffer block its start until the child
+    # has imported torch, which would start the ranks one after another
+    job = os.path.join(tmp, "job.pkl")
+    with open(job, "wb") as f:
+        pickle.dump((fn, args), f)
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, shape, str(device), backend,
-                               init, threads, out, args))
+                         args=(job, r, world, shape, str(device), backend,
+                               init, threads, out))
              for r in range(world)]
     results: Dict[int, Any] = {}
     try:

@@ -13,9 +13,18 @@ loss X`` line per logged step, and ``done: restarts=R stragglers=S``.
 writes (``train/checkpoint.py``, the JAX layout) are what
 ``python -m repro_torch.launch.serve --ckpt DIR`` restores.
 
-One card is a mesh of one: ``--mesh auto`` and any shape whose sizes
-multiply to 1 run; a larger mesh and ``--distributed`` raise until
-distribution is ported (ROADMAP queue 1 item 12c).
+``--mesh`` lays the ranks out as the JAX launcher's mesh does
+(``launch.mesh.make_train_mesh``: "auto", "DxM" as ("data", "model"),
+"PxDxM" as ("pod", "data", "model")). A shape above one rank spawns its
+ranks (``launch.mesh.run_ranks``; gloo when they share the card), each
+running the same training on its blocks (``train_ranks``): the
+parameters and moments cut by ``dist.sharding.param_specs`` under
+``DEFAULT_RULES`` (FSDP over "data", tensor-parallel over "model"), the
+batch over ("pod", "data"); rank 0 prints the lines, ``devices=`` the
+world size. ``--distributed`` joins the group ``torchrun`` made
+(``launch.mesh.init_from_env``) and lays ``--mesh`` over its world
+("auto" by the JAX rule); outside torchrun it raises. "auto" without
+``--distributed`` is one card.
 
 The step is deterministic on the card, so a run that crashes and resumes
 from a checkpoint ends bit-equal to one that did not:
@@ -33,8 +42,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import math
 import os
+import sys
 
 import torch
 
@@ -61,20 +72,11 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build_mesh(spec: str) -> dict:
-    """The mesh of a ``--mesh`` value, as the axis sizes the JAX launcher
-    prints: one card gives ``{"data": 1, "model": 1}`` for "auto", and a
-    shape ("DxM" or "PxDxM") is taken when its sizes multiply to 1; any
-    other raises."""
-    if spec == "auto":
-        return {"data": 1, "model": 1}
-    dims = tuple(int(x) for x in spec.split("x"))
-    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(dims)]
-    if math.prod(dims) != 1:
-        raise NotImplementedError(
-            f"a {spec} training mesh: sharded training is not ported yet "
-            "(ROADMAP queue 1 item 12c); one card is a mesh of one")
-    return dict(zip(axes, dims))
+def build_mesh(spec: str, world: int = 1) -> dict:
+    """The mesh of a ``--mesh`` value over ``world`` ranks, as the axis
+    sizes the JAX launcher prints (``launch.mesh.make_train_mesh``)."""
+    from repro_torch.launch.mesh import make_train_mesh
+    return make_train_mesh(spec, world)
 
 
 @contextlib.contextmanager
@@ -95,26 +97,29 @@ def deterministic():
         det.fill_uninitialized_memory = was_fill
 
 
-def configure(args):
-    """(cfg, mesh) of parsed ``args``; raises for ``--distributed`` and a
-    mesh larger than one card."""
+def configure(args, world=None):
+    """(cfg, mesh axis sizes) of parsed ``args`` over ``world`` ranks (by
+    default: the ranks an explicit ``--mesh`` shape names, one card for
+    "auto")."""
     from repro_torch.configs import apply_overrides, get_config
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-host training is not ported yet (ROADMAP "
-            "queue 1 item 12c)")
     cfg = get_config(args.arch)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
-    return cfg, build_mesh(args.mesh)
+    if world is None:
+        world = 1 if args.mesh == "auto" else math.prod(
+            int(x) for x in args.mesh.split("x"))
+    return cfg, build_mesh(args.mesh, world)
 
 
-def train(args, cfg, device, fail_hook=None, monitor=None, log_every=10):
-    """Train ``cfg`` as ``main`` does, on ``device``, without printing.
-    ``fail_hook``, ``monitor`` and ``log_every`` go to the auto-restart
-    driver (``resilient_train``). Returns (params, opt_state, history,
-    restarts, monitor)."""
+def train(args, cfg, device, fail_hook=None, monitor=None, log_every=10,
+          mesh=None):
+    """Train ``cfg`` as ``main`` does, on ``device``, without printing;
+    on ``mesh`` (above one rank) this rank's part of the mesh's training,
+    on the mesh's device. ``fail_hook``, ``monitor`` and ``log_every`` go
+    to the auto-restart loop (``resilient_train``). Returns (params,
+    opt_state, history, restarts, monitor): on a mesh, the rank's
+    blocks."""
     from repro_torch.data.pipeline import make_dataset, shard_batch
     from repro_torch.models.model import get_model
     from repro_torch.optim import adamw
@@ -123,14 +128,22 @@ def train(args, cfg, device, fail_hook=None, monitor=None, log_every=10):
     from repro_torch.train.loop import make_train_step
 
     api = get_model(cfg)
+    ocfg = adamw.AdamWConfig(lr=args.lr, int8_moments=cfg.int8_optimizer)
+    sharded = mesh is not None and mesh.size > 1
     with deterministic():
-        params = api.init(seed=0, device=device)
-        ocfg = adamw.AdamWConfig(lr=args.lr, int8_moments=cfg.int8_optimizer)
-        opt = adamw.init(params, ocfg)
+        if sharded:
+            params, opt, pspec, shardings = init_blocks(api, ocfg, mesh)
+        else:
+            params = api.init(seed=0, device=device)
+            opt = adamw.init(params, ocfg)
+            pspec = shardings = None
         step_fn = make_train_step(api, ocfg, total_steps=args.steps,
-                                  warmup=max(args.steps // 20, 5))
+                                  warmup=max(args.steps // 20, 5),
+                                  grad_specs=pspec)
 
         def step(p, o, batch, s):
+            if sharded:
+                return step_fn(p, o, shard_batch(batch, mesh), s)
             return step_fn(p, o, shard_batch(batch, device=device), s)
 
         ds = make_dataset(cfg, batch=args.batch, seq=args.seq, seed=0,
@@ -140,8 +153,117 @@ def train(args, cfg, device, fail_hook=None, monitor=None, log_every=10):
             train_step=step, params=params, opt_state=opt, dataset=ds,
             ckpt_dir=args.ckpt, total_steps=args.steps,
             save_every=args.save_every, monitor=monitor, fail_hook=fail_hook,
-            log_every=log_every)
+            log_every=log_every, shardings=shardings)
     return params, opt, history, restarts, monitor
+
+
+def init_blocks(api, ocfg, mesh, params=None):
+    """(params, opt_state, param specs, (param specs, state specs)) of
+    this rank of ``mesh``: the whole weights ``params`` (default: made
+    from seed 0 on the rank's device, the single-card run's) cut by
+    ``param_specs`` under ``DEFAULT_RULES``, the moments zeros of the
+    rank's blocks (``adamw.state_specs`` of the whole tree's, which
+    decides int8 by the whole leaf)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.optim import adamw
+    tp.check_train_family(api.cfg, mesh.size)
+    whole = api.init(seed=0, device="meta")
+    pspec = shd.param_specs(whole, mesh, shd.DEFAULT_RULES)
+    ospec = adamw.state_specs(adamw.init(whole, ocfg), pspec)
+    if params is None:
+        params = api.init(seed=0, device=mesh.device)
+    params = _blocks(params, pspec, mesh)
+    opt = adamw.init(whole, ocfg)
+    opt = {"m": _zero_blocks(opt["m"], ospec["m"], mesh),
+           "v": _zero_blocks(opt["v"], ospec["v"], mesh),
+           "count": opt["count"]}
+    return params, opt, pspec, (pspec, ospec)
+
+
+def _blocks(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: _blocks(tree[k], specs[k], mesh) for k in tree}
+    from repro_torch.dist import sharding as shd
+    return shd.local_shard(tree, specs, mesh, mesh.rank)
+
+
+def _zero_blocks(meta, specs, mesh):
+    """Zeros of this rank's block of each leaf of a meta moment tree."""
+    if isinstance(meta, dict):
+        return {k: _zero_blocks(meta[k], specs[k], mesh) for k in meta}
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim.adamw import Q8
+    block = shd.local_shard(meta, specs, mesh, mesh.rank)
+
+    def zeros(t):
+        return torch.zeros(t.shape, dtype=t.dtype, device=mesh.device)
+    if isinstance(block, Q8):
+        return Q8(zeros(block.codes), zeros(block.scale), block.shape,
+                  block.pad)
+    return zeros(block)
+
+
+def block_digests(tree) -> dict:
+    """{checkpoint leaf name: sha1 of the bytes of this rank's block}."""
+    import hashlib
+    from repro_torch.train import checkpoint
+    out = {}
+    for name, t in checkpoint._flatten(tree):
+        t = t.detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8) if t.numel() else t
+        out[name] = hashlib.sha1(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors (a Q8 moment's codes and scales)."""
+    from repro_torch.optim import adamw
+    total = 0
+    for x in adamw.tree_leaves(tree):
+        for t in ((x.codes, x.scale) if isinstance(x, adamw.Q8) else (x,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _run(args, cfg, device, mesh, fail_hook, monitor, log_every,
+         shape=None):
+    """Print the JAX launcher's lines around ``train`` (on a mesh, every
+    rank prints them). Returns (params, opt_state)."""
+    world = 1 if mesh is None else mesh.size
+    shape = dict(mesh.shape) if mesh is not None else shape
+    print(f"arch={cfg.name} devices={world} mesh={shape}")
+    params, opt, history, restarts, monitor = train(
+        args, cfg, device, fail_hook, monitor, log_every, mesh)
+    for s, l in history:
+        print(f"step {s:5d}  loss {l:.4f}")
+    print(f"done: restarts={restarts} stragglers={len(monitor.events)}")
+    return params, opt
+
+
+def train_ranks(mesh, argv, fail_hook=None, log_every=10):
+    """One rank of a spawned mesh: train, and return its printed lines
+    (``out``), its kernel launches, a digest of each block it holds at the
+    end (``digests``, by checkpoint leaf name) and the bytes of its
+    parameters plus moments (``bytes``) beside the whole tree's
+    (``whole_bytes``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    args = parse_args(argv)
+    cfg, _ = configure(args, mesh.size)
+    _build.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params, opt = _run(args, cfg, mesh.device, mesh, fail_hook, None,
+                           log_every)
+    whole = get_model(cfg).init(seed=0, device="meta")
+    moments = adamw.init(whole, adamw.AdamWConfig(
+        int8_moments=cfg.int8_optimizer))
+    return {"out": buf.getvalue(), "launches": dict(_build.LAUNCHES),
+            "digests": block_digests((params, opt)),
+            "bytes": tree_bytes((params, opt["m"], opt["v"])),
+            "whole_bytes": tree_bytes((whole, moments["m"], moments["v"]))}
 
 
 def main(argv=None, device="cuda", *, fail_hook=None, monitor=None,
@@ -150,7 +272,9 @@ def main(argv=None, device="cuda", *, fail_hook=None, monitor=None,
     keywords (Python only, no flags) reach the driver: a failure injector
     ``fail_hook(step)``, a ``StepMonitor`` to observe the step times, and
     the logging interval of the ``step N  loss X`` lines (the JAX
-    launcher's 10). Returns the trained parameters."""
+    launcher's 10). Returns the trained parameters; for a mesh this call
+    spawned, each rank's result (:func:`train_ranks`; ``fail_hook`` goes
+    to every rank, ``monitor`` to none)."""
     args = parse_args(argv)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -158,14 +282,39 @@ def main(argv=None, device="cuda", *, fail_hook=None, monitor=None,
                            "torch.cuda.is_available() is false (callers "
                            "may ask for the CPU with main(argv, "
                            "device='cpu'))")
-    cfg, mesh = configure(args)
-    print(f"arch={cfg.name} devices=1 mesh={mesh}")
-    params, _, history, restarts, monitor = train(
-        args, cfg, device, fail_hook, monitor, log_every)
-    for s, l in history:
-        print(f"step {s:5d}  loss {l:.4f}")
-    print(f"done: restarts={restarts} stragglers={len(monitor.events)}")
-    return params
+    from repro_torch.launch import mesh as M
+    if args.distributed:
+        rank_device = M.init_from_env(device)
+        if rank_device is None:
+            raise RuntimeError(
+                "--distributed joins the process group torchrun describes, "
+                "and RANK and WORLD_SIZE are not set: launch under torchrun "
+                "(or drop --distributed: --mesh DxM spawns its ranks)")
+        import torch.distributed as dist
+        cfg, shape = configure(args, dist.get_world_size())
+        mesh = M.make_host_mesh(shape, device=rank_device)
+        params, _ = _run(args, cfg, rank_device, mesh, fail_hook, monitor,
+                         log_every) if mesh.rank == 0 else _quiet(
+            args, cfg, rank_device, mesh, fail_hook, monitor, log_every)
+        return params
+    cfg, shape = configure(args)
+    world = math.prod(shape.values())
+    if world == 1:
+        params, _ = _run(args, cfg, device, None, fail_hook, monitor,
+                         log_every, shape)
+        return params
+    from repro_torch.dist import tensor_parallel as tp
+    tp.check_train_family(cfg, world)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    results = M.run_ranks(train_ranks, world, device, argv, fail_hook,
+                          log_every, mesh_shape=shape)
+    print(results[0]["out"], end="")
+    return results
+
+
+def _quiet(*a):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _run(*a)
 
 
 if __name__ == "__main__":

@@ -186,14 +186,24 @@ def _quantize_kv(x):
 
 
 def attention_fwd(p, x, cfg, *, impl: str = "auto"):
-    """Full-sequence causal attention (no cache)."""
+    """Full-sequence causal attention (no cache). Under a layout that cuts
+    the heads (the training step's, ``tp.train_layout``) a rank attends
+    over its own q heads, with its KV heads or the whole KV heads its q
+    heads read, and wo ends the block in one all-reduce."""
     b, s, _ = x.shape
+    lay = tp.active()
+    cut = lay is not None and lay.heads
+    if cut:
+        x = tp.enter(x, lay.mesh)
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, impl)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if _regroup(lay):
+        k, v = tp.kv_for_heads(k, cfg, lay), tp.kv_for_heads(v, cfg, lay)
     out = ops.flash_attention(q, k, v, causal=True, impl=impl)
-    return linear(out.reshape(b, s, -1), p["wo"], impl=impl)
+    return L.row_parallel(out.reshape(b, s, -1), p["wo"], impl,
+                          lay if cut else None)
 
 
 def _kv_entries(cfg, k, v):

@@ -15,13 +15,29 @@ import torch.utils.checkpoint
 
 from repro_torch.core.axllm_linear import concat_weights, linear
 from repro_torch.core.quantization import QTensor, dequantize
+from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tp
+
+
+class MetaGenerator:
+    """The generator of an init on the meta device: shapes and dtypes
+    without values (``torch.Generator`` has no meta device)."""
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """The weights' generator on ``device``, seeded; on "meta" a
+    :class:`MetaGenerator`."""
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      dtype=torch.float32) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, a=-3.0, b=3.0, generator=gen)
+    if not t.is_meta:
+        torch.nn.init.trunc_normal_(t, a=-3.0, b=3.0, generator=gen)
     return t.to(dtype) * std
 
 
@@ -34,10 +50,19 @@ def remat(cfg, fn, *args):
     and autograd records the call: its activations are recomputed in the
     backward instead of kept (the JAX package's ``jax.checkpoint`` around
     the same bodies). The bodies draw no random numbers, so no RNG state
-    is saved."""
+    is saved. The recomputation runs under the sharding context of the
+    call (the autograd engine runs a card's backward on a thread of its
+    own, where the caller's context is not bound)."""
     if cfg.remat and torch.is_grad_enabled():
+        bound = shd.current_binding()
+
+        def run(*a):
+            if bound is None:
+                return fn(*a)
+            with shd.activate(*bound):
+                return fn(*a)
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            run, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 
@@ -110,6 +135,8 @@ def mlp_fwd(p, x, cfg, impl: str = "auto", reduce: bool = True):
     with ``reduce=False``, the rank's float32 partial for the caller's
     all-reduce)."""
     lay = tp.active()
+    if lay is not None and lay.mlp:
+        x = tp.enter(x, lay.mesh)
     if "gate_up" in p:   # fused: one activation pass over [d, 2·d_ff]
         g, u = torch.chunk(linear(x, p["gate_up"], impl=impl), 2, dim=-1)
         h = F.silu(g) * u
@@ -170,6 +197,9 @@ def head_fwd(p, x, cfg, impl: str = "auto"):
     the (dense) embedding, as in the JAX package; it runs no AxLLM kernel.
     Under a layout that cuts the vocabulary, each rank computes its columns
     and the logits are gathered on every rank."""
+    lay = tp.active()
+    if lay is not None and lay.vocab:
+        x = tp.enter(x, lay.mesh)
     if cfg.tie_embeddings:
         w = p["embedding"]
         if isinstance(w, QTensor):
@@ -177,7 +207,6 @@ def head_fwd(p, x, cfg, impl: str = "auto"):
         logits = torch.matmul(x, w.T.to(x.dtype))
     else:
         logits = linear(x, p["lm_head"], impl=impl)
-    lay = tp.active()
     if lay is not None and lay.vocab:
         logits = tp.gather_last(logits, lay.mesh)
     return logits
@@ -185,7 +214,11 @@ def head_fwd(p, x, cfg, impl: str = "auto"):
 
 def cross_entropy(logits, targets, vocab_size: int):
     """Mean cross-entropy over all positions in f32; the padded vocab
-    columns (ids >= ``vocab_size``) are masked out of the normalizer."""
+    columns (ids >= ``vocab_size``) are masked out of the normalizer.
+    Under a training layout whose batch is cut over ranks, a rank's rows
+    are its part of the global batch: their sum over the global batch's
+    positions (the mean of the rank's, over the count of batch blocks),
+    which the ranks' sum makes the global mean."""
     lf = logits.to(torch.float32)
     padded_v = lf.shape[-1]
     if padded_v > vocab_size:
@@ -193,4 +226,7 @@ def cross_entropy(logits, targets, vocab_size: int):
         lf = torch.where(mask, torch.full_like(lf, -1e30), lf)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    lay = tp.active()
+    if lay is not None and lay.train and lay.batch_axes:
+        return (logz - gold).mean() / lay.mesh.axis_size(*lay.batch_axes)
     return (logz - gold).mean()

@@ -22,9 +22,10 @@ def param_dtype(cfg) -> torch.dtype:
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Random weights made from ``seed`` on ``device``."""
+    """Random weights made from ``seed`` on ``device`` (on "meta": their
+    shapes and dtypes only)."""
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     lead = (cfg.n_layers,)
     layers = {
         "ln1": L.init_norm(cfg, device, lead=lead),

@@ -157,26 +157,77 @@ def tree_unflatten(like, leaves) -> Any:
     return fill(like)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares,
-    summed in leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    summed in leaf order. With ``specs`` (a NamedSharding a leaf of a
+    mesh) the leaves are this rank's blocks: each leaf's sum of squares
+    is the sum over its blocks, every element of the whole leaf counted
+    once (a block only from the ranks at index 0 of the axes its spec
+    does not cut), through one all-reduce of the per-leaf sums; every
+    rank gets the same norm."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves]
+    if specs is not None:
+        sums = _sum_blocks(sums, tree_leaves(specs))
+    return torch.sqrt(sum(sums))
+
+
+def _sum_blocks(sums, specs):
+    """Each leaf's sum over the whole mesh, counted once a block."""
+    mesh = specs[0].mesh
+    if mesh.size == 1:
+        return sums
+    coords = mesh.coords
+    owner = [all(coords[a] == 0 for a in mesh.shape
+                 if a not in tuple(sp.spec)) for sp in specs]
+    vec = torch.stack([x if own else torch.zeros_like(x)
+                       for x, own in zip(sums, owner)])
+    from repro_torch.dist import tensor_parallel as tp
+    vec = tp._sum_over(vec, mesh.group_of(*mesh.shape))
+    return list(vec.unbind(0))
+
+
+def state_specs(state, param_specs):
+    """The shardings of an :func:`init` state (``state``, of the whole
+    parameters: a meta tree will do) whose parameters are cut by
+    ``param_specs``: each moment as its parameter (a Q8 moment by
+    ``dist.sharding.moment_spec``), the count whole."""
+    from repro_torch.dist import sharding as shd
+
+    def moments(tree, specs):
+        if isinstance(tree, dict):
+            return {k: moments(tree[k], specs[k]) for k in tree}
+        if isinstance(tree, Q8):
+            return shd.moment_spec(specs, tree.shape, True)
+        return specs
+
+    mesh = tree_leaves(param_specs)[0].mesh
+    return {"m": moments(state["m"], param_specs),
+            "v": moments(state["v"], param_specs),
+            "count": shd.NamedSharding(mesh, ())}
 
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0,
+           specs=None):
     """One AdamW step. Returns (new_params, new_state, {"grad_norm"}).
 
     ``grads`` has ``params``' structure (each leaf in its parameter's
     dtype or f32); ``state`` is :func:`init`'s. The scalars that depend
     on the step only (the bias corrections, the learning rate) are f32 on
-    the host; the norm and the clip are f32 on the gradients' device."""
+    the host; the norm and the clip are f32 on the gradients' device.
+
+    ``specs`` (the parameters' NamedShardings on a mesh): the leaves are
+    this rank's blocks. The norm is the whole tree's (:func:`global_norm`),
+    and a Q8 moment kept whole over an axis its parameter's last dim is
+    cut over (``dist.sharding.moment_spec``) is updated from the gradient
+    and parameter gathered over that axis, the rank keeping its block of
+    the new parameter: every number is the single-device step's."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     # a true division (a float over a tensor would take the reciprocal)
     clip = torch.clamp(torch.div(_f32(cfg.clip_norm).to(gnorm.device),
                                  torch.clamp(gnorm, min=1e-12)), max=1.0)
@@ -185,7 +236,13 @@ def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     bc2 = 1.0 - torch.pow(_f32(cfg.beta2), countf)
     lr = _f32(lr_scale) * cfg.lr
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, spec):
+        whole_over = None
+        if isinstance(m, Q8) and m.codes.shape[-1] != p.shape[-1]:
+            from repro_torch.dist import tensor_parallel as tp
+            whole_over = spec.spec[p.ndim - 1]
+            p_in, p = p, tp._gather_dim(p, spec.mesh, whole_over, p.ndim - 1)
+            g = tp._gather_dim(g, spec.mesh, whole_over, g.ndim - 1)
         g = g.to(torch.float32) * clip
         m_f = _deq8(m) if isinstance(m, Q8) else m
         v_f = _deq8(v, unsigned_sqrt=True) if isinstance(v, Q8) else v
@@ -201,14 +258,20 @@ def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
         if p.ndim >= 2:
             step = step + cfg.weight_decay * pf
         new_p = (pf - lr * step).to(p.dtype)
+        if whole_over is not None:
+            new_p = tp._take_dim(new_p, spec.mesh, whole_over,
+                                 p_in.ndim - 1)
         m_out = _q8(m_new) if isinstance(m, Q8) else m_new
         v_out = _q8(v_new, unsigned_sqrt=True) if isinstance(v, Q8) \
             else v_new
         return new_p, m_out, v_out
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-        tree_leaves(state["v"]))]
+    leaves = tree_leaves(params)
+    spec_leaves = [None] * len(leaves) if specs is None \
+        else tree_leaves(specs)
+    out = [upd(p, g, m, v, sp) for p, g, m, v, sp in zip(
+        leaves, tree_leaves(grads), tree_leaves(state["m"]),
+        tree_leaves(state["v"]), spec_leaves)]
     new_state = {"m": tree_unflatten(state["m"], [o[1] for o in out]),
                  "v": tree_unflatten(state["v"], [o[2] for o in out]),
                  "count": count}

@@ -24,7 +24,12 @@ A QTensor's table is a function of its mode and bits in both packages
 ``@qt_codebook`` is written only when a QTensor carries one explicitly.
 ``restore`` takes a ``device``, or ``shardings``: then each rank reads
 each leaf (through ``mmap``) and keeps its block, as JAX's ``device_put``
-against shardings lays a restored tree onto a mesh.
+against shardings lays a restored tree onto a mesh. ``save`` (and
+``AsyncSaver.save``) from a mesh takes the ``shardings`` of the ranks'
+blocks: the blocks are gathered to rank 0 over the mesh's host group,
+which writes the whole leaves once, so a checkpoint does not depend on
+the mesh that wrote it (JAX's elastic reshard): one saved on (2, 2)
+restores on (1, 2) or one device.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 
 from repro_torch.core.quantization import QTensor, qslice
 from repro_torch.dist import sharding as shd
-from repro_torch.optim.adamw import Q8
+from repro_torch.optim.adamw import Q8, tree_leaves
 
 _SEP = "__"
 _BF16_DESCR = "<V2"     # the header numpy writes for an ml_dtypes bfloat16
@@ -99,8 +104,15 @@ def _write_npy(path: str, arr: np.ndarray, descr: Optional[str]) -> None:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
-    """Synchronous atomic save. Returns the final step directory."""
+         keep: int = 3, shardings=None) -> Optional[str]:
+    """Synchronous atomic save. Returns the final step directory.
+    ``shardings`` (of ``tree``'s blocks on a mesh; every rank calls): the
+    whole tree is gathered to rank 0 and written there; the other ranks
+    write nothing and get None."""
+    if shardings is not None:
+        tree = gather_whole(tree, shardings)
+        if tree is None:
+            return None
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -142,16 +154,79 @@ def _snapshot(tree):
     return tree
 
 
+def mesh_of(shardings):
+    """The mesh of a shardings tree (None when no leaf names one)."""
+    return next((s.mesh for s in tree_leaves(shardings) if s is not None),
+                None)
+
+
+def _gather_array(block: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+    """Rank 0's whole tensor of every rank's ``block`` (cut by ``spec``),
+    gathered as bytes over the host group (None on the other ranks)."""
+    import torch.distributed as dist
+    t = block.detach().cpu().contiguous()
+    raw = t.reshape(-1).view(torch.uint8) if t.numel() else \
+        torch.zeros(0, dtype=torch.uint8)
+    rank0 = mesh.rank == 0
+    parts = [torch.empty_like(raw) for _ in range(mesh.size)] \
+        if rank0 else None
+    dist.gather(raw, parts, dst=0, group=mesh.host_group)
+    if not rank0:
+        return None
+    shape = shd.whole_shape(t.shape, spec, mesh)
+    whole = torch.empty(shape, dtype=t.dtype)
+    for r, part in enumerate(parts):
+        whole[shd.block_index(shape, spec, mesh, r)] = \
+            part.view(t.dtype).reshape(t.shape)
+    return whole
+
+
+def gather_whole(tree, shardings):
+    """The whole tree of every rank's blocks ``tree`` (cut by
+    ``shardings``, None where whole) on rank 0's host, None on the other
+    ranks: a block of a leaf is taken from each rank, a whole leaf from
+    rank 0. Every rank calls, in the same order."""
+    mesh = mesh_of(shardings)
+    if mesh is None or mesh.size == 1:
+        return _snapshot(tree)
+    rank0 = mesh.rank == 0
+
+    def visit(node, spec):
+        if isinstance(node, dict):
+            return {k: visit(node[k], None if spec is None else spec[k])
+                    for k in node}
+        if isinstance(node, (list, tuple)) and not hasattr(node, "shape"):
+            return type(node)(visit(v, None if spec is None else spec[i])
+                              for i, v in enumerate(node))
+        if spec is None or not any(e is not None for e in spec.spec):
+            return _snapshot(node) if rank0 else None
+        if isinstance(node, Q8):
+            codes = _gather_array(node.codes, spec, mesh)
+            scale = _gather_array(node.scale, spec, mesh)
+            return None if codes is None else Q8(
+                codes, scale, tuple(codes.shape),
+                shd.q8_pad(codes.shape[-1], scale.shape[-1]))
+        return _gather_array(node, spec, mesh)
+
+    whole = visit(tree, shardings)
+    return whole if rank0 else None
+
+
 class AsyncSaver:
     """Snapshot to the host synchronously, write on a background thread
-    (one write in flight)."""
+    (one write in flight). ``shardings`` as for :func:`save`: the
+    snapshot is the gathered whole tree, written by rank 0."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
 
-    def save(self, ckpt_dir: str, step: int, tree, extra=None, keep: int = 3):
-        snapshot = _snapshot(tree)
+    def save(self, ckpt_dir: str, step: int, tree, extra=None, keep: int = 3,
+             shardings=None):
+        snapshot = _snapshot(tree) if shardings is None \
+            else gather_whole(tree, shardings)
         self.wait()
+        if snapshot is None:
+            return
         self._thread = threading.Thread(
             target=save, args=(ckpt_dir, step, snapshot, extra, keep),
             daemon=True)
@@ -194,9 +269,9 @@ def _device_of(leaf, device):
 
 def _leaf_shardings(like, shardings) -> dict:
     """{leaf path: sharding} for the leaves ``shardings`` cuts: a tree of
-    ``like``'s structure whose nodes are NamedSharding (a tensor),
-    QSharding (a QTensor) or None (whole), None at a subtree leaving it
-    whole."""
+    ``like``'s structure whose nodes are NamedSharding (a tensor; a Q8
+    moment, by ``dist.sharding.moment_spec``), QSharding (a QTensor) or
+    None (whole), None at a subtree leaving it whole."""
     out = {}
 
     def visit(path, node, spec):
@@ -211,6 +286,9 @@ def _leaf_shardings(like, shardings) -> dict:
         elif isinstance(node, QTensor):
             out[_SEP.join(path + ["@qt_codes"])] = spec.codes
             out[_SEP.join(path + ["@qt_scale"])] = spec.scale
+        elif isinstance(node, Q8):      # its moment_spec cuts both
+            out[_SEP.join(path + ["@q8_codes"])] = spec
+            out[_SEP.join(path + ["@q8_scale"])] = spec
         else:
             out[_SEP.join(path)] = spec
 
@@ -240,7 +318,9 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
     for name, node in _flatten(like):
         path = os.path.join(d, name + ".npy")
         spec = cuts.get(name)
-        if spec is None:
+        if spec is None or not any(e is not None for e in spec.spec):
+            # a leaf no axis cuts comes back whole where its template is
+            # (an AdamW count stays on the host, as the step keeps it)
             loaded[name] = _tensor(np.load(path), saved_dtypes.get(name),
                                    _device_of(node, device))
             continue
@@ -269,9 +349,11 @@ def _unflatten_like(like, loaded: dict):
                        loaded[_SEP.join(path + ["@qt_scale"])]),
                 codebook=cb)
         if isinstance(node, Q8):
-            return Q8(loaded[_SEP.join(path + ["@q8_codes"])],
-                      loaded[_SEP.join(path + ["@q8_scale"])], node.shape,
-                      node.pad)
+            # a restored block's own shape and padding
+            codes = loaded[_SEP.join(path + ["@q8_codes"])]
+            scale = loaded[_SEP.join(path + ["@q8_scale"])]
+            return Q8(codes, scale, tuple(codes.shape),
+                      shd.q8_pad(codes.shape[-1], scale.shape[-1]))
         return loaded[_SEP.join(path)]
 
     return visit([], like)

@@ -12,8 +12,10 @@ auto-restart driver (PyTorch port of ``repro.train.fault_tolerance``).
 
 Where JAX blocks on the loss (``jax.block_until_ready``), the port
 synchronises the loss's device, so a step's time is its device time and
-a fault inside the step raises inside it. Restoring onto a mesh
-(``shardings=``) is not ported (ROADMAP queue 1 item 12c).
+a fault inside the step raises inside it. On a mesh of ranks
+(``shardings=``) every rank runs the loop on its blocks: the restores
+cut the checkpoint's whole leaves to the rank's blocks, and the saves
+gather the blocks to rank 0, which writes them.
 """
 
 from __future__ import annotations
@@ -81,12 +83,23 @@ def resilient_train(*, train_step: Callable, params, opt_state, dataset,
     failure (RuntimeError, FloatingPointError). Resumes from the latest
     checkpoint under ``ckpt_dir`` if there is one.
 
+    ``shardings`` (the blocks' shardings of ``(params, opt_state)`` on a
+    mesh; every rank of the mesh runs this loop): both restores lay the
+    checkpoint onto this rank's blocks, and every save gathers the blocks
+    to rank 0, which writes them; the ranks meet after each wait for a
+    write, so all read the same latest step. A failure must be raised on
+    every rank at the same step (an injector on each), so that the
+    collectives stay in step; a rank that dies stops the spawn
+    (``launch.mesh.run_ranks`` reports it).
+
     Returns (params, opt_state, metrics_history, restarts)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "resilient_train(shardings=): restoring onto a mesh is not "
-            "ported yet (ROADMAP queue 1 item 12c)")
     saver = ckpt_lib.AsyncSaver()
+    mesh = None if shardings is None else ckpt_lib.mesh_of(shardings)
+
+    def meet():
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
+            dist.barrier(group=mesh.host_group)
     monitor = monitor or StepMonitor()
     restarts = 0
     history = []
@@ -96,7 +109,7 @@ def resilient_train(*, train_step: Callable, params, opt_state, dataset,
     existing = ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None
     if existing is not None:
         (params, opt_state), step = ckpt_lib.restore(
-            ckpt_dir, (params, opt_state))
+            ckpt_dir, (params, opt_state), shardings=shardings)
         log.info("resumed from step %d", step)
 
     while step < total_steps:
@@ -115,7 +128,8 @@ def resilient_train(*, train_step: Callable, params, opt_state, dataset,
                 if step % log_every == 0 or step == total_steps:
                     history.append((step, float(metrics["loss"])))
                 if ckpt_dir and step % save_every == 0:
-                    saver.save(ckpt_dir, step, (params, opt_state))
+                    saver.save(ckpt_dir, step, (params, opt_state),
+                               shardings=shardings)
             break
         except (RuntimeError, FloatingPointError) as e:  # node failure class
             restarts += 1
@@ -124,15 +138,18 @@ def resilient_train(*, train_step: Callable, params, opt_state, dataset,
             if restarts > max_restarts:
                 raise
             saver.wait()
+            meet()
             latest = ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None
             if latest is None:
                 step = 0  # restart from scratch
                 continue
             (params, opt_state), step = ckpt_lib.restore(
-                ckpt_dir, (params, opt_state))
+                ckpt_dir, (params, opt_state), shardings=shardings)
             log.info("restored step %d", step)
 
     saver.wait()
     if ckpt_dir:
-        ckpt_lib.save(ckpt_dir, step, (params, opt_state))
+        ckpt_lib.save(ckpt_dir, step, (params, opt_state),
+                      shardings=shardings)
+    meet()
     return params, opt_state, history, restarts

@@ -7,7 +7,7 @@ tests' tiny dense model (2 layers, d64, f32).
   every parameter and moment bit-equal to the uninterrupted run's, two
   failures within the budget, a failure before the first checkpoint
   restarts from step 0, a budget exceeded raises, the straggler monitor,
-  random access by step, and ``shardings=`` raises (item 12c).
+  random access by step, and ``shardings=`` on a mesh of one.
 - The launcher: the two launchers' parsers have the same flags (option
   strings, dest, action, type, default, choices, help);
   ``main(argv, device="cpu")`` prints the JAX launcher's lines (``arch=
@@ -15,8 +15,9 @@ tests' tiny dense model (2 layers, d64, f32).
   logged step, ``done: restarts=0 stragglers=...``); a second run with
   ``--ckpt`` resumes from the first's last step and runs only the new
   steps; its checkpoint is one the serving launcher restores; a mesh of
-  one in any form runs, and a larger mesh and ``--distributed`` raise
-  (item 12c); without a card and without ``device="cpu"`` it fails.
+  one in any form runs, a larger mesh is the JAX launcher's, and
+  ``--distributed`` outside torchrun raises; without a card and without
+  ``device="cpu"`` it fails.
 """
 
 import contextlib
@@ -31,6 +32,8 @@ import torch
 from repro.launch import train as JT
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import make_dataset
+from repro_torch.dist.sharding import param_specs
+from repro_torch.launch.mesh import single_device_mesh
 from repro_torch.launch import serve as TS
 from repro_torch.launch import train as TT
 from repro_torch.models.model import get_model
@@ -115,11 +118,26 @@ def test_restart_budget_exceeded_raises(setup):
 
 
 def test_shardings_raise(setup):
+    """``shardings=`` restores onto a mesh (the mesh runs are
+    ``tests/test_torch_dist_train.py``); on a mesh of one the specs cut
+    nothing, and a run that crashes and resumes with them ends bit-equal
+    to the plain run."""
     wrapped, params, opt, ds = setup
-    with pytest.raises(NotImplementedError, match="item 12"):
-        resilient_train(train_step=wrapped, params=params, opt_state=opt,
-                        dataset=ds, ckpt_dir="", total_steps=1,
-                        shardings={})
+    mesh = single_device_mesh("cpu")
+    specs = (param_specs(params, mesh),
+             {"m": param_specs(params, mesh), "v": param_specs(params, mesh),
+              "count": None})
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        pA, oA, hA, _ = _train(setup, d1, total=6)
+        pB, oB, hB, rB = resilient_train(
+            train_step=wrapped, params=params, opt_state=opt, dataset=ds,
+            ckpt_dir=d2, total_steps=6, save_every=4, shardings=specs,
+            fail_hook=FailureInjector(fail_at=[5]))
+        assert rB == 1 and hA == hB
+        for a, b in zip(adamw.tree_leaves((pA, oA)),
+                        adamw.tree_leaves((pB, oB))):
+            assert torch.equal(a, b)
 
 
 def test_straggler_monitor():
@@ -185,11 +203,23 @@ def test_mesh_of_one(mesh, want):
     assert TT.build_mesh(mesh) == want
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--mesh", "2x1x1"],
-                                  ["--distributed"]],
-                         ids=["mesh-4x2", "mesh-2x1x1", "distributed"])
-def test_launcher_refuses_more_than_one_card(argv):
-    with pytest.raises(NotImplementedError, match="item 12"):
+@pytest.mark.parametrize("argv,want", [
+    (["--mesh", "4x2"], {"data": 4, "model": 2}),
+    (["--mesh", "2x1x1"], {"pod": 2, "data": 1, "model": 1}),
+    (["--distributed"], None)],
+    ids=["mesh-4x2", "mesh-2x1x1", "distributed"])
+def test_launcher_refuses_more_than_one_card(argv, want, monkeypatch):
+    """A mesh above one card is the JAX launcher's mesh over its ranks
+    (the launcher would spawn them; the spawned runs are
+    ``tests/test_torch_dist_train.py``); ``--distributed`` outside torchrun
+    says where it must run."""
+    args = TT.parse_args(argv + SETS)
+    if want is not None:
+        assert TT.configure(args)[1] == want
+        return
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         TT.main(argv + SETS, device="cpu")
 
 

@@ -35,6 +35,8 @@ from repro.train.loop import make_train_step as j_make_train_step
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.data import pipeline as TD
+from repro_torch.dist.sharding import param_specs
+from repro_torch.launch.mesh import Mesh, single_device_mesh
 from repro_torch.models.model import get_model, make_batch
 from repro_torch.optim import adamw
 from repro_torch.train.loop import make_eval_step, make_train_step
@@ -126,8 +128,10 @@ def test_make_dataset_and_shard_batch():
             np.testing.assert_array_equal(t[k].numpy(), b[k])
     assert isinstance(TD.make_dataset(CFG, 2, 8, source="bytes"),
                       TD.ByteCorpus)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TD.shard_batch(b, mesh=object(), device="cpu")
+    # on a mesh, rank 1 of ("data", "model") = (2, 1) keeps its row
+    rows = TD.shard_batch(b, mesh=Mesh(2, 1, 1, "cpu"), device="cpu")
+    for k in b:
+        np.testing.assert_array_equal(rows[k].numpy(), b[k][1:2])
 
 
 # -- the step -----------------------------------------------------------------
@@ -201,12 +205,24 @@ def test_gradient_clipping_shrinks_update(weights):
 
 
 def test_eval_step_is_the_loss_and_specs_raise(weights):
+    """``make_eval_step`` is the loss; ``grad_specs`` without a
+    NamedSharding a leaf raises, and specs on a mesh of one cut nothing:
+    the step is the single-device one."""
     api = get_model(CFG)
     batch = make_batch(CFG, 1, 4, 16, device="cpu")
     assert float(make_eval_step(api)(weights[1], batch)) == \
         float(api.loss(weights[1], batch))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="NamedSharding"):
         make_train_step(api, adamw.AdamWConfig(), grad_specs={})
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+    specs = param_specs(weights[1], single_device_mesh("cpu"))
+    outs = [make_train_step(api, ocfg, grad_specs=g)(
+        weights[1], adamw.init(weights[1], ocfg), batch, 0)
+        for g in (None, specs)]
+    assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
+    for a, b in zip(adamw.tree_leaves(outs[0][0]),
+                    adamw.tree_leaves(outs[1][0])):
+        assert torch.equal(a, b)
 
 
 def test_trajectory_matches_jax(weights, f32_run):
