@@ -62,7 +62,7 @@ NVIDIA GPU.
    gives the same greedy tokens through the kernels as through the plain
    versions, and so does a ``paged=True, impl="reuse"`` engine against the
    dense engine through the plain versions.
-5. End-to-end runs on full-width repro-100m cut to ``E2E_LAYERS`` (4) of
+5. End-to-end runs on full-width repro-100m cut to ``E2E_LAYERS`` (2) of
    its 12 layers (bf16, random weights from a seed), each with every
    launch count set to 0 just before it and read just after, and each
    checking its own kernels:
@@ -156,7 +156,7 @@ NVIDIA GPU.
    must inject faults, preempt a speculating slot, restore none fast and
    give every request the fault-free target-only run's tokens.
 8. Runs h (moe) and i (vlm): qwen2-moe-a2.7b and chameleon-34b at full
-   width, each cut to 4 layers (the cut printed), serve run a's requests
+   width, each cut to 2 layers (the cut printed), serve run a's requests
    as run a does (its checks: launches on ``.wgmma`` / ``.gemv``, the
    token gate, first-wave logits, greedy agreement, profiles split into
    attention, quantized matmul, expert products and the rest, peak
@@ -282,10 +282,35 @@ NVIDIA GPU.
    ``python -m repro_torch.launch.serve --ckpt <its dir> --reuse --paged``
    must restore its step 40. These two subprocesses run on a second
    lane beside runs n to p, and are checked before run q.
+11b. Run s: the moe, ssm, hybrid and audio families trained on a 2x2
+   mesh, four ranks sharing the card over gloo, in one spawn (a
+   subprocess on a lane): ``launch.train``'s rank body (``train_ranks``)
+   on qwen2-moe-a2.7b cut to 2 of 24 layers (bf16, expert-parallel: a
+   rank holds 32 of the 64 padded experts), xlstm-1.3b cut to 8 of 48
+   (one super-block, float32 as run j serves it), zamba2-1.2b cut to 14
+   of 38 (2 shared-attention sites and the 2 remainder layers, bf16) and
+   whisper-small at full depth (bf16 weights, float32 streams), each at
+   full width, B8 S256, 4 steps, grad_accum 1 (a rank's 4 rows), seed 0,
+   in turn and each freed before the next (the cuts printed). Once the
+   spawn has ended, the same subprocess trains each family on one card
+   with the same flags (``launch.train.main`` in process). Every rank
+   must print the same lines, each step's loss must lie within
+   ``MESH_TRAIN_LOSS_TOL`` of one card's (``MESH_FAMILY_F32_TOL`` for
+   float32 xlstm), a rank must hold exactly its ``param_specs`` blocks
+   (its share printed beside the predicted one, and its peak memory),
+   and its flash forward and backward launches must be exactly its
+   attention layers' (remat counted: the moe's 2, zamba2's 2 sites,
+   whisper's 12 encoder, 12 self and 12 cross; xlstm none). The moe
+   run's checkpoint of step 4 restores on one card with every leaf
+   bit-equal to the ranks' blocks. Its kernel rows (flash forward and
+   backward at a rank's layer: the moe's B4 S256 H8 d128, zamba2's H16
+   d64, whisper's float32 encoder S1500, cross Sq256 Sk1500 and self
+   S256 at H6) follow run r's.
 12. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
    g, in runs h to l, in the launcher phase's in-process ``serve.main``
-   runs, in runs n to q (rank 0) and in run m, beside its main run's; the
-   backward kernel's row from run m), then the result line.
+   runs, in runs n to q (rank 0), in run m, in run r and in run s by
+   family (rank 0), beside its main run's; the backward kernel's row
+   from run m), then the result line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -309,8 +334,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 N_SLOTS, MAX_LEN, DECODE_CHUNK = 8, 1024, 8
 # runs a to g and n serve full-width repro-100m cut to this many of its 12
-# layers (chip time: the script must end well within its 1200 s limit)
-E2E_LAYERS = 4
+# layers (chip time: the script must end well within its 1200 s limit; 4
+# until run s's 185-254 s took the script to 812-980 s)
+E2E_LAYERS = 2
 PROMPT_LENS, N_REQUESTS, MAX_NEW = (64, 200, 511), 16, 64
 SHARED_PREFIX, TAIL_LENS, KV_BLOCK = 256, (64, 200, 255), 16
 ADAPTERS = ("a0", "a1", "a2", "a3")   # run c: requests cycle base + these
@@ -2407,10 +2433,10 @@ def end_to_end_spec_paged(dev, card, ref_tokens):
 # runs h, i, j and k: (config, layers kept, why the rest are cut; None:
 # full depth)
 FAMILY_RUNS = {
-    "moe": ("qwen2-moe-a2.7b", 4, "chip time: the script must finish within "
-            "1080 s with runs p and q; at 24 layers the raw bf16 tree alone "
-            "is 30.3 GB"),
-    "vlm": ("chameleon-34b", 4, "chip time, as run h; at 48 layers its "
+    "moe": ("qwen2-moe-a2.7b", 2, "chip time: the script must finish well "
+            "within 1200 s with runs p to s; at 24 layers the raw bf16 tree "
+            "alone is 30.3 GB"),
+    "vlm": ("chameleon-34b", 2, "chip time, as run h; at 48 layers its "
             "34.3 B parameters (68.6 GB raw plus 34 GB of codes) do not fit "
             "in 80 GB"),
     "ssm": ("xlstm-1.3b", 8, "chip time (run l and the launcher phase "
@@ -4969,6 +4995,305 @@ def dist_module_check(card, lanes) -> dict:
                           for row in ranks[0]["rings"]})
 
 
+# -- run s: the moe, ssm, hybrid and audio families trained on a 2x2 mesh ----
+
+# family -> (arch, layers kept (None: every layer), dtype (None: the
+# config's), int8 AdamW moments); the depth cuts for chip time, xlstm in
+# float32 as run j serves it (a bf16 xlstm-1.3b with random weights does
+# not reproduce itself), the moe's moments int8: its float32 moments
+# (14.6 GB) made its one-card run peak at 63 GB and its checkpoint 17 GB,
+# on a card the other lanes share, and so its expert stacks' int8 moments
+# go through the 2x2 checkpoint and its restore
+MESH_FAMILY_RUNS = {"moe": ("qwen2-moe-a2.7b", 2, None, True),
+                    "ssm": ("xlstm-1.3b", 8, "float32", False),
+                    "hybrid": ("zamba2-1.2b", 14, None, False),
+                    "audio": ("whisper-small", None, None, False)}
+MESH_FAMILY_STEPS = 4
+MESH_FAMILY_ARGS = ("--batch", "8", "--seq", "256", "--steps",
+                    str(MESH_FAMILY_STEPS), "--save-every",
+                    str(MESH_FAMILY_STEPS), "--set", "grad_accum=1")
+# |mesh loss - one-card loss| per step, nats, for a float32 config: the
+# mesh sums the same float32 products in another order
+MESH_FAMILY_F32_TOL = 1e-3
+# each family's rank shapes of flash attention (B, Sq, Sk, H, Hk, d,
+# causal, dtype): a 2x2 rank's 4 of 8 rows and half of the heads; the
+# audio model's attention runs in float32 (its encoder and decoder
+# streams are float32 in the reference)
+MESH_FAMILY_FLASH = {
+    "moe": ((4, 256, 256, 8, 8, 128, True, "bfloat16"),),
+    "hybrid": ((4, 256, 256, 16, 16, 64, True, "bfloat16"),),
+    "audio": ((4, 1500, 1500, 6, 6, 64, False, "float32"),
+              (4, 256, 1500, 6, 6, 64, False, "float32"),
+              (4, 256, 256, 6, 6, 64, True, "float32"))}
+
+
+def mesh_family_config(family):
+    """(the cut config, the launcher's flags for it, a line saying the
+    cut) of a family of run s."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, dtype, int8 = MESH_FAMILY_RUNS[family]
+    full = get_config(arch)
+    sets = {"grad_accum": 1}
+    if layers is not None:
+        sets["n_layers"] = layers
+    if dtype is not None:
+        sets["dtype"] = dtype
+    if int8:
+        sets["int8_optimizer"] = True
+    cfg = dataclasses.replace(full, **sets)
+    argv = ["--arch", arch, *MESH_FAMILY_ARGS,
+            *[a for k, v in sets.items() if k != "grad_accum"
+              for a in ("--set", f"{k}={v}")]]
+    cut = (f"{arch} at full width (d{cfg.d_model}), {cfg.n_layers} of "
+           f"{full.n_layers} layers"
+           + (f" and {cfg.n_enc_layers} encoder layers"
+              if cfg.is_encoder_decoder else "")
+           + f", {cfg.dtype}, grad_accum 1 (the config's {full.grad_accum}:"
+           " a rank's 4 rows a step)"
+           + (", int8 AdamW moments" if int8 else ""))
+    return cfg, argv, cut
+
+
+def mesh_family_flash(cfg, steps: int) -> tuple:
+    """(flash forward, flash backward) launches a rank of run s makes in
+    ``steps`` steps of one microbatch: one forward a layer's attention,
+    again in the backward's recompute where ``remat`` wraps that layer,
+    and one backward each. The moe decoder's layers and the audio
+    model's encoder, self- and cross-attention layers are rematerialized;
+    the hybrid's shared attention block (one a site) is not; the ssm
+    family has no attention."""
+    from repro_torch.models import hybrid
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        sites = hybrid._groups(cfg)[0]
+        return sites * steps, sites * steps
+    layers = cfg.n_layers + (cfg.n_layers + cfg.n_enc_layers
+                             if cfg.is_encoder_decoder else 0)
+    return layers * (2 if cfg.remat else 1) * steps, layers * steps
+
+
+def mesh_family_ckpt():
+    return ROOT / "build" / "mesh_s_moe_ckpt"
+
+
+def mesh_family_rank(mesh) -> dict:
+    """One rank of run s: ``launch.train``'s rank body
+    (``train_ranks``: launches counted from 0 just before it) on each
+    family in turn, each freed before the next, with its wall time and
+    the rank's peak device memory; the moe's run checkpoints its last
+    step."""
+    import gc
+    import torch
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for family in MESH_FAMILY_RUNS:
+        argv = mesh_family_config(family)[1] + ["--mesh", "2x2"]
+        if family == "moe":
+            argv += ["--ckpt", str(mesh_family_ckpt())]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = train.train_ranks(mesh, argv, log_every=1)
+        torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if family != "moe":
+            r.pop("digests")
+        out[family] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_family_run(out, device="cuda"):
+    """Run s (a subprocess on a lane): the four ranks at 2x2 on the card
+    over gloo (:func:`mesh_family_rank`), then, once they have ended, the
+    one-card run of each family with the same flags (``launch.train.main``
+    in this process), then the moe's checkpoint restored onto the card
+    against the ranks' blocks; writes everything to ``out``. ``device``:
+    the card (a rehearsal on the host passes "cpu")."""
+    import concurrent.futures
+    import gc
+    import hashlib
+    import shutil
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import Mesh, run_ranks
+    from repro_torch.launch.train import _blocks
+    from repro_torch.models.model import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(mesh_family_ckpt(), ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_family_rank, 4, device,
+                      mesh_shape={"data": 2, "model": 2}, threads=1)
+    spawn_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    one = {}
+    for family in MESH_FAMILY_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        lines, losses, wall = train_main(mesh_family_config(family)[1], dev)
+        one[family] = dict(lines=lines, losses=losses, wall_s=wall,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2**30)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the moe's checkpoint on one card, cut again for each rank: every
+    # block's bytes against the digest the rank took of its own
+    t1 = time.perf_counter()
+    cfg = mesh_family_config("moe")[0]
+    meta = get_model(cfg).init(seed=0, device="meta")
+    like = (meta, adamw.init(meta, adamw.AdamWConfig(
+        int8_moments=cfg.int8_optimizer)))
+    tree, step = checkpoint.restore(str(mesh_family_ckpt()), like,
+                                    device=dev)
+    equal = step == MESH_FAMILY_STEPS
+
+    def digest(t):     # hashlib lets go of the GIL: threads hash at once
+        t = t.detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8) if t.numel() else t
+        return hashlib.sha1(raw.numpy().data).hexdigest()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for rank, r in enumerate(ranks):
+            mesh = Mesh(axes={"data": 2, "model": 2}, rank=rank, device=dev)
+            pspec = shd.param_specs(meta, mesh, shd.DEFAULT_RULES)
+            ospec = adamw.state_specs(like[1], pspec)
+            cut = checkpoint._flatten((_blocks(tree[0], pspec, mesh),
+                                       _blocks(tree[1], ospec, mesh)))
+            got = pool.map(digest, [t for _, t in cut])
+            equal &= all(r["moe"]["digests"][name] == d
+                         for (name, _), d in zip(cut, got))
+            r["moe"].pop("digests")
+            del cut
+    restore_s = time.perf_counter() - t1
+    del tree
+    shutil.rmtree(mesh_family_ckpt(), ignore_errors=True)
+    Path(out).write_text(json.dumps(dict(
+        ranks=ranks, one_card=one, spawn_s=spawn_s, restored_equal=equal,
+        restore_s=restore_s, wall_s=time.perf_counter() - t0)))
+
+
+def mesh_family_submit(lane) -> None:
+    """Queue run s's subprocess (:func:`mesh_family_run`) on ``lane``."""
+    lane.submit(("mesh s", "families"), [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "chip_smoke.mesh_family_run(sys.argv[1])",
+        str(OUT / "mesh_s_families.json")])
+
+
+def mesh_family_kernel_phase(dev, flush) -> list:
+    """Run s's rank shapes of flash attention, forward and backward
+    (``MESH_FAMILY_FLASH``)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(34)
+    rows = []
+    for cases in MESH_FAMILY_FLASH.values():
+        for case in cases:
+            b, sq, sk, h, hk, d, causal, dtype_name = case
+            rows += flash_case(h, hk, d, dtype_name, g, dev, flush, sq=sq,
+                               sk=sk, causal=causal, b=b)
+            rows.append(flash_bwd_case(case, g, dev, flush))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def end_to_end_mesh_family(card, lane) -> dict:
+    """Run s's checks, once its subprocess (:func:`mesh_family_run`) is
+    done: for each family every rank prints the same lines (the JAX
+    launcher's, ``devices=4 mesh={'data': 2, 'model': 2}``), each step's
+    loss lies within ``MESH_TRAIN_LOSS_TOL`` (``MESH_FAMILY_F32_TOL`` for a
+    float32 config) of the one-card run's, a rank holds exactly the
+    blocks ``param_specs`` gives it, and its flash forward and backward
+    launches are exactly :func:`mesh_family_flash`'s; the moe's
+    checkpoint restores on one card with every leaf bit-equal to the
+    ranks' blocks."""
+    import re
+    rc, _, stderr, wall = lane.result(("mesh s", "families"))
+    check(rc == 0, f"run s: exit {rc}: {stderr[-3000:]}")
+    res = json.loads((OUT / "mesh_s_families.json").read_text())
+    ranks, one = res["ranks"], res["one_card"]
+    out = {}
+    for family in MESH_FAMILY_RUNS:
+        cfg, argv, cut = mesh_family_config(family)
+        rs = [r[family] for r in ranks]
+        lines = rs[0]["out"].splitlines()
+        same = all(r["out"] == rs[0]["out"] for r in rs)
+        losses = [float(m.group(1)) for m in
+                  (re.fullmatch(r"step +\d+  loss (\S+)", ln) for ln in lines)
+                  if m]
+        gaps = [abs(a - b) for a, b in zip(losses, one[family]["losses"])]
+        tol = MESH_FAMILY_F32_TOL if cfg.dtype == "float32" \
+            else MESH_TRAIN_LOSS_TOL
+        fwd, bwd = mesh_family_flash(cfg, MESH_FAMILY_STEPS)
+        launches = [(r["launches"].get("flash_attention", 0),
+                     r["launches"].get("flash_attention_bwd", 0)) for r in rs]
+        tc = [r["launches"].get("flash_attention.wgmma", 0) for r in rs]
+        shares = [r["bytes"] / r["whole_bytes"] for r in rs]
+        predicted = [r["spec_bytes"] / r["whole_bytes"] for r in rs]
+        print(f"e2e mesh s [{card}] {family}: {cut}; B8 S256, "
+              f"{MESH_FAMILY_STEPS} steps on 2x2 ranks sharing the card "
+              f"(gloo)", flush=True)
+        print(f"e2e mesh s [{card}] {family}: losses "
+              + " ".join(f"{x:.4f}" for x in losses) + "; one card "
+              + " ".join(f"{x:.4f}" for x in one[family]["losses"])
+              + f"; largest gap {max(gaps):.4f} nats (tol {tol}); every rank "
+              f"the same lines {same}; walls: ranks "
+              + " / ".join(f"{r['wall_s']:.1f}" for r in rs)
+              + f" s, one card {one[family]['wall_s']:.1f} s", flush=True)
+        for rank, r in enumerate(rs):
+            print(f"e2e mesh s [{card}] {family}: rank {rank} holds "
+                  f"{r['bytes'] / 2**30:.4f} GiB of parameters and moments, "
+                  f"a share {shares[rank]:.4f} of the whole tree's "
+                  f"{r['whole_bytes'] / 2**30:.4f} GiB (param_specs "
+                  f"predict {predicted[rank]:.4f}); peak "
+                  f"{r['peak_gib']:.3f} GiB (one card "
+                  f"{one[family]['peak_gib']:.3f}); flash forward "
+                  f"{launches[rank][0]} ({tc[rank]} on .wgmma), backward "
+                  f"{launches[rank][1]} (expected {fwd}, {bwd})", flush=True)
+        check(rc == 0 and lines[0] == f"arch={cfg.name} devices=4 "
+              "mesh={'data': 2, 'model': 2}", f"run s {family}: {lines[:1]}")
+        check(re.fullmatch(r"done: restarts=0 stragglers=\d+", lines[-1]),
+              f"run s {family}: {lines[-1]}")
+        check(same, f"run s {family}: the ranks printed different lines")
+        check(len(losses) == len(one[family]["losses"]) == MESH_FAMILY_STEPS
+              and max(gaps) <= tol, f"run s {family}: loss gaps {gaps}")
+        check(all(r["bytes"] == r["spec_bytes"] for r in rs),
+              f"run s {family}: a rank's bytes are not its specs' blocks")
+        check(all(n == (fwd, bwd) for n in launches),
+              f"run s {family}: flash launches {launches}, want {fwd, bwd}")
+        out[family] = dict(
+            cut=cut, losses=losses, one_card_losses=one[family]["losses"],
+            loss_gaps=gaps, loss_tol=tol, same_lines=same, shares=shares,
+            predicted_shares=predicted, peak_gib=[r["peak_gib"] for r in rs],
+            one_card_peak_gib=one[family]["peak_gib"],
+            launches=rs[0]["launches"],
+            launches_ranks=[r["launches"] for r in rs],
+            walls=dict(ranks=[r["wall_s"] for r in rs],
+                       one_card=one[family]["wall_s"]))
+    print(f"e2e mesh s [{card}]: the moe's checkpoint of step "
+          f"{MESH_FAMILY_STEPS} from the 2x2 ranks, restored on one card: "
+          f"every leaf bit-equal to the ranks' blocks "
+          f"{res['restored_equal']} ({res['restore_s']:.1f} s); the spawn "
+          f"{res['spawn_s']:.1f} s, the subprocess {wall:.1f} s", flush=True)
+    check(res["restored_equal"], "run s: a restored moe leaf differs from a "
+          "rank's block")
+    return dict(families=out, restored_equal=res["restored_equal"],
+                walls=dict(spawn=res["spawn_s"], restore=res["restore_s"],
+                           lane=wall))
+
+
+def mesh_family_launches(e2e, name) -> dict:
+    """A kernel's launches in run s by family (rank 0's)."""
+    return {f: r["launches"].get(name, 0)
+            for f, r in e2e["mesh s"]["families"].items()}
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -5060,6 +5385,7 @@ def main() -> int:
     stamp("the flash backward kernel phase")
     rows += mesh_kernel_phase(dev, flush)
     rows += mesh_train_kernel_phase(dev, flush)
+    rows += mesh_family_kernel_phase(dev, flush)
     stamp("the mesh runs' kernel rows")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
@@ -5091,8 +5417,9 @@ def main() -> int:
     # the launchers' subprocesses run on two lanes beside the in-process
     # launcher runs and runs n to p, which time nothing but the host's
     # gloo, and run r's on a third and after run m's launchers; run o's
-    # ranks spawn beside run n's; run q (its module phase timed) starts
-    # once the lanes have drained, and run m, timed, after it
+    # ranks spawn beside run n's; run s (its moe ranks take most of the
+    # card) runs alone once run r's lanes have drained; run q (its module
+    # phase timed) starts after it, and run m, timed, after that
     lanes = [CliLane(), CliLane(), CliLane()]
     try:
         launcher = launcher_phase(dev, card, lanes[0])
@@ -5121,6 +5448,9 @@ def main() -> int:
         stamp("the launchers' subprocesses")
         e2e["mesh r"] = end_to_end_mesh_train(dev, card, lanes)
         stamp("run r and the dist modules")
+        mesh_family_submit(lanes[2])                # run s, alone
+        e2e["mesh s"] = end_to_end_mesh_family(card, lanes[2])
+        stamp("run s")
         # full depth: runs a and b's tokens are another model's
         e2e["mesh q"] = end_to_end_mesh(
             dev, card, "q", {"b hits": reuse_paged["prefix_hit_tokens"]},
@@ -5164,9 +5494,9 @@ def main() -> int:
             # run m's in-process launch.train.main
             launches_train=e2e["train"]["launches"].get(name, 0),
             # run r's 2x2 training (rank 0's, every rank's in the details)
-            # and, for the matmuls, the ring matmuls by form, model size,
-            # batch and impl (rank 0's)
-            launches_mesh_train=e2e["mesh r"]["launches"].get(name, 0)))
+            launches_mesh_train=e2e["mesh r"]["launches"].get(name, 0),
+            # run s's 2x2 training of the other families (rank 0's)
+            launches_mesh_family_train=mesh_family_launches(e2e, name)))
         if name in ("axllm_matmul", "reuse_matmul"):
             # the ring matmuls by form, model size, batch and impl (rank 0's)
             kernels[-1]["launches_rings"] = {
@@ -5241,7 +5571,9 @@ def main() -> int:
         launches_from="train", path="simt",
         launches_train=e2e["train"]["launches"]["flash_attention_bwd"],
         launches_mesh_train=e2e["mesh r"]["launches"].get(
-            "flash_attention_bwd", 0)))
+            "flash_attention_bwd", 0),
+        launches_mesh_family_train=mesh_family_launches(
+            e2e, "flash_attention_bwd")))
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
              e2e=e2e, simulator=simulator, chaos=chaos), indent=1,

@@ -584,14 +584,15 @@ def kv_for_heads(kv: torch.Tensor, cfg, lay: Layout) -> torch.Tensor:
 # that autograd goes through
 # ---------------------------------------------------------------------------
 
-# the families that train on a mesh above one rank
-TRAIN_FAMILIES = ("dense", "vlm")
-
-# the dim of each leaf the training forward cuts over "model" (Megatron:
-# column-parallel out dims, row-parallel in dims, the vocabulary)
+# the dim of each leaf of a family's table (``_table``) that the training
+# forward cuts over "model" (Megatron: column-parallel out dims, among
+# them the mLSTM up and Mamba2's in_proj/out_proj, row-parallel in dims,
+# the vocabulary, the expert stacks' expert dim)
 _TRAIN_DIM = {"embedding": -2, "lm_head": -1, "wq": -1, "wq_bias": -1,
               "wk": -1, "wk_bias": -1, "wv": -1, "wv_bias": -1, "wo": -2,
-              "gate": -1, "up": -1, "down": -2}
+              "gate": -1, "up": -1, "down": -2, "expert_gate": -3,
+              "expert_up": -3, "expert_down": -3, "in_proj": -1,
+              "out_proj": -1}
 
 
 def _differentiable(x: torch.Tensor) -> bool:
@@ -733,10 +734,10 @@ def _walk_paths(tree, fn, path=()):
     return fn(path, tree)
 
 
-def _group_key(path) -> str:
-    """The key of a leaf path that names its group in ``_GROUPS``."""
+def _group_key(path, groups) -> str:
+    """The key of a leaf path that names its group in ``groups``."""
     for k in reversed(path):
-        if k in _GROUPS:
+        if k in groups:
             return k
     return path[-1] if path else ""
 
@@ -746,47 +747,40 @@ def train_layout(cfg, mesh, specs, whole) -> Optional[Layout]:
     of one): the parameters are stored as the blocks of ``specs`` (a
     NamedSharding a leaf of the ``whole`` tree, usually ``param_specs``
     under ``DEFAULT_RULES``: FSDP over "data", tensor-parallel over
-    "model"), and the forward cuts over "model" each group of
-    ``_GROUPS`` whose every leaf ``specs`` cuts over "model" on its
-    Megatron dim, with whole heads (q heads dividing the axis; the KV
+    "model"), and the forward cuts over "model" each group of the
+    family's table (``groups_for``, the one serving's ``plan`` reads)
+    whose every leaf ``specs`` cuts over "model" on its Megatron dim
+    (``_TRAIN_DIM``), with whole heads (q heads dividing the axis; the KV
     heads cut only with them, else each rank reads the KV heads its q
-    heads need). Every other leaf is gathered whole for the forward. The
-    batch is cut over ("pod", "data"). Raises ValueError for specs the
-    step cannot honour (another mesh, an axis a parameter cannot be cut
-    over, a dim that does not split) and NotImplementedError for a family
-    that does not train on a mesh yet."""
+    heads need) and a Mamba2 ``in_proj`` only where its cut falls on
+    segment boundaries. Every other leaf is gathered whole for the
+    forward. The batch is cut over ("pod", "data"). Raises ValueError for
+    specs the step cannot honour (another mesh, an axis a parameter
+    cannot be cut over, a dim that does not split)."""
     if mesh.size == 1:
         return None
-    check_train_family(cfg, mesh.size)
+    groups = groups_for(cfg)
     cut = {}
 
     def visit(path, leaf):
         spec = _at(specs, path)
         _check_spec("/".join(path), spec, leaf.shape, mesh)
-        key = _group_key(path)
-        if key in _GROUPS and path[-1] in _TRAIN_DIM:
+        key = _group_key(path, groups)
+        if key in groups and path[-1] in _TRAIN_DIM:
             entries = _entries(spec, leaf.ndim)
             ok = entries[_TRAIN_DIM[path[-1]]] == "model"
-            cut[_GROUPS[key]] = cut.get(_GROUPS[key], True) and ok
+            cut[groups[key]] = cut.get(groups[key], True) and ok
         return None
 
     _walk_paths(whole, visit)
     m = mesh.shape.get("model", 1)
-    flags = {f: bool(cut.get(f)) and m > 1 for f in
-             ("heads", "kv_heads", "mlp", "vocab")}
+    flags = {f: bool(cut.get(f)) and m > 1 for f in _FLAGS if f != "seq"}
     flags["heads"] &= cfg.n_heads % m == 0
     flags["kv_heads"] &= flags["heads"] and cfg.n_kv_heads % m == 0
-    return Layout(mesh, dict(shd.DEFAULT_RULES), dict(_GROUPS), seq=False,
+    if "in_proj" in groups:
+        flags["ssm_in"] &= _segments_whole(_mamba_segments(cfg), m)
+    return Layout(mesh, dict(shd.DEFAULT_RULES), groups, seq=False,
                   batch_axes=batch_axes(mesh), train=True, **flags)
-
-
-def check_train_family(cfg, ranks: int) -> None:
-    """Raise for a family that does not train on a mesh above one rank."""
-    if ranks > 1 and cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family on a mesh of {ranks} ranks is "
-            "not ported yet (ROADMAP queue 1 item 12e); it trains on one "
-            "card")
 
 
 def _at(tree, path):
@@ -797,13 +791,17 @@ def _at(tree, path):
 
 def _inside(path, lay: Layout) -> bool:
     """Whether the forward reads leaf ``path`` whole inside a block it cuts
-    over "model", so that each rank's gradient is only its part: the KV
-    projections a rank's q heads regroup, the q/k norms of its heads."""
+    over "model", so that each rank's gradient is only its part: the MoE
+    router, whose weights combine only the rank's experts' outputs; the
+    KV projections a rank's q heads regroup, the q/k norms of its
+    heads."""
+    if lay.experts and path[-1] == "router":
+        return True
     if not lay.heads:
         return False
     if "q_norm" in path or "k_norm" in path:
         return True
-    return not lay.kv_heads and _group_key(path) in (
+    return not lay.kv_heads and _group_key(path, lay.groups) in (
         "wk", "wv", "wk_bias", "wv_bias")
 
 
@@ -821,7 +819,7 @@ def to_compute(params, specs, lay: Layout):
 
     def leaf(path, x):
         spec = _entries(_at(specs, path), x.ndim)
-        key = _group_key(path)
+        key = _group_key(path, lay.groups)
         keep = None
         if lay.cuts(key) and path[-1] in _TRAIN_DIM:
             keep = x.ndim + _TRAIN_DIM[path[-1]]

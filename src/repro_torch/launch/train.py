@@ -165,9 +165,7 @@ def init_blocks(api, ocfg, mesh, params=None):
     rank's blocks (``adamw.state_specs`` of the whole tree's, which
     decides int8 by the whole leaf)."""
     from repro_torch.dist import sharding as shd
-    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.optim import adamw
-    tp.check_train_family(api.cfg, mesh.size)
     whole = api.init(seed=0, device="meta")
     pspec = shd.param_specs(whole, mesh, shd.DEFAULT_RULES)
     ospec = adamw.state_specs(adamw.init(whole, ocfg), pspec)
@@ -245,8 +243,8 @@ def train_ranks(mesh, argv, fail_hook=None, log_every=10):
     """One rank of a spawned mesh: train, and return its printed lines
     (``out``), its kernel launches, a digest of each block it holds at the
     end (``digests``, by checkpoint leaf name) and the bytes of its
-    parameters plus moments (``bytes``) beside the whole tree's
-    (``whole_bytes``)."""
+    parameters plus moments (``bytes``) beside those its specs give it
+    (``spec_bytes``) and the whole tree's (``whole_bytes``)."""
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
     from repro_torch.optim import adamw
@@ -263,7 +261,21 @@ def train_ranks(mesh, argv, fail_hook=None, log_every=10):
     return {"out": buf.getvalue(), "launches": dict(_build.LAUNCHES),
             "digests": block_digests((params, opt)),
             "bytes": tree_bytes((params, opt["m"], opt["v"])),
+            "spec_bytes": spec_bytes(whole, moments, mesh),
             "whole_bytes": tree_bytes((whole, moments["m"], moments["v"]))}
+
+
+def spec_bytes(whole, moments, mesh) -> int:
+    """The bytes of the parameters and moments a rank of ``mesh`` holds as
+    ``param_specs`` under ``DEFAULT_RULES`` (and ``adamw.state_specs``)
+    cut them, from the whole trees on the meta device."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim import adamw
+    pspec = shd.param_specs(whole, mesh, shd.DEFAULT_RULES)
+    ospec = adamw.state_specs(moments, pspec)
+    return tree_bytes((_blocks(whole, pspec, mesh),
+                       _blocks(moments["m"], ospec["m"], mesh),
+                       _blocks(moments["v"], ospec["v"], mesh)))
 
 
 def main(argv=None, device="cuda", *, fail_hook=None, monitor=None,
@@ -303,8 +315,6 @@ def main(argv=None, device="cuda", *, fail_hook=None, monitor=None,
         params, _ = _run(args, cfg, device, None, fail_hook, monitor,
                          log_every, shape)
         return params
-    from repro_torch.dist import tensor_parallel as tp
-    tp.check_train_family(cfg, world)
     argv = sys.argv[1:] if argv is None else list(argv)
     results = M.run_ranks(train_ranks, world, device, argv, fail_hook,
                           log_every, mesh_shape=shape)

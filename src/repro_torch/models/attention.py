@@ -185,8 +185,10 @@ def _quantize_kv(x):
     return codes, s.to(torch.float32)
 
 
-def attention_fwd(p, x, cfg, *, impl: str = "auto"):
-    """Full-sequence causal attention (no cache). Under a layout that cuts
+def attention_fwd(p, x, cfg, *, impl: str = "auto", causal: bool = True,
+                  rope: bool = True):
+    """Full-sequence attention (no cache): causal with RoPE, or (the audio
+    encoder's) bidirectional without positions. Under a layout that cuts
     the heads (the training step's, ``tp.train_layout``) a rank attends
     over its own q heads, with its KV heads or the whole KV heads its q
     heads read, and wo ends the block in one all-reduce."""
@@ -195,13 +197,14 @@ def attention_fwd(p, x, cfg, *, impl: str = "auto"):
     cut = lay is not None and lay.heads
     if cut:
         x = tp.enter(x, lay.mesh)
-    positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, impl)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if rope:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     if _regroup(lay):
         k, v = tp.kv_for_heads(k, cfg, lay), tp.kv_for_heads(v, cfg, lay)
-    out = ops.flash_attention(q, k, v, causal=True, impl=impl)
+    out = ops.flash_attention(q, k, v, causal=causal, impl=impl)
     return L.row_parallel(out.reshape(b, s, -1), p["wo"], impl,
                           lay if cut else None)
 

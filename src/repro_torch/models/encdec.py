@@ -22,6 +22,13 @@ The JAX package computes the frontend and the cross K/V projections
 without an ``impl``; here they take ``ops._base_impl(impl)`` ("reuse" ->
 "auto"), which is the same kernel choice and keeps the plain path plain.
 Prefill and decode write the cache in place.
+
+Under a training layout that cuts the heads (``tp.train_layout``) the
+encoder's attention, the decoder's self-attention and its
+cross-attention each attend over the rank's heads and end in one
+all-reduce (``attention.attention_fwd``'s form); the encoder output
+enters the decoder once, so its gradient is summed over the ranks. The
+frontend, the sinusoids and the norms stay whole.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.axllm_linear import concat_weights, linear
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -80,10 +88,11 @@ def init_dec_layer(gen, cfg, dtype, lead=()):
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Random weights made from ``seed`` on ``device``; layers stacked on
-    a leading axis (``n_enc_layers`` and ``n_layers``)."""
+    """Random weights made from ``seed`` on ``device`` (on "meta": their
+    shapes and dtypes only); layers stacked on a leading axis
+    (``n_enc_layers`` and ``n_layers``)."""
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     return {
         "embed": L.init_embed(gen, cfg, dtype),
         "frontend": L.init_linear(gen, cfg.d_feat, cfg.d_model, dtype),
@@ -99,13 +108,11 @@ def encode(params, frames, cfg, impl: str = "auto"):
     x = linear(frames.to(torch.float32), params["frontend"],
                impl=ops._base_impl(impl))
     x = x + _sinusoid(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
-    b, f, _ = x.shape
 
     def body(lp, x):
         h = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = A._project_qkv(lp["attn"], h, cfg, impl)
-        att = ops.flash_attention(q, k, v, causal=False, impl=impl)
-        x = x + linear(att.reshape(b, f, -1), lp["attn"]["wo"], impl=impl)
+        x = x + A.attention_fwd(lp["attn"], h, cfg, impl=impl, causal=False,
+                                rope=False)
         h2 = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
         return x + L.mlp_fwd(lp["mlp"], h2, cfg, impl=impl)
 
@@ -141,9 +148,10 @@ def fuse_params(params, cfg):
 
 
 def _cross_kv(lp, enc_out, cfg, impl: str = "auto"):
-    """Cross-attention K/V of the encoder output: [B, F, Hk, hd] each."""
+    """Cross-attention K/V of the encoder output: [B, F, Hk, hd] each (a
+    rank's KV heads under a layout that cuts them)."""
     b, f, _ = enc_out.shape
-    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    hk, hd = tp.local_heads(cfg, tp.active())[1], cfg.resolved_head_dim
     ca, impl = lp["cross_attn"], ops._base_impl(impl)
     if "wkv" in ca:      # fused: one [d, 2·Hk·hd] pass over the encoder out
         k, v = torch.chunk(linear(enc_out, ca["wkv"], impl=impl), 2, dim=-1)
@@ -160,7 +168,9 @@ def _dec_layer(lp, x, cfg, impl, enc_out=None, cross_kv=None,
     or "decode" (one token at ``pos``, cross-attending ``cross_lengths``
     frames a row); the last two take ``cross_kv``."""
     b, s = x.shape[0], x.shape[1]
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    lay = tp.active()
+    cut = lay is not None and lay.heads
+    h, hd = tp.local_heads(cfg, lay)[0], cfg.resolved_head_dim
     hh = L.norm_fwd(lp["ln1"], x, cfg.norm_eps)
     if mode == "train":
         att = A.attention_fwd(lp["self_attn"], hh, cfg, impl=impl)
@@ -172,9 +182,14 @@ def _dec_layer(lp, x, cfg, impl, enc_out=None, cross_kv=None,
                                  impl=impl)
     x = x + att
     hx = L.norm_fwd(lp["ln_x"], x, cfg.norm_eps)
+    if cut:
+        hx = tp.enter(hx, lay.mesh)
     q = linear(hx, lp["cross_attn"]["wq"], impl=impl).reshape(b, s, h, hd)
     if mode == "train":
         ck, cv = _cross_kv(lp, enc_out, cfg, impl)
+        if A._regroup(lay):
+            ck, cv = tp.kv_for_heads(ck, cfg, lay), tp.kv_for_heads(cv, cfg,
+                                                                     lay)
         catt = ops.flash_attention(q, ck, cv, causal=False, impl=impl)
     else:
         ck, cv = cross_kv
@@ -183,8 +198,8 @@ def _dec_layer(lp, x, cfg, impl, enc_out=None, cross_kv=None,
                                         impl=impl)[:, None]
         else:
             catt = ops.flash_attention(q, ck, cv, causal=False, impl=impl)
-    x = x + linear(catt.reshape(b, s, -1), lp["cross_attn"]["wo"],
-                   impl=impl)
+    x = x + L.row_parallel(catt.reshape(b, s, -1), lp["cross_attn"]["wo"],
+                           impl, lay if cut else None)
     h2 = L.norm_fwd(lp["ln2"], x, cfg.norm_eps)
     return x + L.mlp_fwd(lp["mlp"], h2, cfg, impl=impl)
 
@@ -200,6 +215,11 @@ def forward(params, batch, cfg, impl: str = "auto"):
     V_padded]."""
     enc_out = encode(params, batch["frames"], cfg, impl=impl)
     x = _embed(params, batch["tokens"], cfg, enc_out.dtype)
+    lay = tp.active()
+    if lay is not None and lay.heads:
+        # every layer's column-parallel cross K/V reads the encoder output:
+        # one entry sums its gradient over the ranks, all layers' at once
+        enc_out = tp.enter(enc_out, lay.mesh)
     for i in range(cfg.n_layers):   # rematerialized under cfg.remat
         x = L.remat(cfg, lambda lp, x, enc: _dec_layer(lp, x, cfg, impl,
                                                        enc_out=enc),

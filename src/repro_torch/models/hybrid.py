@@ -47,9 +47,10 @@ def init_shared_block(gen, cfg, dtype):
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Random weights made from ``seed`` on ``device``."""
+    """Random weights made from ``seed`` on ``device`` (on "meta": their
+    shapes and dtypes only)."""
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     n_full, rem, every = _groups(cfg)
     p = {
         "embed": L.init_embed(gen, cfg, dtype),

@@ -41,6 +41,14 @@ def truncated_normal(gen: torch.Generator, shape, std: float,
     return t.to(dtype) * std
 
 
+def uniform(gen, shape) -> torch.Tensor:
+    """Float32 draws from U[0, 1) of ``shape`` (on "meta": the shape
+    only)."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
 def init_linear(gen, n_in: int, n_out: int, dtype=torch.float32, lead=()):
     return truncated_normal(gen, (*lead, n_in, n_out), n_in ** -0.5, dtype)
 

@@ -25,7 +25,11 @@ Expert-parallel under a layout that cuts the experts
 (r+1) E/P), routes the same replicated tokens as every rank (the same
 capacity drops), runs the experts it holds among those that hold a pair,
 and one float32 all-reduce sums its combined partial with the shared (or
-dense-residual) expert's row-parallel partial.
+dense-residual) expert's row-parallel partial. In the training step the
+tokens enter the block (their gradient summed over the ranks), and the
+router, read whole, has its gradient summed over them too
+(``tensor_parallel._inside``). Capacity is per batch row, so a batch cut
+over "data" keeps the pairs one device keeps.
 """
 
 from __future__ import annotations
@@ -146,12 +150,15 @@ def moe_ffn(p, x, cfg, impl: str = "auto"):
     k = cfg.top_k
     e = cfg.padded_experts
     cap = capacity(cfg, s)
-    weights, experts = _route(p, x.reshape(-1, d), cfg)
+    lay = tp.active()
+    ep = lay is not None and lay.experts
+    # the routed tokens enter the rank's experts (under autograd x's
+    # gradient is summed over the ranks; the shared MLP enters on its own)
+    xr = tp.enter(x, lay.mesh) if ep else x
+    weights, experts = _route(p, xr.reshape(-1, d), cfg)
     e_sorted, pos_clip, tok_sorted, w_sorted, keep, order = _dispatch_row(
         weights.reshape(b, s, k), experts.reshape(b, s, k), e, cap, k)
 
-    lay = tp.active()
-    ep = lay is not None and lay.experts
     # the experts that hold a pair (every such expert keeps its first one),
     # of those this rank holds under an expert cut
     run = torch.unique(e_sorted)
@@ -173,7 +180,7 @@ def moe_ffn(p, x, cfg, impl: str = "auto"):
         buf = torch.zeros((n_run + 1, b, cap + 1, d), dtype=x.dtype,
                           device=x.device)
         buf[slot, rows, pos_clip] = torch.gather(
-            x, 1, tok_sorted[..., None].expand(b, s * k, d))
+            xr, 1, tok_sorted[..., None].expand(b, s * k, d))
         buf = buf[:n_run, :, :cap].reshape(n_run, b * cap, d)
         local = run - lo
         h = torch.bmm(buf, _w(p, "expert_gate", x.dtype, local))

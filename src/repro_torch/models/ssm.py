@@ -131,7 +131,7 @@ def init_mamba2(gen, cfg, dtype=torch.float32, lead=()):
     # fused in_proj: [z (di), x (di), B (n), C (n), dt (nh)]
     out_dim = 2 * di + 2 * n + nh
     lo, hi = math.log(1e-3), math.log(1e-1)
-    u = torch.rand((*lead, nh), generator=gen, device=dev) * (hi - lo) + lo
+    u = L.uniform(gen, (*lead, nh)) * (hi - lo) + lo
     a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=dev))
     return {
         "ln": L.init_norm(cfg, dev, lead=lead),
@@ -148,11 +148,15 @@ def init_mamba2(gen, cfg, dtype=torch.float32, lead=()):
 
 
 def _column(x, w, impl, cut: str):
-    """``linear(x, w)``; the output gathered whole when the layout cuts
-    ``w``'s columns (flag ``cut``)."""
-    y = linear(x, w, impl=mixer_impl(impl))
+    """``linear(x, w)``; when the layout cuts ``w``'s columns (flag
+    ``cut``) the input enters the column block and the output is gathered
+    whole."""
     lay = tp.active()
-    if lay is not None and getattr(lay, cut):
+    cut = lay is not None and getattr(lay, cut)
+    if cut:
+        x = tp.enter(x, lay.mesh)
+    y = linear(x, w, impl=mixer_impl(impl))
+    if cut:
         y = tp.gather_last(y, lay.mesh)
     return y
 

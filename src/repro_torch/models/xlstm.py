@@ -29,7 +29,9 @@ Under a tensor-parallel layout that cuts the mLSTM projections
 why), ``up`` is column-parallel and its output gathered whole, and
 ``down`` row-parallel on the rank's slice of the normed output, with one
 all-reduce; the conv, q/k, the gates, the cells and every state run whole
-on each rank.
+on each rank. In the training step both blocks' inputs enter them (their
+gradients summed over the ranks), so every leaf read whole gets its whole
+gradient.
 """
 
 from __future__ import annotations
@@ -97,10 +99,13 @@ def _mlstm_qk(p, xc, impl):
 
 def _mlstm_up(p, xn, impl):
     """(x_in, z): the up-projection's halves, gathered whole when the
-    layout cuts its columns."""
-    y = linear(xn, p["up"], impl=impl)
+    layout cuts its columns (the input entering the column block)."""
     lay = tp.active()
-    if lay is not None and lay.mlp:
+    cut = lay is not None and lay.mlp
+    if cut:
+        xn = tp.enter(xn, lay.mesh)
+    y = linear(xn, p["up"], impl=impl)
+    if cut:
         y = tp.gather_last(y, lay.mesh)
     return torch.chunk(y, 2, dim=-1)
 
@@ -110,6 +115,9 @@ def _mlstm_out(p, y, z, cfg, impl):
     lay = tp.active()
     if lay is None or not lay.mlp:
         return linear(y, p["down"], impl=impl)
+    # the whole normed output enters the row block: under autograd the
+    # rank's slice has a gradient only on its rows, summed over the ranks
+    y = tp.enter(y, lay.mesh)
     n = y.shape[-1] // lay.size
     return L.row_parallel(y[..., lay.rank * n:(lay.rank + 1) * n]
                           .contiguous(), p["down"], impl, lay)
@@ -309,9 +317,10 @@ def _superblock_counts(cfg) -> Tuple[int, int]:
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Random weights made from ``seed`` on ``device``."""
+    """Random weights made from ``seed`` on ``device`` (on "meta": their
+    shapes and dtypes only)."""
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     n_super, m_per = _superblock_counts(cfg)
     return {
         "embed": L.init_embed(gen, cfg, dtype),

@@ -95,9 +95,8 @@ def make_train_step(api, opt_cfg: adamw.AdamWConfig, total_steps: int = 10000,
     step then takes and returns this rank's blocks of the parameters and
     the moments (``adamw.state_specs``) and the rank's rows of the batch;
     the gradient of each leaf ends as the rank's block under its spec.
-    Specs the step cannot honour raise ValueError (see
-    ``tensor_parallel.train_layout``); a family that does not train on a
-    mesh yet raises NotImplementedError. On a mesh of one the specs cut
+    Every family trains so. Specs the step cannot honour raise ValueError
+    (see ``tensor_parallel.train_layout``). On a mesh of one the specs cut
     nothing and the step is the single-device one."""
     cfg = api.cfg
     accum = max(cfg.grad_accum, 1)
@@ -106,7 +105,6 @@ def make_train_step(api, opt_cfg: adamw.AdamWConfig, total_steps: int = 10000,
     if grad_specs is not None:
         mesh = _mesh_of(grad_specs)
         if mesh.size > 1:
-            tp.check_train_family(cfg, mesh.size)
             whole = api.init(seed=0, device="meta")
             lay = tp.train_layout(cfg, mesh, grad_specs, whole)
             grad_fn = _mesh_grad_fn(api, grad_specs, lay)

@@ -29,8 +29,11 @@ at step 2 on every rank ends bit-equal to the uninterrupted mesh run;
 body prints in the module's 2x2 spawn, every rank the same lines;
 ``jit_train_step`` cuts whole inputs to the same step; ``param_specs``
 under ``DEFAULT_RULES`` resolves every leaf as JAX's on meshes with a
-"data" axis; ``shard_batch`` and ``batch_specs`` cut as JAX's; the
-families that do not train on a mesh yet raise (item 12e).
+"data" axis; ``shard_batch`` and ``batch_specs`` cut as JAX's; the moe,
+ssm, hybrid and audio families' steps build on a mesh with the layout
+their forwards take (their training on a mesh is held to JAX in
+``tests/test_torch_dist_train_moe_audio.py`` and
+``tests/test_torch_dist_train_recurrent.py``).
 """
 
 import concurrent.futures
@@ -369,17 +372,32 @@ def test_shard_batch_and_batch_specs_cut_as_jax():
             assert got[k].meta.is_meta
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-1.3b",
-                                  "zamba2-1.2b", "whisper-small"])
+# the layout flags the step of each family takes at full width on (1, 2)
+FAMILY_FLAGS = {"qwen2-moe-a2.7b": ("experts", "heads"),
+                "xlstm-1.3b": ("mlp",),
+                "zamba2-1.2b": ("ssm_out",),
+                "whisper-small": ("heads", "kv_heads", "mlp", "vocab")}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_FLAGS))
 def test_families_off_the_mesh_raise_item_12e(arch):
-    """Through the step and through the launcher, before any rank spawns."""
+    """The families that once raised here (ROADMAP item 12e) now train on
+    a mesh: the step of each at full width builds on a (1, 2) CPU mesh
+    from ``param_specs`` of its meta tree, and ``train_layout`` cuts the
+    groups its forward takes as blocks (zamba2's ``in_proj`` stays whole:
+    no cut of it falls on its segments' boundaries)."""
     cfg = get_config(arch)
-    mesh = TM.Mesh(1, 2, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        make_train_step(get_model(cfg), adamw.AdamWConfig(),
-                        grad_specs={"w": shd.NamedSharding(mesh, ())})
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        TT.main(["--arch", arch, "--mesh", "1x2"], device="cpu")
+    api = get_model(cfg)
+    mesh = TM.Mesh(axes={"data": 1, "model": 2}, device="cpu")
+    specs = shd.param_specs(api.init(seed=0, device="meta"), mesh,
+                            shd.DEFAULT_RULES)
+    lay = make_train_step(api, adamw.AdamWConfig(), grad_specs=specs).layout
+    assert lay.train and lay.batch_axes == ()
+    for flag in FAMILY_FLAGS[arch]:
+        assert getattr(lay, flag), flag
+    assert not lay.ssm_in and not lay.seq
+    assert lay.experts == (cfg.family == "moe")
+    assert lay.ssm_out == (cfg.family == "hybrid")
 
 
 def test_specs_the_step_cannot_honour_raise():

@@ -23,6 +23,39 @@ from repro_torch.train.loop import make_train_step
 
 BATCH, SEQ = 8, 32
 
+# each family's arch, its reduced config's overrides (beyond float32) and
+# the leaf its layout cuts over "model"
+FAMILIES = {
+    "moe": ("qwen2-moe-a2.7b", {"grad_accum": 2}, ("layers", "ffn",
+                                                   "expert_gate")),
+    "ssm": ("xlstm-1.3b", {}, ("mlstm", "up")),
+    "hybrid": ("zamba2-1.2b", {}, ("mamba", "out_proj")),
+    "audio": ("whisper-small", {}, ("dec_layers", "self_attn", "wq")),
+}
+
+
+def reduced(family):
+    """The family's reduced float32 config (a ModelConfig)."""
+    from repro_torch.configs import get_config
+    arch, kw, _ = FAMILIES[family]
+    return get_config(arch).reduced(dtype="float32", **kw)
+
+
+def launch_argv(family):
+    """The training launcher's flags for the family's reduced config: its
+    arch, B8 S32, 4 steps at lr 1e-3, and a ``--set`` for each field the
+    reduction changes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch = FAMILIES[family][0]
+    full, red = get_config(arch), reduced(family)
+    sets = [a for f in dataclasses.fields(red)
+            if getattr(red, f.name) != getattr(full, f.name)
+            for a in ("--set", f"{f.name}={getattr(red, f.name)}")]
+    return ["--arch", arch, "--batch", str(BATCH), "--seq", str(SEQ),
+            "--steps", "4", "--lr", "1e-3", "--save-every", "100",
+            *sets]
+
 
 def _np(x):
     return x.detach().float().cpu().numpy() if x.dtype == torch.bfloat16 \
@@ -54,13 +87,24 @@ def start(mesh, cfg_kw, params_np, int8=False):
     return cfg, step, params, opt, pspec, ospec
 
 
-def steps(mesh, cfg_kw, params_np, n=3, int8=False, save=None):
+GATE = ("layers", "ffn", "gate")
+FLAGS = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_in", "ssm_out",
+         "batch_axes")
+
+
+def at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def steps(mesh, cfg_kw, params_np, n=3, int8=False, save=None, leaf=GATE):
     """``n`` steps of the mesh's training step from ``params_np`` on the
     pipeline's batches (seed 0, B8 S32): each step's metrics, the whole
     parameters and moments the blocks gather to (rank 0; None elsewhere),
-    the rank's block shape of ``layers/ffn/gate`` and the layout's cuts.
-    ``save``: a directory to checkpoint the final state in (gathered,
-    written by rank 0)."""
+    the rank's block shape of the leaf at path ``leaf`` and the layout's
+    cuts. ``save``: a directory to checkpoint the final state in
+    (gathered, written by rank 0)."""
     cfg, step, params, opt, pspec, ospec = start(mesh, cfg_kw, params_np,
                                                  int8)
     ds = make_dataset(cfg, batch=BATCH, seq=SEQ, seed=0)
@@ -75,10 +119,51 @@ def steps(mesh, cfg_kw, params_np, n=3, int8=False, save=None):
     lay = step.layout
     return {"metrics": metrics,
             "whole": None if whole is None else np_tree(whole),
-            "gate": tuple(params["layers"]["ffn"]["gate"].shape),
+            "gate": tuple(at(params, leaf).shape),
             "layout": None if lay is None else {
-                k: getattr(lay, k) for k in ("heads", "kv_heads", "mlp",
-                                             "vocab", "batch_axes")}}
+                k: getattr(lay, k) for k in FLAGS}}
+
+
+def pairs(mesh, cfg_kw, params_np):
+    """The MoE layers' kept (token, choice) pairs (:func:`kept_pairs`) in
+    the training forward of the first batch's rows of this rank, with the
+    rank's coordinates."""
+    cfg, step, params, _, pspec, _ = start(mesh, cfg_kw, params_np)
+    batch = make_dataset(cfg, batch=BATCH, seq=SEQ, seed=0).batch_at(0)
+    return {"pairs": kept_pairs(get_model(cfg), params,
+                                shard_batch(batch, mesh), pspec,
+                                step.layout),
+            "coords": dict(mesh.coords)}
+
+
+def kept_pairs(api, params, batch, specs=None, lay=None):
+    """Each MoE layer's kept (token, choice) pairs in one forward of
+    ``batch``: a [B, S k] bool array a layer, in (token, choice) order;
+    on a mesh (``lay``) of this rank's blocks ``params`` under ``specs``
+    and its rows."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models import moe as M
+    got, real = [], M._dispatch_row
+
+    def spy(weights, experts, e, cap, k):
+        out = real(weights, experts, e, cap, k)
+        keep, order = out[4], out[5]
+        tok = torch.empty_like(keep)
+        tok.scatter_(1, order, keep)
+        got.append(tok.cpu().numpy())
+        return out
+
+    M._dispatch_row = spy
+    try:
+        with torch.no_grad():
+            if lay is None:
+                api.loss(params, batch)
+            else:
+                with shd.activate(lay.mesh, lay.rules, lay):
+                    api.loss(tp.to_compute(params, specs, lay), batch)
+    finally:
+        M._dispatch_row = real
+    return got
 
 
 def restore(mesh, cfg_kw, params_np, ckpt_dir, int8=False):
@@ -252,3 +337,121 @@ def run_jobs(mesh, jobs):
             m = meshes[key]
         out.append(globals()[name](m, *args))
     return out
+
+
+# -- comparisons of the tests' results (no JAX) -------------------------------
+
+def port_single(cfg_kw, weights, n, int8=False, lr=1e-3):
+    """``n`` steps of the port's single-device run from the whole weights
+    ``weights`` (numpy) on the pipeline's batches: (the final parameters
+    and moments, each step's metrics, each step's whole-batch gradients),
+    as numpy."""
+    from repro_torch.train.loop import _grad_fn
+    cfg = ModelConfig(**cfg_kw)
+    api = get_model(cfg)
+    ocfg = adamw.AdamWConfig(lr=lr, int8_moments=int8)
+    params = params_from_numpy(weights, "cpu")
+    opt = adamw.init(params, ocfg)
+    fn = make_train_step(api, ocfg, total_steps=100, warmup=5)
+    ds = make_dataset(cfg, batch=BATCH, seq=SEQ, seed=0)
+    metrics, grads = [], []
+    for s in range(n):
+        batch = shard_batch(ds.batch_at(s), device="cpu")
+        grads.append(np_tree(_grad_fn(api)(params, batch)[1]))
+        params, opt, m = fn(params, opt, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return np_tree((params, opt)), metrics, grads
+
+
+def leaves(tree, path=()):
+    """(path, leaf) of a numpy tree (dicts by sorted key, tuples by
+    index)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    elif isinstance(tree, tuple):
+        for i, t in enumerate(tree):
+            yield from leaves(t, path + (i,))
+    else:
+        yield path, tree
+
+
+def assert_params_close(got, want, grads, metrics, int8=False, lr=1e-3):
+    """Parameters ``got`` within rtol 1e-3, atol 1e-5 of ``want`` (the
+    single-device run's), but for elements whose single-device gradient
+    (``grads``, each step's) was at some step a nonzero value within 1e-5
+    of its leaf's largest. There the mesh's gradient (summed in another
+    order, within about 2e-6 of that scale) may have the other sign, and
+    Adam's step (the gradient over its own root mean square) then differs
+    by as much as a step can: such an element may miss the tolerance by
+    no more than twice the clipped step (3) times lr times the sum of the
+    steps' lr_scale, and no more than one element in a thousand may. With
+    ``int8`` moments any element may: a moment within rounding of a code
+    boundary may take the next code on one side (:func:`assert_q8_close`),
+    and a small second moment's code is a coarse step of its block's
+    scale."""
+    bound = 2 * 3 * lr * sum(m["lr_scale"] for m in metrics)
+    missed = total = 0
+    for path, w in leaves(want):
+        g = at(got, path)
+        noisy = np.full(w.shape, int8)
+        for step in grads:
+            s = np.abs(at(step, path))
+            noisy |= (s > 0) & (s <= 1e-5 * s.max())
+        far = np.abs(g - w) > 1e-5 + 1e-3 * np.abs(w)
+        name = "/".join(map(str, path))
+        assert not np.any(far & ~noisy), name
+        assert np.all(np.abs(g - w)[far] <= bound), name
+        missed += int(far.sum())
+        total += w.size
+    assert missed <= total / 1000
+
+
+def assert_close(got, want, **tol):
+    """Numpy trees within ``tol`` (``np.testing.assert_allclose``)."""
+    for path, w in leaves(want):
+        np.testing.assert_allclose(at(got, path), w, err_msg="/".join(
+            map(str, path)), **tol)
+
+
+def assert_q8_close(got, want, steps):
+    """Moments of a mesh run against one device's after ``steps`` steps:
+    an int8 moment's codes off by ``steps`` at most (each step's
+    requantization of a moment within rounding of a code boundary may
+    take the next code on one side, and the moments carry it), in no more
+    than one element in a thousand; its block scales and a float32 moment
+    (a leaf too small for codes) within rtol 1e-3, atol 1e-7."""
+    off = total = 0
+    for path, w in leaves(want):
+        g = at(got, path)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if w.dtype == np.int8:
+            d = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert d.max() <= steps
+            off += int((d > 0).sum())
+            total += w.size
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-7)
+    assert off <= total / 1000
+
+
+def assert_equal_trees(a, b):
+    """Numpy trees bit-equal, leaf for leaf."""
+    la, lb = list(leaves(a)), list(leaves(b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (_, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+
+
+def assert_rank_agrees_with_jax(rank_metrics, want):
+    """One rank's metrics against the single-device JAX step's at each
+    step: ``loss`` within rel 2e-4, ``grad_norm`` within rel 1e-4,
+    ``lr_scale`` within one f32 ulp."""
+    import pytest
+    assert len(rank_metrics) == len(want)
+    for w, g in zip(want, rank_metrics):
+        assert g["loss"] == pytest.approx(w["loss"], rel=2e-4)
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-4)
+        assert abs(g["lr_scale"] - w["lr_scale"]) <= \
+            float(np.spacing(np.float32(w["lr_scale"])))
