@@ -251,7 +251,9 @@ NVIDIA GPU.
    rank runs 4 of the 8 slots' rows) and run b's (reuse + paged, whose
    pool and rows are whole on each data rank; its prefix hits must equal
    run b's), then the module phase: ``decode_attention_seqsharded`` with
-   batch axes ("data",) at glm4-9b's layer (B8 S1024 H32 Hk2 d128, bf16
+   batch axes ("data",) and sequence axes ("model",), then with the batch
+   whole and the sequence over ("model", "data") (the long-context
+   cells' rule), at glm4-9b's layer (B8 S1024 H32 Hk2 d128, bf16
    and int8 KV), each rank's rows held against the single-card
    ``decode_attention`` kernel on the same rows, its call, its local
    part and the kernel timed. Runs p and q hold what n and o hold, print
@@ -285,7 +287,7 @@ NVIDIA GPU.
 11b. Run s: the moe, ssm, hybrid and audio families trained on a 2x2
    mesh, four ranks sharing the card over gloo, in one spawn (a
    subprocess on a lane): ``launch.train``'s rank body (``train_ranks``)
-   on qwen2-moe-a2.7b cut to 2 of 24 layers (bf16, expert-parallel: a
+   on qwen2-moe-a2.7b cut to 1 of 24 layers (bf16, expert-parallel: a
    rank holds 32 of the 64 padded experts), xlstm-1.3b cut to 8 of 48
    (one super-block, float32 as run j serves it), zamba2-1.2b cut to 14
    of 38 (2 shared-attention sites and the 2 remainder layers, bf16) and
@@ -299,13 +301,26 @@ NVIDIA GPU.
    float32 xlstm), a rank must hold exactly its ``param_specs`` blocks
    (its share printed beside the predicted one, and its peak memory),
    and its flash forward and backward launches must be exactly its
-   attention layers' (remat counted: the moe's 2, zamba2's 2 sites,
+   attention layers' (remat counted: the moe's 1, zamba2's 2 sites,
    whisper's 12 encoder, 12 self and 12 cross; xlstm none). The moe
    run's checkpoint of step 4 restores on one card with every leaf
    bit-equal to the ranks' blocks. Its kernel rows (flash forward and
    backward at a rank's layer: the moe's B4 S256 H8 d128, zamba2's H16
    d64, whisper's float32 encoder S1500, cross Sq256 Sk1500 and self
    S256 at H6) follow run r's.
+11c. The dry run (``launch.dryrun``; after the kernel phases): one
+   rank's decode step of runs a-g's model (2 layers, int8, B8 over a
+   1024-position cache, a (1, 1) mesh) counted on the meta device; its
+   counted argument bytes must equal what the same parameters, cache and
+   token take on the card (``torch.cuda.memory_allocated()``) within 1%;
+   its counted temp bytes and roofline bound are printed beside a real
+   step's added peak and its device time. Run q's module phase holds the
+   sequence cut over ("model", "data") (above). On a lane, after run r's
+   failure-injected run: ``python -m repro_torch.launch.dryrun --cells
+   zamba2-1.2b:long_500k,qwen2-moe-a2.7b:decode_32k`` (full configs, rank
+   0 of the 16 x 16 production mesh over a fake process group, no
+   accelerator) must exit 0 with both cells ``ok``; it is checked after
+   run s, and its figures printed.
 12. Prints the ``kernels`` JSON line (each kernel's launches in runs f and
    g, in runs h to l, in the launcher phase's in-process ``serve.main``
    runs, in runs n to q (rank 0), in run m, in run r and in run s by
@@ -3859,29 +3874,40 @@ def mesh_rank(mesh, run, launcher_argv=None):
     return out
 
 
+# run q's cuts of the sequence-sharded decode: (batch axes, sequence axes)
+# by the label of its lines; "model, data" is the long-context cells'
+# "cache_seq_long" rule (the batch whole, the sequence over all 4 ranks)
+SEQ_CUTS = {"model": (("data",), ("model",)),
+            "model, data": ((), ("model", "data"))}
+
+
 def seqsharded_rank_phase(mesh) -> dict:
     """One rank of run q's module phase: ``decode_attention_seqsharded``
-    at ``SEQ_SHARD`` (glm4-9b's layer) with the batch over "data" and the
-    sequence over "model" (batch axes ``("data",)``), bf16 and int8 KV,
-    every rank drawing the whole state from one seed and taking its block.
-    Held against the single-card ``decode_attention`` kernel on the same
-    rows over the whole sequence, updated the same way (within 2^-7 of
-    its output scale, as the decode rows). Timed with CUDA events: the
-    whole call (its two all-reduces through the host over gloo, the card
-    shared by four ranks), the rank's local part alone (the owner's write
-    and the partial flash-decode, PyTorch ops) and the kernel on the
-    rows."""
+    at ``SEQ_SHARD`` (glm4-9b's layer), bf16 and int8 KV, every rank
+    drawing the whole state from one seed and taking its block, in each
+    cut of ``SEQ_CUTS``: the batch over "data" and the sequence over
+    "model" (batch axes ``("data",)``), and the batch whole with the
+    sequence over ("model", "data") (block model * D + data). Held against
+    the single-card ``decode_attention`` kernel on the same rows over the
+    whole sequence, updated the same way (within 2^-7 of its output scale,
+    as the decode rows). Timed with CUDA events: the whole call (its two
+    all-reduces through the host over gloo, the card shared by four
+    ranks), the rank's local part alone (the owner's write and the
+    partial flash-decode, PyTorch ops) and the kernel on the rows."""
     import torch
+    from repro_torch.dist import sharding as shd
     from repro_torch.kernels import ops
     from repro_torch.kernels import sharded_decode as SD
     dev = mesh.device
     b, s, h, hk, d = SEQ_SHARD
-    nb, ns = b // mesh.shape["data"], s // mesh.shape["model"]
-    rows = slice(mesh.data_rank * nb, (mesh.data_rank + 1) * nb)
-    seq = slice(mesh.model_rank * ns, (mesh.model_rank + 1) * ns)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     out = {}
-    for kv in ("bf16", "int8"):
+    for (cut, (batch_axes, seq_axes)), kv in itertools.product(
+            SEQ_CUTS.items(), ("bf16", "int8")):
+        rows = shd.block_index((b,), (batch_axes or None,), mesh,
+                               mesh.rank)[0]
+        seq = shd.block_index((s,), (seq_axes,), mesh, mesh.rank)[0]
+        nb, ns = rows.stop - rows.start, seq.stop - seq.start
         g = torch.Generator(device=dev).manual_seed(17)
         q = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
         length = torch.randint(1, s + 1, (b,), generator=g, device=dev,
@@ -3905,12 +3931,12 @@ def seqsharded_rank_phase(mesh) -> dict:
         scales = {} if kv != "int8" else dict(
             k_scale=blk["ks"], v_scale=blk["vs"], new_k_scale=r["nks"],
             new_v_scale=r["nvs"])
-        lo = mesh.model_rank * ns
+        lo = seq.start
 
         def call():
             return SD.decode_attention_seqsharded(
                 q[rows], blk["k"], blk["v"], r["nk"], r["nv"], pos[rows],
-                length[rows], mesh, ("model",), ("data",), **scales)
+                length[rows], mesh, seq_axes, batch_axes, **scales)
 
         def local():
             SD._local_update(blk["k"], r["nk"], pos[rows], lo)
@@ -3935,9 +3961,10 @@ def seqsharded_rank_phase(mesh) -> dict:
         tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
         per_key = hk * (2 * d + 8) if kv == "int8" else hk * 2 * d * 2
         valid = int(torch.clamp(length[rows] - lo, 0, ns).sum())
-        out[kv] = dict(
+        out[kv if cut == "model" else f"{kv}, sequence over ({cut})"] = dict(
             shape=f"B{b} S{s} H{h} Hk{hk} d{d} {kv}-kv, a rank's "
-                  f"B{nb} S{ns}", max_abs_err=err, tolerance=tol,
+                  f"B{nb} S{ns}", batch_axes=batch_axes, seq_axes=seq_axes,
+            max_abs_err=err, tolerance=tol,
             ms=time_ms(call, flush), local_ms=time_ms(local, flush),
             kernel_rows_ms=time_ms(kern, flush),
             local_bound_ms=bound(valid * per_key + 2 * q[rows].numel()
@@ -4118,7 +4145,8 @@ def end_to_end_mesh(dev, card, run, ref_tokens, spawned=None):
         for kv in sd[0]:
             rs = [x[kv] for x in sd]
             print(f"kernel decode_attention_seqsharded [{card}] "
-                  f"{rs[0]['shape']}, batch axes ('data',), mesh {mesh_s}: "
+                  f"{rs[0]['shape']}, batch axes {rs[0]['batch_axes']}, "
+                  f"sequence axes {rs[0]['seq_axes']}, mesh {mesh_s}: "
                   f"err vs the single-card decode_attention kernel on the "
                   f"same rows by rank {[round(x['max_abs_err'], 6) for x in rs]}"
                   f" (tol {rs[0]['tolerance']:.3e}); ms by rank: the call "
@@ -5004,7 +5032,7 @@ def dist_module_check(card, lanes) -> dict:
 # (14.6 GB) made its one-card run peak at 63 GB and its checkpoint 17 GB,
 # on a card the other lanes share, and so its expert stacks' int8 moments
 # go through the 2x2 checkpoint and its restore
-MESH_FAMILY_RUNS = {"moe": ("qwen2-moe-a2.7b", 2, None, True),
+MESH_FAMILY_RUNS = {"moe": ("qwen2-moe-a2.7b", 1, None, True),
                     "ssm": ("xlstm-1.3b", 8, "float32", False),
                     "hybrid": ("zamba2-1.2b", 14, None, False),
                     "audio": ("whisper-small", None, None, False)}
@@ -5294,6 +5322,139 @@ def mesh_family_launches(e2e, name) -> dict:
             for f, r in e2e["mesh s"]["families"].items()}
 
 
+# the dry-run phase: the count of runs a-g's repro-100m (E2E_LAYERS
+# layers, bf16, int8 per channel) at one decode step of N_SLOTS rows over a
+# MAX_LEN cache on a (1, 1) mesh, held against the card; and the dry-run
+# CLI at two full production cells (16 x 16 fake mesh), on a lane
+DRYRUN_VARIANT = "axllm-int8"
+DRYRUN_ARG_TOL = 0.01       # |counted - allocated| / counted argument bytes
+DRYRUN_CELLS = ("zamba2-1.2b:long_500k", "qwen2-moe-a2.7b:decode_32k")
+
+
+def dryrun_phase(dev, card, flush) -> dict:
+    """The port's dry run (``launch.dryrun.count_cell``: one rank's
+    program on meta tensors) of the decode step of runs a-g's model on a
+    (1, 1) mesh, against the same step on the card: the counted argument
+    bytes must equal the growth of ``torch.cuda.memory_allocated()`` when
+    the same quantized parameters, cache and token are made on the card,
+    within ``DRYRUN_ARG_TOL``; printed without a gate: the counted temp
+    bytes beside the peak a real step adds (its second call, after the
+    first made the kernels' plans and buffers), and the roofline bound of
+    the counted FLOPs and bytes (H100 SXM peaks) beside the step's device
+    time (CUDA events, L2 flushed) and its busy time (torch.profiler)."""
+    import torch
+    from repro_torch.core.axllm_linear import deploy_quantize
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import shapes as shp
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import get_model
+    from repro_torch.roofline import analysis as ra
+    cfg = e2e_config()
+    spec = shp.ShapeSpec("chip_decode", MAX_LEN, N_SLOTS, "decode")
+    t0 = time.perf_counter()
+    rec = DR.count_cell(cfg, spec, Mesh(1, 1, 0, "meta"), DRYRUN_VARIANT,
+                        DR.cell_rules(DRYRUN_VARIANT, spec))
+    count_s = time.perf_counter() - t0
+    api = get_model(cfg)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = deploy_quantize(api.init(seed=0, device=dev), DR._qcfg(cfg))
+    cache = api.init_cache(N_SLOTS, MAX_LEN, dev)
+    token = torch.zeros(N_SLOTS, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) - base
+    mem = rec["memory"]
+    args = mem["argument_size_in_bytes"]
+    rel = abs(held - args) / args
+
+    def step():
+        with torch.inference_mode():
+            return api.decode(params, token, cache)
+
+    step()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    step()
+    torch.cuda.synchronize(dev)
+    temp = torch.cuda.max_memory_allocated(dev) - before
+    ms = time_ms(step, flush)
+    _, busy, _ = device_busy_ms(step)
+    cost = rec["cost_analysis"]
+    terms = ra.roofline_terms(cost["flops"], cost["bytes accessed"],
+                              rec["collective_bytes"], 1)
+    bound_ms = terms["bound_step_s"] * 1e3
+    print(f"dryrun [{card}] {cfg.name} {cfg.n_layers} layers, decode B"
+          f"{N_SLOTS} S{MAX_LEN}, (1, 1) mesh, {DRYRUN_VARIANT}: counted on "
+          f"the meta device in {count_s:.2f} s; argument bytes counted "
+          f"{args} against {held} allocated on the card (rel {rel:.2e}, tol "
+          f"{DRYRUN_ARG_TOL}); temp bytes counted {mem['temp_size_in_bytes']}"
+          f" (the plain versions' intermediates) against {temp} a real step "
+          f"adds at its peak; roofline bound {bound_ms:.4f} ms "
+          f"({terms['dominant']}: {cost['flops']:.4e} FLOPs, "
+          f"{cost['bytes accessed']:.4e} bytes counted) against the step's "
+          f"{ms:.4f} ms device time (events) and {busy:.4f} ms busy",
+          flush=True)
+    check(rel <= DRYRUN_ARG_TOL, f"dry run: counted argument bytes {args} "
+          f"against {held} allocated")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, layers=cfg.n_layers, count_s=count_s,
+                argument_bytes=args, allocated_bytes=held, rel_err=rel,
+                temp_bytes=mem["temp_size_in_bytes"], step_peak_bytes=temp,
+                bound_ms=bound_ms, dominant=terms["dominant"], step_ms=ms,
+                step_busy_ms=busy, flops=cost["flops"],
+                bytes_accessed=cost["bytes accessed"])
+
+
+def dryrun_submit(lane):
+    """Queue ``python -m repro_torch.launch.dryrun --cells DRYRUN_CELLS``
+    (the 16 x 16 production mesh, full configs) on ``lane``; returns its
+    output directory."""
+    import shutil
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    lane.submit("dryrun", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--cells", ",".join(DRYRUN_CELLS),
+                           "--out", str(out)])
+    return out
+
+
+def dryrun_check(card, lane, out) -> dict:
+    """The dry-run CLI's run: exit 0 and every cell ``ok``; prints each
+    record's figures (rank 0 of 256) and its roofline terms."""
+    from repro_torch.launch import report
+    from repro_torch.roofline import analysis as ra
+    rc, stdout, stderr, wall = lane.result("dryrun")
+    check(rc == 0, f"dry-run CLI exit {rc}: {stderr[-2000:]}")
+    recs = report.load(out)
+    got = {}
+    for (cell, mesh, _), rec in sorted(recs.items()):
+        check(rec["status"] == "ok", f"dry run {cell}: {rec.get('error')}")
+        fl, by, co, inter, _ = report.global_totals(rec)
+        t = ra.roofline_terms(fl, by, co, rec["chips"], inter_bytes=inter)
+        mem = rec["memory"]
+        print(f"dryrun cli [{card}] {cell} {mesh} rank {rec['rank']}: ok, "
+              f"counted in {rec['count_s']} s; argument "
+              f"{mem['argument_size_in_bytes']} B, temp "
+              f"{mem['temp_size_in_bytes']} B, "
+              f"{rec['cost_analysis']['flops']:.4e} FLOPs, collectives "
+              f"{rec['collective_bytes']:.4e} B ("
+              f"{rec['collective_inter_bytes']:.4e} across nodes); terms "
+              f"compute {t['compute_s']:.3e} s, memory {t['memory_s']:.3e}"
+              f" s, collective {t['collective_s']:.3e} s ({t['dominant']})",
+              flush=True)
+        got[cell] = dict(status=rec["status"], count_s=rec["count_s"],
+                         memory=mem, cost=rec["cost_analysis"],
+                         collective_bytes=rec["collective_bytes"],
+                         terms=t)
+    check(sorted(got) == sorted(DRYRUN_CELLS),
+          f"dry-run CLI records {sorted(got)}")
+    print(f"dryrun cli [{card}]: {len(got)} cells in {wall:.1f} s on a "
+          "lane", flush=True)
+    return dict(cells=got, wall_s=wall)
+
+
 PREFILL_SHAPE = "M4096 K768 N2048 8b-affine-per_channel"
 CODEBOOK_SHAPE = "M4096 K768 N2048 4b-codebook-per_channel"
 
@@ -5387,6 +5548,8 @@ def main() -> int:
     rows += mesh_train_kernel_phase(dev, flush)
     rows += mesh_family_kernel_phase(dev, flush)
     stamp("the mesh runs' kernel rows")
+    dryrun = dryrun_phase(dev, card, flush)
+    stamp("the dry-run phase")
     small_input_check(dev)
     dense, dense_tokens = end_to_end(dev, card)
     stamp("run a")
@@ -5425,6 +5588,7 @@ def main() -> int:
         launcher = launcher_phase(dev, card, lanes[0])
         train_ckpt = train_launcher_submit(lanes[1])
         mesh_train_submit(lanes)                    # run r, after those
+        dryrun_out = dryrun_submit(lanes[1])        # the dry-run CLI
         stamp("launcher phase in process")
         host = {run: label for label, run in LAUNCH_MESH_RUN.items()}
 
@@ -5451,6 +5615,8 @@ def main() -> int:
         mesh_family_submit(lanes[2])                # run s, alone
         e2e["mesh s"] = end_to_end_mesh_family(card, lanes[2])
         stamp("run s")
+        dryrun["cli"] = dryrun_check(card, lanes[1], dryrun_out)
+        stamp("the dry-run CLI")
         # full depth: runs a and b's tokens are another model's
         e2e["mesh q"] = end_to_end_mesh(
             dev, card, "q", {"b hits": reuse_paged["prefix_hit_tokens"]},
@@ -5576,7 +5742,8 @@ def main() -> int:
             e2e, "flash_attention_bwd")))
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, cases=rows, tensor_core_sweep=sweep,
-             e2e=e2e, simulator=simulator, chaos=chaos), indent=1,
+             e2e=e2e, simulator=simulator, chaos=chaos, dryrun=dryrun),
+        indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run used one card, whatever else the machine shows

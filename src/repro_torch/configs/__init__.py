@@ -23,6 +23,14 @@ REGISTRY = {c.name: c for c in [
     _glm4, _whisper, _zamba2, _repro100m,
 ]}
 
+# the assigned architectures, in the JAX package's order: the dry run's
+# (arch x shape) cells (``launch.shapes.all_cells``)
+ASSIGNED = [c.name for c in [
+    _chameleon, _arctic, _qwen2_moe, _xlstm, _internlm2, _qwen2, _granite,
+    _glm4, _whisper, _zamba2,
+]]
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")

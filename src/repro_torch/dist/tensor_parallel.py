@@ -104,9 +104,11 @@ class Layout:
     target) names of this family that the forward takes as blocks, by
     flag. ``rules``: the serving rules every spec resolves under.
     ``batch_axes``: the axes the dense cache's slot rows are cut over
-    (``("data",)`` or none), which the sequence-sharded decode takes; in
-    a training layout (``train``, :func:`train_layout`) the axes the
-    batch's rows are cut over."""
+    (any of ``("pod", "data")``, or none), which the sequence-sharded
+    decode takes; in a training layout (``train``, :func:`train_layout`)
+    the axes the batch's rows are cut over. ``seq_axes``: the axes the
+    dense cache's sequence is cut over where ``seq`` ("model", or
+    ("model", "data") under the "cache_seq_long" rule)."""
     mesh: object
     rules: Dict[str, object]
     groups: Dict[str, str]
@@ -120,6 +122,7 @@ class Layout:
     ssm_out: bool = False
     batch_axes: Tuple[str, ...] = ()
     train: bool = False
+    seq_axes: Tuple[str, ...] = ("model",)
 
     @property
     def size(self) -> int:
@@ -324,8 +327,7 @@ def plan(cfg, mesh, rules, *, n_slots: int, max_len: int, paged: bool,
     k = shd.cache_specs(
         {"k": torch.empty((n_slots, max_len, hk, hd), device="meta")},
         mesh, n_slots, max_len, rules=rules)["k"].spec
-    batch = () if k[0] is None else (k[0],) if isinstance(k[0], str) \
-        else tuple(k[0])
+    batch, seq_axes = shd._axes(k[0]), shd._axes(k[1]) or ("model",)
     if paged:
         k = shd.paged_cache_specs(
             {"k": torch.empty((1, 1, hk, hd), device="meta")}, mesh,
@@ -347,7 +349,8 @@ def plan(cfg, mesh, rules, *, n_slots: int, max_len: int, paged: bool,
     if not flags["heads"]:
         flags["kv_heads"] = False   # a rank's q heads must own its KV heads
     return Layout(mesh, dict(rules), groups,
-                  batch_axes=batch if not paged else (), **flags)
+                  batch_axes=batch if not paged else (), seq_axes=seq_axes,
+                  **flags)
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,13 @@ def _partial_attend(q, k, v, k_scale, v_scale, lo, length, scale):
     return m, l, acc
 
 
+def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
+    """A fresh tensor of the ``op`` of ``x`` over ``group`` (None: one
+    rank), in x's type (float32 here)."""
+    x = x.clone()
+    return x if group is None else tp._all_reduce(x, group, op)
+
+
 def decode_attention_seqsharded(q, k_cache, v_cache, new_k, new_v, pos,
                                 length, mesh, seq_axes: Tuple[str, ...],
                                 batch_axes: Tuple[str, ...],
@@ -77,23 +84,30 @@ def decode_attention_seqsharded(q, k_cache, v_cache, new_k, new_v, pos,
     caches are updated in place. Returns (out [B, H, d], k_cache, v_cache)
     and, quantized, the two scale caches after them: JAX's results.
 
-    ``mesh`` is the rank's ``launch.mesh.Mesh``; the sequence is cut over
-    its "model" axis (``seq_axes == ("model",)``), and the batch, where it
-    is cut, over its "data" axis (``batch_axes == ("data",)``, JAX's
-    ``_seq_shard_ctx`` under the serving rules): the rows are the rank's
-    own, and the combine runs over the "model" group only."""
-    if tuple(seq_axes) != ("model",):
-        raise NotImplementedError(
-            f"sequence axes {seq_axes}: the port cuts the sequence over "
-            "'model' only (the 'cache_seq_long' rule's ('model', 'data') "
-            "is ROADMAP queue 1 item 12d)")
-    if tuple(batch_axes) not in ((), ("data",)):
-        raise NotImplementedError(
-            f"batch axes {batch_axes}: a serving mesh cuts the batch over "
-            "'data' only (ROADMAP queue 1 item 12d)")
+    ``mesh`` is the rank's ``launch.mesh.Mesh``. The sequence is cut over
+    ``seq_axes``: its "model" axis (the serving rules' "cache_seq"), or
+    ("model", "data") (the "cache_seq_long" rule: the long-context cells,
+    whose batch of one leaves "data" idle), block ``i * D + j`` at model
+    rank i and data rank j, as JAX's ``PartitionSpec(("model", "data"))``
+    lays it out. The batch, where it is cut, is cut over ``batch_axes``,
+    any of ("pod", "data") that the sequence does not take (JAX's
+    ``_seq_shard_ctx``): the rows are the rank's own, and the combine runs
+    over the sequence's group only."""
+    seq_axes, batch_axes = tuple(seq_axes), tuple(batch_axes)
+    if seq_axes not in (("model",), ("model", "data")):
+        raise ValueError(f"sequence axes {seq_axes}: the sequence is cut "
+                         "over ('model',) or ('model', 'data')")
+    if not set(batch_axes) <= {"pod", "data"} - set(seq_axes):
+        raise ValueError(f"batch axes {batch_axes}: the batch is cut over "
+                         "'pod' and 'data', and not over an axis the "
+                         f"sequence {seq_axes} takes")
     d = q.shape[-1]
     s_local = k_cache.shape[1]
-    lo = shd.mesh_coords(mesh, mesh.rank)["model"] * s_local
+    coords, block = shd.mesh_coords(mesh, mesh.rank), 0
+    for ax in seq_axes:
+        block = block * mesh.shape.get(ax, 1) + coords.get(ax, 0)
+    lo = block * s_local
+    group = mesh.group_of(*seq_axes)
     quantized = k_scale is not None
     _local_update(k_cache, new_k, pos, lo)
     _local_update(v_cache, new_v, pos, lo)
@@ -102,10 +116,10 @@ def decode_attention_seqsharded(q, k_cache, v_cache, new_k, new_v, pos,
         _local_update(v_scale, new_v_scale, pos, lo)
     m, l, acc = _partial_attend(q, k_cache, v_cache, k_scale, v_scale, lo,
                                 length, 1.0 / (d ** 0.5))
-    m_g = tp.all_reduce_max(m, mesh)
+    m_g = _all_reduce(m, group, "MAX")
     corr = torch.exp(m - m_g)
     both = torch.cat([acc * corr[..., None], (l * corr)[..., None]], -1)
-    both = tp.all_reduce_sum(both, mesh)
+    both = _all_reduce(both, group, "SUM")
     acc, l = both[..., :d], both[..., d]
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     if quantized:

@@ -19,8 +19,10 @@ A rank's device is ``cuda:{rank % device_count}``. With a card per rank
 the ranks talk over NCCL; ranks that share a card talk over gloo (NCCL
 refuses two ranks on one card): the kernels still run on the card, and
 each collective goes through the host. No rank falls back to the CPU: a
-mesh asked for on the card fails where there is none. The production
-meshes of the dry-run tools wait for ROADMAP queue 1 item 12d.
+mesh asked for on the card fails where there is none. The dry-run tools'
+production meshes (:func:`make_production_mesh`, over
+:func:`make_fake_mesh`) are one rank's place in 256 or 512 ranks on the
+meta device, over a process group that moves no data.
 
 Importing this module starts no process and joins no group.
 """
@@ -221,6 +223,43 @@ def make_host_mesh(data=1, model: int = 1, device=None) -> Mesh:
     host_group = dist.new_group(backend="gloo")
     return Mesh(rank=rank, device=device, host_group=host_group,
                 backend=backend, axes=axes, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s place in a production mesh of the dry-run tools:
+    (16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model")
+    with ``multi_pod``, the JAX package's shapes, on the meta device
+    (:func:`make_fake_mesh`)."""
+    return make_fake_mesh({"pod": 2, "data": 16, "model": 16} if multi_pod
+                          else {"data": 16, "model": 16}, rank)
+
+
+def make_fake_mesh(axes: Dict[str, int], rank: int = 0) -> Mesh:
+    """Rank ``rank``'s place in a mesh of ``axes`` on the meta device, in
+    this one process. Its groups are made over torch's "fake" backend
+    (``torch.testing._internal.distributed.fake_pg``, torch's internal
+    test backend): every collective returns at once and moves nothing, so
+    one process runs one rank's program with every collective in place,
+    on tensors that hold no data. There is no gloo host group. The fake
+    group is the process's default group: a mesh of another world size or
+    rank destroys it and makes it again, and a process whose default group
+    is another backend's raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    axes = dict(axes)
+    world = math.prod(axes.values())
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh needs the fake process group; "
+                               f"this process is in a {dist.get_backend()} "
+                               "group")
+        if dist.get_world_size() != world or dist.get_rank() != rank:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+    return Mesh(rank=rank, device="meta", backend="fake", axes=axes,
+                groups=_make_groups(axes, rank))
 
 
 def _spec_name(axes: Dict[str, int]) -> str:

@@ -354,7 +354,7 @@ def attention_decode(p, x, cfg, layer_cache, pos, *, impl: str = "auto",
         new = {name: t[:, 0] for name, t in entries.items()}
         out = SD.decode_attention_seqsharded(
             q[:, 0], layer_cache["k"], layer_cache["v"], new["k"], new["v"],
-            pos, length, lay.mesh, ("model",), lay.batch_axes,
+            pos, length, lay.mesh, lay.seq_axes, lay.batch_axes,
             k_scale=layer_cache.get("k_scale"),
             v_scale=layer_cache.get("v_scale"),
             new_k_scale=new.get("k_scale"), new_v_scale=new.get("v_scale"))[0]

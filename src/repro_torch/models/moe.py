@@ -161,12 +161,16 @@ def moe_ffn(p, x, cfg, impl: str = "auto"):
 
     # the experts that hold a pair (every such expert keeps its first one),
     # of those this rank holds under an expert cut
-    run = torch.unique(e_sorted)
-    lo = 0
-    if ep:
-        held = e // lay.size
-        lo = lay.rank * held
-        run = run[(run >= lo) & (run < lo + held)]
+    held = e // lay.size if ep else e
+    lo = lay.rank * held if ep else 0
+    if x.device.type == "meta":
+        # no values to route by: every expert of the rank runs at capacity,
+        # the work of JAX's static program (an einsum over every expert)
+        run = torch.arange(lo, lo + held, device=x.device)
+    else:
+        run = torch.unique(e_sorted)
+        if ep:
+            run = run[(run >= lo) & (run < lo + held)]
     n_run = run.numel()
     # slot n_run takes the pairs of experts this rank does not run, and row
     # cap of each expert the dropped pairs; both are sliced off

@@ -26,8 +26,10 @@ engine gives:
   whole weights quantized and then cut;
 - mesh (1, 1) equals ``mesh=None`` in every token and counter;
 - a moe engine and an engine with a data axis above 1 build their blocks
-  and rows; a sequence cut over another axis than "model" raises naming
-  item 12d, an encoder-decoder the JAX engine's error.
+  and rows; an encoder-decoder raises the JAX engine's error;
+- the sequence-sharded decode with its sequence cut over ("model",
+  "data") and its batch over ("pod", "data"), on 4 ranks of other meshes
+  beside the (1, 4) spawn, equals the unsharded plain decode.
 """
 
 import concurrent.futures
@@ -89,6 +91,88 @@ GROUP_MODES = {"per-group": dict(per_group=32),
 KV_CFG = ModelConfig(**dict(TINY, quant_kv=True))
 
 
+def _seq_case(quantized: bool, seed: int):
+    """A decode state of 4 rows over 32 positions (int8 codes and f32
+    scales, or float K/V) and the cache expected after the update."""
+    b, s, h, hk, d = 4, 32, 4, 2, 16
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    if quantized:
+        kv = [rng.integers(-127, 128, size=shape).astype(np.int8)
+              for shape in ((b, s, hk, d),) * 2 + ((b, hk, d),) * 2]
+    else:
+        kv = [rng.normal(size=shape).astype(np.float32)
+              for shape in ((b, s, hk, d),) * 2 + ((b, hk, d),) * 2]
+    length = np.asarray([5, 32, 17, 1], np.int32)
+    inputs = dict(q=q, k=kv[0], v=kv[1], nk=kv[2], nv=kv[3],
+                  pos=length - 1, length=length)
+    if quantized:
+        sc = [rng.uniform(0.01, 0.05, size=shape).astype(np.float32)
+              for shape in ((b, s, hk, 1),) * 2 + ((b, hk, 1),) * 2]
+        inputs.update(ks=sc[0], vs=sc[1], nks=sc[2], nvs=sc[3])
+    exp = {k: inputs[k].copy() for k in ("k", "v", "ks", "vs")
+           if k in inputs}
+    for i, p in enumerate(inputs["pos"]):
+        for k, new in (("k", "nk"), ("v", "nv"), ("ks", "nks"),
+                       ("vs", "nvs")):
+            if k in exp:
+                exp[k][i, p] = inputs[new][i]
+    return inputs, exp
+
+
+SEQ_CASES_NAMED = {"int8": (_seq_case(True, 0), "float32"),
+                   "bf16": (_seq_case(False, 1), "bfloat16")}
+SEQ_CASES = [(inputs, dtype) for (inputs, _), dtype in
+             SEQ_CASES_NAMED.values()]
+# the 4-rank cuts of the sequence-sharded decode beside the 1x4 serving
+# mesh: (name, batch axes, sequence axes, mesh axes)
+SEQ_CUTS = {
+    "seq model,data": ("seq model,data", (), ("model", "data"),
+                       {"data": 2, "model": 2}),
+    "batch pod,data": ("batch pod,data", ("pod", "data"), ("model",),
+                       {"pod": 2, "data": 1, "model": 2}),
+    "batch pod,data 2x2x1": ("batch pod,data 2x2x1", ("pod", "data"),
+                             ("model",), {"pod": 2, "data": 2, "model": 1}),
+}
+
+
+def _seq_oracle(name, cut, per_rank):
+    """Every rank's output rows and cache blocks of ``SEQ_CUTS[cut]`` on
+    case ``name`` put together, against the updated cache and the port's
+    unsharded ``kernels.ref.decode_attention_ref`` on it."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.ref import decode_attention_ref
+    (inputs, exp), dtype = SEQ_CASES_NAMED[name]
+    i = list(SEQ_CASES_NAMED).index(name)
+    _, batch_axes, seq_axes, axes = SEQ_CUTS[cut]
+    b = inputs["q"].shape[0]
+    out = np.zeros(inputs["q"].shape, np.float32)
+    caches = {k: np.zeros(v.shape, np.float32) for k, v in exp.items()}
+    for r, res in enumerate(per_rank):
+        mesh = TM.Mesh(axes=axes, rank=r, device="cpu")
+        rows = shd.block_index((b,), (batch_axes or None,), mesh, r)[0]
+        got = res["seqsharded"][cut][i]
+        out[rows] = got[0]
+        for key, block in zip(("k", "v", "ks", "vs"), got[1:]):
+            idx = shd.block_index(exp[key].shape, (batch_axes or None,
+                                                   seq_axes), mesh, r)
+            caches[key][idx] = block
+    t = {k: torch.from_numpy(v) for k, v in exp.items()}
+    q = torch.from_numpy(inputs["q"])
+    if dtype == "bfloat16":
+        q, t["k"], t["v"] = (x.to(torch.bfloat16).float()
+                             for x in (q, t["k"], t["v"]))
+    for key, want in t.items():     # the owners' writes are exact
+        np.testing.assert_array_equal(caches[key], want.float().numpy())
+    ref = decode_attention_ref(q, t["k"], t["v"],
+                               torch.from_numpy(inputs["length"]),
+                               k_scale=t.get("ks"), v_scale=t.get("vs"))
+    ref = ref.float().numpy()
+    tol = dict(rtol=0, atol=1e-2 * float(np.abs(ref).max())) \
+        if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(out, ref, **tol)
+
+
 def _jax_serve(jcfg, jparams, mode):
     kw = dict(JAX_MODES[mode])
     targets = kw.pop("lora", None)
@@ -126,9 +210,11 @@ def runs():
             ("serve_modes", (GROUP_CFG, gparams, GROUP_MODES, PROMPT_LENS)),
             ("serve_modes", (KV_CFG, params, KV_MODES, PROMPT_LENS)),
             ("quantized_blocks", (CFG, params))]
+    seq = [("seqsharded_meshes", (SEQ_CASES, list(SEQ_CUTS.values())))]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futs = {w: pool.submit(TM.run_ranks, R.run_jobs, w, "cpu", jobs,
-                               threads=1) for w in (2, 4)}
+        futs = {w: pool.submit(TM.run_ranks, R.run_jobs, w, "cpu",
+                               jobs + (seq if w == 4 else []), threads=1)
+                for w in (2, 4)}
         jax_out = {m: _jax_serve(jcfg, jparams, m) for m in JAX_MODES}
         single = [R.run_jobs(None, [job])[0] for job in jobs]
         meshes = {w: f.result() for w, f in futs.items()}
@@ -217,15 +303,26 @@ def test_mesh_1x1_is_the_single_device_engine():
     assert b["all"]["layout"] is None
 
 
-def test_unserved_meshes_raise_item_12b():
+@pytest.mark.parametrize("cut", list(SEQ_CUTS))
+@pytest.mark.parametrize("name", list(SEQ_CASES_NAMED))
+def test_seqsharded_cuts_on_4_ranks_match_ref(runs, name, cut):
+    """The sequence cut over ("model", "data") (the "cache_seq_long"
+    rule) at 2x2, and the batch cut over ("pod", "data") at 2x1x2 and
+    2x2x1, bf16 and int8 KV, on 4 gloo ranks: the rows put together equal
+    the updated cache and the unsharded plain decode."""
+    _seq_oracle(name, cut, runs[2][4])
+
+
+def test_unserved_meshes_raise_item_12b(runs):
     """The meshes item 12b lifted build their engines (served on ranks:
     tests/test_torch_mesh_moe.py, tests/test_torch_mesh_recurrent.py,
     tests/test_torch_mesh_data.py): a moe engine on rank 1 of (1, 2) holds
     the second half of the expert stacks, a dense engine on rank 3 of
     (2, 2) its slot row and its KV heads. What stays refused names its
-    item: a sequence cut over another axis than "model" (the dry-run's
-    "cache_seq_long" rule) is item 12d, and an encoder-decoder raises the
-    JAX engine's error, mesh or not."""
+    item: an encoder-decoder raises the JAX engine's error, mesh or not. A
+    sequence cut over ("model", "data") (the dry-run's "cache_seq_long"
+    rule), which item 12d lifted, equals the unsharded plain decode on
+    every rank of a 2x2 mesh."""
     from repro_torch.kernels.sharded_decode import \
         decode_attention_seqsharded
     moe = get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
@@ -242,13 +339,14 @@ def test_unserved_meshes_raise_item_12b():
                         mesh=TM.Mesh(2, 2, 3, "cpu"))
     assert (dense._rows.lo, dense._rows.n) == (1, 1)
     assert dense.cache["k"].shape == (2, 1, 64, 1, 16)
+    _seq_oracle("int8", "seq model,data", runs[2][4])
     x = torch.zeros((2, 4, 16))
     kv = torch.zeros((2, 16, 2, 16))
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(ValueError, match="not over an axis the sequence"):
         decode_attention_seqsharded(
             x, kv, kv, x[:, :2], x[:, :2], torch.zeros(2, dtype=torch.int32),
             torch.ones(2, dtype=torch.int32), TM.Mesh(2, 2, 0, "cpu"),
-            ("model", "data"), ())
+            ("model", "data"), ("data",))
     whisper = get_config("whisper-small").reduced(dtype="float32")
     with pytest.raises(NotImplementedError,
                        match="encoder-decoder serving needs a frames"):

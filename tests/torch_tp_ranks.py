@@ -140,35 +140,41 @@ def restore_layout(mesh, cfg, ckpt_dir, n_slots=2):
     return out
 
 
-def seqsharded(mesh, cases, batch_axes=()):
+def seqsharded(mesh, cases, batch_axes=(), seq_axes=("model",), axes=None):
     """``decode_attention_seqsharded`` on this rank's rows of each case's
     caches (numpy, the JAX test's layout; ``dtype`` "bfloat16" casts the
-    float inputs), the sequence cut over "model" and, with ``batch_axes``
-    ``("data",)``, the batch over "data"; returns each case's output and
-    the rank's rows."""
+    float inputs), the sequence cut over ``seq_axes`` (block i * D + j at
+    model rank i and data rank j for ("model", "data")) and the batch over
+    ``batch_axes``; ``axes`` builds another mesh of the same ranks for it
+    (such as {"pod": 2, "data": 1, "model": 2}). Returns each case's output
+    and the rank's rows."""
+    from repro_torch.dist import sharding as shd
     from repro_torch.kernels.sharded_decode import decode_attention_seqsharded
-    p, r = mesh.shape["model"], mesh.model_rank
+    if axes is not None:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(axes, device=mesh.device)
     out = []
     for inputs, dtype in cases:
         t = {k: torch.from_numpy(np.array(v)).to(mesh.device)
              for k, v in inputs.items()}
         if batch_axes:
-            n = t["q"].shape[0] // mesh.shape["data"]
-            t = {k: v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
-                 for k, v in t.items()}
+            rows = shd.block_index((t["q"].shape[0],), (tuple(batch_axes),),
+                                   mesh, mesh.rank)[0]
+            t = {k: v[rows] for k, v in t.items()}
         if dtype == "bfloat16":
             for k in ("q", "k", "v", "nk", "nv"):
                 t[k] = t[k].to(torch.bfloat16)
-        s_loc = t["k"].shape[1] // p
-        rows = {k: t[k][:, r * s_loc:(r + 1) * s_loc].clone()
-                for k in ("k", "v", "ks", "vs") if k in t}
+        cut = shd.block_index(t["k"].shape, (None, tuple(seq_axes)), mesh,
+                              mesh.rank)
+        rows = {k: t[k][cut].clone() for k in ("k", "v", "ks", "vs")
+                if k in t}
         scales = {}
         if "ks" in rows:
             scales = dict(k_scale=rows["ks"], v_scale=rows["vs"],
                           new_k_scale=t["nks"], new_v_scale=t["nvs"])
         res = decode_attention_seqsharded(
             t["q"], rows["k"], rows["v"], t["nk"], t["nv"], t["pos"],
-            t["length"], mesh, ("model",), batch_axes, **scales)
+            t["length"], mesh, seq_axes, batch_axes, **scales)
         out.append([x.float().cpu().numpy() if x.dtype == torch.bfloat16
                     else x.cpu().numpy() for x in res])
     return out
@@ -241,3 +247,11 @@ def run_jobs(mesh, jobs):
     """Every ``(name, args)`` of ``jobs`` in turn: the rank body ``name`` of
     this module on ``mesh``, so that one spawn serves a test module."""
     return [globals()[name](mesh, *args) for name, args in jobs]
+
+
+def seqsharded_meshes(mesh, cases, cuts):
+    """{"seqsharded": {name: :func:`seqsharded` of ``cases``}}, one entry a
+    ``(name, batch_axes, seq_axes, axes)`` of ``cuts``: the cuts of the
+    sequence and the batch on other meshes of the same ranks."""
+    return {"seqsharded": {name: seqsharded(mesh, cases, b, s, axes)
+                           for name, b, s, axes in cuts}}
